@@ -16,9 +16,19 @@ Phases, one line each; any failure raises (non-zero exit):
   5. render the occupancy grid, round-trip a checkpoint file and continue
      5 scans on the restored instance;
   6. trace a window of scans with torch.profiler and report the device's
-     busy time and idle share (kernel, memcpy and memset events only).
-The last lines are a JSON line of per-kernel results, the nvidia-smi line
-and {"ok": true, "device": {...}}.
+     busy time and idle share (kernel, memcpy and memset events only);
+  7. the matcher API at the default sequential config on the tour's SLAM
+     poses: return_meta=True match_scan (results equal to the matcher
+     without meta, meta grid bit-equal to the host's), match_scan_sets
+     (3 query scans against the previous 10) and match_many_mega against
+     match_many, each held to the plain path on the host in float32;
+  8. localize against the tour's map: convert the 0.05 m occupancy image
+     on the card, offset 3 consecutive scans by (+0.08, -0.06) m and run
+     match_scan_sets_with_map; poses back within 0.1 m of the SLAM poses
+     and within 1e-6 of the host's float32 plain path.
+Each path's kernel launches are counted from 0 just before it runs.  The
+last lines are a JSON line of per-kernel results, the nvidia-smi line and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -52,6 +62,25 @@ HOLD_BACK = 5   # scans processed after the checkpoint round trip
 HOST_RUNS = ((torch.float32, 300, 1e-6, 1e-6), (torch.float64, 50, 0.02, 0.00698))
 PROFILE_SCANS = (150, 210)   # the traced window of phase 6
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the kernels of GraphSlam.process_scan (phase 4); smear_grid runs on the
+# meta, scan-set and localize paths (phases 7 and 8)
+SLAM_KERNELS = ("scatter_cells", "smear_quantize", "window_sum")
+H0_S, H0_G = 1024, 1100     # the one-tap (h = 0) smear case of phase 3
+META_QUERIES = (60, 150, 240)   # tour scans matched with return_meta
+SET_QUERY = 300                 # scans 300-302 against 290-299
+MEGA_QUERIES = range(100, 116)  # one batch of 16 sequential jobs
+MEGA_CHUNK = 4
+# match_scan_sets_with_map composes each query pose with the correction as
+# q + diff (the JAX package's order), which turns the correction by the
+# query's heading: at heading t the pose comes back off by 2|offset|
+# sin(t/2).  So the localized scans are three that face along +x (checked).
+LOCALIZE_SCANS = (139, 142)
+LOCALIZE_MAX_HEADING = 0.05
+LOCALIZE_OFFSET = (0.08, -0.06)
+# phases 7-8 against the host's float32 plain path: response and pose
+# within 1e-6 (the lattice values are the same; sums differ in order),
+# covariance within 1e-4 relative (window moments of float32 sums)
+API_TOL, COV_RTOL = 1e-6, 1e-4
 
 
 def log(msg):
@@ -85,6 +114,8 @@ def cuda_ms(fn, reps=TIMING_REPS, warmup=3):
 def max_abs_err(x, y):
     if x.shape != y.shape or x.dtype != y.dtype:
         raise AssertionError(f"{x.shape}/{x.dtype} vs {y.shape}/{y.dtype}")
+    if x.dtype.is_floating_point:
+        return float((x.double() - y.double()).abs().max())
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
 
 
@@ -113,6 +144,8 @@ def check_kernels(K, taps_seq, taps_loop, dev):
         ("seq_masked", dict(N=1, S=SEQ_S, h=SEQ_H, G=SEQ_G,
                             so=SEQ_G - SEQ_S + 100), taps_seq),
         ("loop", dict(N=4, S=LOOP_S, h=LOOP_H, G=LOOP_G, so=0), taps_loop),
+        ("h0", dict(N=2, S=H0_S, h=0, G=H0_G, so=H0_G - H0_S + 24),
+         torch.ones(1, dtype=torch.float32, device=dev)),
     ]
     for name, c, taps in cases:
         sy, sx, lim = grid_case(rng, dev, **c)
@@ -128,15 +161,26 @@ def check_kernels(K, taps_seq, taps_loop, dev):
         q = K.smear_quantize(occ, lim, taps, S, h)
         q_ref = K.smear_quantize_ref(occ, lim, taps, S, h)
         err_q = max_abs_err(q, q_ref)
-        if name == "seq_masked" and int(q[:, :, int(lim[0, 1]):].max()) != 0:
+        if name in ("seq_masked", "h0") and int(q[:, :, int(lim[0, 1]):].max()) != 0:
             raise AssertionError("full-grid mask did not zero the overhang")
         results["smear_quantize"].append(dict(
             case=name, shape=[c["N"], S, S], h=h, max_abs_err=err_q,
             ms=cuda_ms(lambda: K.smear_quantize(occ, lim, taps, S, h)),
             plain_ms=cuda_ms(lambda: K.smear_quantize_ref(occ, lim, taps, S, h))))
         grids[name] = q
+        g = K.smear_grid(occ, taps, S, h)
+        g_ref = K.smear_grid_ref(occ, taps, S, h)
+        err_g = max_abs_err(g, g_ref)
+        # quantized and masked, the float grid is smear_quantize's output
+        err_gq = max_abs_err(K.quantize_mask(g, lim), q)
+        results["smear_grid"].append(dict(
+            case=name, shape=[c["N"], S, S], h=h, max_abs_err=max(err_g, err_gq),
+            quantized_vs_smear_quantize=err_gq,
+            ms=cuda_ms(lambda: K.smear_grid(occ, taps, S, h)),
+            plain_ms=cuda_ms(lambda: K.smear_grid_ref(occ, taps, S, h))))
         log(f"phase 3: {name} grid build S={S} h={h} N={c['N']}: "
-            f"scatter err {err}, smear err {err_q}")
+            f"scatter err {err}, smear err {err_q}, smear_grid err {err_g}, "
+            f"quantized smear_grid vs smear_quantize err {err_gq}")
 
     lattices = [
         ("seq_coarse", "seq", (25, 25, 10), 2),
@@ -191,11 +235,13 @@ def graph_state(slam):
                    slam.stats["loop_closures"])
 
 
-def device_timeline(events, names):
+def device_timeline(events, symbols):
     """Device time in the events of a Chrome trace: the union of kernel,
     memcpy and memset intervals (host-side events are ignored), plus the
-    time and count of the kernels named `names` (by `<name>_kernel`), of
-    all other kernels, and of copies and sets.  Times in ms."""
+    time and count of the kernels of `symbols` ({name: a piece of the CUDA
+    kernel's name}), of all other kernels, and of copies and sets.  Times
+    in ms."""
+    names = tuple(symbols)
     spans, parts = [], {n: [0.0, 0] for n in (*names, "other_kernels", "memcpy_memset")}
     for e in events:
         if e.get("cat") not in DEVICE_CATS or "dur" not in e:
@@ -205,7 +251,7 @@ def device_timeline(events, names):
         if e["cat"] != "kernel":
             key = "memcpy_memset"
         else:
-            key = next((n for n in names if f"{n}_kernel" in e["name"]), "other_kernels")
+            key = next((n for n in names if symbols[n] in e["name"]), "other_kernels")
         parts[key][0] += d / 1e3
         parts[key][1] += 1
     busy, end = 0.0, float("-inf")
@@ -298,8 +344,8 @@ def run_slam(tmp, gpu, dev):
         raise AssertionError("no loop closure on the building tour")
     if not ate_slam < ate_odom:
         raise AssertionError(f"ATE {ate_slam} not below odometry {ate_odom}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in SLAM_KERNELS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
 
     # the tour's first scans again, on the host CPU (plain path): drift
@@ -351,6 +397,9 @@ def run_slam(tmp, gpu, dev):
     summary["restored_responses"] = responses
 
     summary["profile"] = profile_window(scans_of(carmen[:PROFILE_SCANS[1]]), dev, tmp, gpu)
+    scans = [v.obj for v in slam.graph.vertices]
+    summary["matcher_api"] = matcher_api(scans, dev, gpu)
+    summary["localize"] = localize(slam, scans, dev, gpu)
     return summary
 
 
@@ -376,7 +425,8 @@ def profile_window(scans, dev, tmp, gpu):
     path = os.path.join(tmp, "trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        tl = device_timeline(json.load(f)["traceEvents"], tuple(K.KERNELS))
+        tl = device_timeline(json.load(f)["traceEvents"],
+                             {k: v["symbol"] for k, v in K.KERNELS.items()})
     if tl["parts"]["other_kernels"]["count"] + sum(
             tl["parts"][k]["count"] for k in K.KERNELS) == 0:
         raise AssertionError("the trace holds no kernel on the card")
@@ -386,6 +436,221 @@ def profile_window(scans, dev, tmp, gpu):
     log(f"phase 6: scans {lo}-{hi - 1} traced: device busy {tl['busy_ms']:.3f} ms "
         f"of {window_ms:.3f} ms, idle share {tl['idle_share']:.4f}; {parts} ({gpu})")
     return tl
+
+
+# -- phase 7 / 8 -----------------------------------------------------------------
+
+def timed(fn):
+    """(fn(), host milliseconds to the card's idle)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def result_gap(a, b):
+    """Response and pose gaps and the covariance's relative gap of two
+    ScanMatcherResults (best_pose a Transform or a list of them)."""
+    pa = a.best_pose if isinstance(a.best_pose, list) else [a.best_pose]
+    pb = b.best_pose if isinstance(b.best_pose, list) else [b.best_pose]
+    xyt = lambda ps: np.array([[p.x, p.y, p.euler[-1]] for p in ps])  # noqa: E731
+    dxy, dth = pose_gap(xyt(pa), xyt(pb))
+    cov = float(np.max(np.abs(a.covariance - b.covariance)
+                       / (np.abs(b.covariance) + 1e-12)))
+    return dict(response=abs(a.response - b.response), dxy_m=dxy, dth_rad=dth,
+                cov_rel=cov)
+
+
+def hold(gap, what):
+    if not (gap["response"] <= API_TOL and gap["dxy_m"] <= API_TOL
+            and gap["dth_rad"] <= API_TOL and gap["cov_rel"] <= COV_RTOL):
+        raise AssertionError(f"{what}: card vs host f32 {gap}")
+
+
+def same_result(a, b):
+    return (a.response == b.response
+            and a.best_pose.x == b.best_pose.x and a.best_pose.y == b.best_pose.y
+            and a.best_pose.euler[-1] == b.best_pose.euler[-1]
+            and np.array_equal(a.covariance, b.covariance))
+
+
+def counted(K, fn):
+    """fn() with the launch counts set to 0 just before; (out, launches)."""
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(K.LAUNCHES)
+
+
+def matcher_api(scans, dev, gpu):
+    """Phase 7 on the tour's scans at their SLAM poses."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+
+    out = dict(launches={})
+    card, card_meta = M(device=dev), M(device=dev, return_meta=True)
+    host_meta = M(device="cpu", return_meta=True)
+    jobs = [(scans[i], scans[i - 10:i]) for i in META_QUERIES]
+
+    metas, out["launches"]["meta"] = counted(
+        K, lambda: [card_meta.match_scan(q, b) for q, b in jobs])
+    gaps, meta_ms, plain_ms = [], [], []
+    for (q, b), rm in zip(jobs, metas):
+        r, ms = timed(lambda: card.match_scan(q, b))
+        rm2, mms = timed(lambda: card_meta.match_scan(q, b))
+        plain_ms.append(ms)
+        meta_ms.append(mms)
+        rh = host_meta.match_scan(q, b)
+        if not (same_result(r, rm) and same_result(r, rm2)):
+            raise AssertionError(f"return_meta changed the result: {r} vs {rm}")
+        if rm.meta["grid"].dtype != np.float32 or not np.array_equal(
+                rm.meta["grid"], rh.meta["grid"]):
+            raise AssertionError("meta grid differs from the host's plain grid")
+        gaps.append(result_gap(rm, rh))
+        hold(gaps[-1], "return_meta match_scan")
+    out["meta"] = dict(queries=list(META_QUERIES), gaps=gaps,
+                       grid_shape=list(metas[0].meta["grid"].shape),
+                       match_ms=meta_ms, plain_match_ms=plain_ms)
+    log(f"phase 7: return_meta match_scan x {len(jobs)}: results equal the "
+        f"plain matcher's, meta grids {out['meta']['grid_shape']} bit-equal "
+        f"to the host's; {statistics.median(meta_ms):.3f} ms vs "
+        f"{statistics.median(plain_ms):.3f} ms without meta; launches "
+        f"{out['launches']['meta']} ({gpu})")
+
+    i = SET_QUERY
+    queries, base = scans[i:i + 3], scans[i - 10:i]
+    (r, ms), out["launches"]["scan_sets"] = counted(
+        K, lambda: timed(lambda: card_meta.match_scan_sets(queries, base)))
+    rh = host_meta.match_scan_sets(queries, base)
+    gap = result_gap(r, rh)
+    hold(gap, "match_scan_sets")
+    if not np.array_equal(r.meta["grid"], rh.meta["grid"]):
+        raise AssertionError("scan-set meta grid differs from the host's")
+    out["scan_sets"] = dict(queries=[i, i + 3], base=[i - 10, i], gap=gap,
+                            response=r.response, ms=ms)
+    log(f"phase 7: match_scan_sets 3 vs 10: response {r.response:.6f}, "
+        f"card vs host {gap}; {ms:.3f} ms; launches "
+        f"{out['launches']['scan_sets']}")
+
+    jobs = [(scans[i], scans[i - 10:i]) for i in MEGA_QUERIES]
+    card.match_many_mega(jobs[:MEGA_CHUNK], chunk=MEGA_CHUNK)      # warm-up
+    many, many_ms = timed(lambda: card.match_many(jobs))
+    (mega, mega_ms), out["launches"]["mega"] = counted(
+        K, lambda: timed(lambda: card.match_many_mega(jobs, chunk=MEGA_CHUNK)))
+    if not all(same_result(a, b) for a, b in zip(many, mega)):
+        raise AssertionError("match_many_mega differs from match_many")
+    host = M(device="cpu").match_many(jobs)
+    gaps = [result_gap(a, b) for a, b in zip(mega, host)]
+    for g in gaps:
+        hold(g, "match_many_mega")
+    worst = {k: max(g[k] for g in gaps) for k in gaps[0]}
+    out["mega"] = dict(jobs=len(jobs), chunk=MEGA_CHUNK, mega_ms=mega_ms,
+                       match_many_ms=many_ms, worst_gap=worst)
+    log(f"phase 7: match_many_mega {len(jobs)} jobs (chunk {MEGA_CHUNK}) == "
+        f"match_many; {mega_ms:.3f} ms vs {many_ms:.3f} ms; card vs host "
+        f"worst {worst}; launches {out['launches']['mega']}")
+    return out
+
+
+def localize(slam, scans, dev, gpu):
+    """Phase 8: localize offset tour scans against the tour's map."""
+    from yag_slam_tpu.core.transform import Transform
+    from yag_slam_tpu_torch.mapping import occupancy_grid_map_to_correlation_grid
+    from yag_slam_tpu_torch.matching import correlation as C
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+
+    res, smear = 0.05, 0.05
+    grid = slam.make_occupancy_grid(resolution=res)
+    im = grid.image
+    lo, hi = LOCALIZE_SCANS
+    truth = np.array([[s.corrected_pose.x, s.corrected_pose.y, s.corrected_pose.euler[-1]]
+                      for s in scans[lo:hi]])
+    if np.abs(np.angle(np.exp(1j * truth[:, 2]))).max() > LOCALIZE_MAX_HEADING:
+        raise AssertionError(f"scans {lo}-{hi - 1} do not face along +x: {truth[:, 2]}")
+    queries = []
+    for s in scans[lo:hi]:
+        q = s.copy()
+        p = s.corrected_pose
+        q.corrected_pose = Transform.from_xyt(p.x + LOCALIZE_OFFSET[0],
+                                              p.y + LOCALIZE_OFFSET[1], p.euler[-1])
+        queries.append(q)
+    card, host = M(loop=True, device=dev), M(loop=True, device="cpu")
+
+    def run():
+        cg, conv_ms = timed(lambda: occupancy_grid_map_to_correlation_grid(
+            im, res, smear, device=dev))
+        r, ms = timed(lambda: card.match_scan_sets_with_map(
+            cg, grid.offset.x, grid.offset.y, queries, penalty=False))
+        return cg, conv_ms, r, ms
+
+    (cgrid, conv_ms, r, match_ms), launches = counted(K, run)
+    host_cgrid = occupancy_grid_map_to_correlation_grid(im, res, smear, device="cpu")
+    if not np.array_equal(cgrid, host_cgrid):
+        raise AssertionError("map conversion on the card differs from the host's")
+    rh = host.match_scan_sets_with_map(host_cgrid, grid.offset.x, grid.offset.y,
+                                       queries, penalty=False)
+    gap = result_gap(r, rh)
+    hold(gap, "match_scan_sets_with_map")
+    got = np.array([[p.x, p.y, p.euler[-1]] for p in r.best_pose])
+    back_m, back_rad = pose_gap(got, truth)
+    if back_m > 0.1:
+        raise AssertionError(f"localization off by {back_m} m: {got} vs {truth}")
+
+    # the smear of the conversion at the full map's shape, kernel vs plain
+    h = C.kernel_half_size(res, smear)
+    G = max(im.shape)
+    taps = torch.as_tensor(C.gaussian_kernel_1d(res, smear).astype(np.float32), device=dev)
+    oy, ox = np.where(im == 0)
+    sy = torch.as_tensor((oy + h).astype(np.int32)[None], device=dev)
+    sx = torch.as_tensor((ox + h).astype(np.int32)[None], device=dev)
+    occ = K.scatter_cells(sy, sx, G + 2 * h)
+    err = max_abs_err(K.smear_grid(occ, taps, G, h), K.smear_grid_ref(occ, taps, G, h))
+    case = dict(case="tour_map", shape=[1, G, G], h=h, max_abs_err=err,
+                ms=cuda_ms(lambda: K.smear_grid(occ, taps, G, h)),
+                plain_ms=cuda_ms(lambda: K.smear_grid_ref(occ, taps, G, h)))
+    if err != 0:
+        raise AssertionError(f"smear_grid != plain on the tour map: {case}")
+    out = dict(map_shape=list(im.shape), occupied=int((im == 0).sum()),
+               convert_ms=conv_ms, match_ms=match_ms, response=r.response,
+               back_m=back_m, back_rad=back_rad, gap=gap, launches=launches,
+               smear_case=case)
+    log(f"phase 8: map {im.shape[1]}x{im.shape[0]} at {res} m converted on the card in "
+        f"{conv_ms:.3f} ms (bit-equal to the host); scans {lo}-{hi - 1} offset by "
+        f"{LOCALIZE_OFFSET} m localized in {match_ms:.3f} ms, response "
+        f"{r.response:.6f}, back within {back_m:.4f} m / {back_rad:.4f} rad of the "
+        f"SLAM poses; card vs host {gap}; smear_grid on the map "
+        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms; launches {launches} ({gpu})")
+    return out
+
+
+def kernel_lines(K, checks, slam):
+    """Per-kernel results of the run: the phase-3 cases (plus the tour-map
+    smear of phase 8) and the launches of every driven path."""
+    checks["smear_grid"].append(slam["localize"]["smear_case"])
+    paths = dict(slam=slam["launches"], **slam["matcher_api"]["launches"],
+                 localize=slam["localize"]["launches"])
+    for path in ("meta", "scan_sets", "localize"):
+        if paths[path]["smear_grid"] <= 0:
+            raise AssertionError(f"smear_grid never launched on the {path} path")
+    kernels = []
+    for k, info in K.KERNELS.items():
+        main_case = checks[k][0]
+        by_path = {p: n[k] for p, n in paths.items() if n[k] > 0}
+        if not by_path:
+            raise AssertionError(f"kernel {k} launched on no driven path")
+        kernels.append(dict(
+            name=k, route="cuda" if info["source"].endswith(".cu") else "triton",
+            source=info["source"], replaces=info["replaces"][0],
+            also_replaces=info["replaces"][1:],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in checks[k]),
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            case=main_case["case"], cases=checks[k],
+        ))
+    return kernels
 
 
 def main():
@@ -423,18 +688,7 @@ def main():
     if jax_mods:
         raise AssertionError(f"JAX was imported: {jax_mods[:5]}")
 
-    kernels = []
-    for k, info in K.KERNELS.items():
-        main_case = checks[k][0]
-        kernels.append(dict(
-            name=k, route="cuda" if info["source"].endswith(".cu") else "triton",
-            source=info["source"], replaces=info["replaces"][0],
-            also_replaces=info["replaces"][1:],
-            launches=slam["launches"][k],
-            max_abs_err=max(r["max_abs_err"] for r in checks[k]),
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-            case=main_case["case"], cases=checks[k],
-        ))
+    kernels = kernel_lines(K, checks, slam)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

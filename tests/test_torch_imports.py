@@ -85,6 +85,11 @@ def test_cpu_wrappers_leave_launch_counts_at_zero():
     q = K.smear_quantize(occ, lim, taps, 5, 1)
     assert q.dtype == torch.uint8 and q[0, 2, 3] == 100 and q[0, 2, 2] == 50
     assert q[0, :, 4:].sum() == 0    # masked past col_hi = 4
+    g = K.smear_grid(occ, taps, 5, 1)
+    assert g.dtype == torch.float32 and g[0, 2, 3] == 1.0 and g[0, 2, 2] == 0.5
+    assert g[0, :, 4].sum() > 0      # unmasked
+    g0 = K.smear_grid(occ, taps[1:2], 7, 0)     # one tap: h = 0
+    assert torch.equal(g0, occ.to(torch.float32))
     K.window_sum(q, sy[:, None, :], sx[:, None, :],
                  torch.tensor([3], dtype=torch.int32), 2, 2, 1)
     assert all(v == 0 for v in K.LAUNCHES.values()), K.LAUNCHES
@@ -117,21 +122,37 @@ def test_smear_taps_are_float32_and_symmetric():
     assert len(taps) == 2 * m._half + 1 and taps[m._half] == 1.0
 
 
+def _pallas_defs(path):
+    """Line numbers of the defs in `path` whose body reaches pl.pallas_call."""
+    with open(os.path.join(REPO, path)) as f:
+        lines = f.read().splitlines()
+    defs = []
+    for i, text in enumerate(lines):
+        if not text.startswith("def "):
+            continue
+        body = []
+        for later in lines[i + 1:]:
+            if later.startswith("def "):
+                break
+            body.append(later)
+        if any("pl.pallas_call(" in b for b in body):
+            defs.append(i + 1)
+    return defs
+
+
 def test_kernel_table_names_the_pallas_kernels():
-    """Each wrapper's source exists and each "file:line" it replaces is the
-    def of a function that reaches pl.pallas_call."""
+    """Each wrapper's source exists, each "file:line" it replaces is the
+    def of a function that reaches pl.pallas_call, and together they
+    cover every such def of the JAX package."""
     assert set(K.KERNELS) == set(K.LAUNCHES)
+    covered = set()
     for name, info in K.KERNELS.items():
         assert os.path.isfile(os.path.join(REPO, info["source"])), name
         for ref in info["replaces"]:
             path, line = ref.rsplit(":", 1)
-            with open(os.path.join(REPO, path)) as f:
-                lines = f.read().splitlines()
-            start = int(line) - 1
-            assert lines[start].startswith("def "), (name, ref, lines[start])
-            body = []
-            for text in lines[start + 1:]:
-                if text.startswith("def "):
-                    break
-                body.append(text)
-            assert any("pl.pallas_call(" in b for b in body), (name, ref)
+            assert int(line) in _pallas_defs(path), (name, ref)
+            covered.add((path, int(line)))
+    path = "yag_slam_tpu/matching/pallas_kernels.py"
+    defs = _pallas_defs(path)
+    assert len(defs) == 7
+    assert {(path, line) for line in defs} <= covered

@@ -117,6 +117,68 @@ def test_scatter_cells_matches_jax_pallas_scatter():
     assert occ.sum() > 50   # the window holds real cells
 
 
+# -- float32 smear ---------------------------------------------------------------
+
+def _smear_taps(h):
+    """Symmetric positive float32 taps of any half-width (the matcher's
+    Gaussian gives only even h)."""
+    offs = (np.arange(2 * h + 1) - h) * 0.01
+    return np.exp(-0.5 * offs**2 / 0.025**2).astype(np.float32)
+
+
+def _smear_case(h, N=2, S=256):
+    """Random occupancy in the port's (N, S+2h, S+2h) uint8 layout and the
+    same cells in the JAX smear layout (N, S+256, Cpad) float32, where
+    subgrid row r sits at row r+128 and column c at column c+h."""
+    rng = np.random.default_rng(40 + h)
+    R = S + 2 * h
+    occ = (rng.uniform(size=(N, R, R)) < 0.02).astype(np.uint8)
+    occ[:, :h + 1, :] = 1          # halo and edge rows: the halo must count
+    Cpad = ((R + 127) // 128) * 128
+    jax_occ = np.zeros((N, S + 256, Cpad), dtype=np.float32)
+    jax_occ[:, 128 - h:128 - h + R, :R] = occ
+    return occ, jax_occ, _smear_taps(h), S
+
+
+# smear_grid_pallas cannot take h = 0: its empty halo slice of the previous
+# strip (rows 128: of a 128-row block) is refused, in interpret mode too
+@pytest.mark.parametrize("variant,h", [
+    ("pallas", 2), ("pallas", 5), ("xla", 0), ("xla", 2), ("xla", 5)])
+def test_smear_grid_matches_jax(variant, h):
+    from yag_slam_tpu.matching import pallas_kernels as PK
+
+    occ, jax_occ, taps, S = _smear_case(h)
+    kw = dict(h=h, S=S, taps=tuple(float(t) for t in taps))
+    if variant == "pallas":
+        ref = PK.smear_grid_pallas(jax_occ, interpret=True, **kw)
+    else:
+        ref = PK.smear_grid_xla(jax_occ, **kw)
+    got = K.smear_grid(_t(occ), _t(taps), S, h)
+    assert got.dtype == torch.float32 and got.shape == (2, S, S)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.max() == 1.0 and (got.numpy() % 1.0 != 0.0).any() == (h > 0)
+
+
+@pytest.mark.parametrize("h", [0, 2, 5])
+def test_quantized_smear_grid_is_smear_quantize(h):
+    """floor(100 x) of smear_grid masked at lim is smear_quantize, and both
+    are the JAX staged build's quantize_grid + mask of smear_grid_xla."""
+    from yag_slam_tpu.matching import pallas_kernels as PK
+
+    occ, jax_occ, taps, S = _smear_case(h)
+    lim = np.array([[S - 20, S - 7], [S, S]], dtype=np.int32)
+    q = K.quantize_mask(K.smear_grid(_t(occ), _t(taps), S, h), _t(lim))
+    np.testing.assert_array_equal(
+        q.numpy(), K.smear_quantize(_t(occ), _t(lim), _t(taps), S, h).numpy())
+    ref = np.array(JC.quantize_grid(PK.smear_grid_xla(
+        jax_occ, h=h, S=S, taps=tuple(float(t) for t in taps))))
+    ref[0, lim[0, 0]:, :] = 0.0
+    ref[0, :, lim[0, 1]:] = 0.0
+    np.testing.assert_array_equal(q.numpy(), ref.astype(np.uint8))
+    assert q[0, S - 21].max() > 0 and q[0, S - 20:].max() == 0
+    assert q[0, :, S - 7:].max() == 0 and q[1].max() == 100
+
+
 # -- window sum ----------------------------------------------------------------
 
 def _lattice_inputs(stride, n_per_job):
@@ -149,14 +211,15 @@ def _lattice_inputs(stride, n_per_job):
     ("roll", 1), ("roll", 2),
     ("mxu", 1), ("mxu", 2), ("mxu", 3),
     ("patch", 1), ("patch", 2),
+    ("hybrid", 1), ("hybrid", 2),
 ])
 def test_score_lattice_matches_jax(scorer, stride):
     n_per_job = [96 - 8, 96 - 23] if scorer == "mxu" else [96 - 8, 96 - 8]
     q2d, args, kw, S = _lattice_inputs(stride, n_per_job)
     jkw = dict(kw, sub_size=S, dtype=np.float64)
-    if scorer == "roll":
+    if scorer in ("roll", "hybrid"):
         ref = JC.score_lattice_vmem_batched(q2d, *args, interpret=True,
-                                            hybrid=False, **jkw)
+                                            hybrid=scorer == "hybrid", **jkw)
     elif scorer == "mxu":
         ref = JC.score_lattice_mxu_batched(q2d, *args, interpret=True, **jkw)
     else:

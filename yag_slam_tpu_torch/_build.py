@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
 At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``build/`` next to this file,
-named by a hash of the sources and flags, so an unchanged tree reuses it
-and an edited one rebuilds.  Any failure to find nvcc, compile or load
+(``sm_90a``), one ``nvcc`` per source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+which is loaded with ``ctypes``.  The library lands in ``build/`` next to
+this file, named by a hash of the sources and flags, so an unchanged tree
+reuses it and an edited one rebuilds.  Any failure to find nvcc, compile or load
 raises: there is no fallback.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
@@ -25,7 +27,7 @@ BUILD_DIR = _PKG_DIR / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -34,6 +36,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "yag_scatter_cells": (_P, _P, _P, _I, _I, _I, _P),
     "yag_smear_quantize": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "yag_smear_grid": (_P, _P, _P, _I, _I, _I, _P),
     "yag_smear_smem_bytes": (_I,),
     "yag_window_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -74,21 +77,28 @@ def _library_path(srcs, headers) -> Path:
     return BUILD_DIR / f"libyag_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _compile(srcs, target: Path):
-    global build_seconds
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    t0 = time.perf_counter()
+def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    os.replace(tmp, target)
+
+
+def _compile(srcs, target: Path):
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in srcs]
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                                 for src, obj in zip(srcs, objs)]))
+        so = str(Path(tmp) / target.name)
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
+        os.replace(so, target)
     build_seconds = time.perf_counter() - t0
 
 

@@ -1,10 +1,13 @@
 // Correlation-grid build for the scan matcher: occupancy scatter, then a
-// separable weighted max-smear with quantization and the full-grid mask.
+// separable weighted max-smear, stored either quantized and masked (the
+// matcher's main path) or as the plain float32 grid (the staged build that
+// also hands the grid out, and the conversion of a saved map).
 //
 // Replaces the Pallas grid-build kernels of
 // yag_slam_tpu/matching/pallas_kernels.py: build_grid_fused (scatter +
 // smear + quantize in one kernel), scatter_occupancy_pallas and
-// smear_quantize_pallas (the two-stage strip build).
+// smear_quantize_pallas (the two-stage strip build), and smear_grid_pallas
+// (the float32 smear of the staged build).
 //
 // Layout contract (the wrappers in matching/kernels.py check it):
 //   occ  (N, R, R) uint8, R = S + 2h: cell (row, col) of the subgrid lives
@@ -13,11 +16,14 @@
 //        with no cell.  Cells outside [0, R) are dropped.
 //   lim  (N, 2) int32 = (G - soy, G - sox): subgrid rows/cols at or past
 //        these carry a full-grid index >= G and are zeroed.
-//   taps (2h + 1,) float32 symmetric Gaussian taps, all > 0.
-//   out  (N, S, S) uint8 = floor(100 * smeared), integers in [0, 100].
+//   taps (2h + 1,) float32 symmetric Gaussian taps, all > 0; h >= 0.
+//   out  smear_quantize: (N, S, S) uint8 = floor(100 * smeared), integers
+//        in [0, 100], masked at lim; smear_grid: (N, S, S) float32 smeared.
 //
-// All arithmetic is float32 in the Pallas kernels' product order, so the
-// result is bit-equal to them and to the plain PyTorch version.
+// All arithmetic is float32 in the Pallas kernels' product order, with no
+// multiply-add to fuse, so the result is bit-equal to them and to the plain
+// PyTorch versions, and floor(100 * smear_grid) masked at lim is
+// smear_quantize bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,18 +50,36 @@ constexpr int kTileRows = 32;   // output rows per block
 constexpr int kTileCols = 64;   // output cols per block
 constexpr int kSmearThreads = 256;
 
+// Store stages of the smear kernel: each gets the finished float32 value of
+// output cell (gi, gj) of job n.
+struct QuantizeMaskStore {
+  const int32_t* lim;
+  uint8_t* out;
+  __device__ void operator()(int n, int S, int gi, int gj, float v) const {
+    float q = floorf(v * 100.0f);
+    if (gi >= lim[2 * n] || gj >= lim[2 * n + 1]) q = 0.0f;
+    out[((size_t)n * S + gi) * S + gj] = (uint8_t)q;
+  }
+};
+
+struct FloatStore {
+  float* out;
+  __device__ void operator()(int n, int S, int gi, int gj, float v) const {
+    out[((size_t)n * S + gi) * S + gj] = v;
+  }
+};
+
 // One block per (job, 32 x 64 output tile).  The tile's input window with
 // its h-cell halo is staged in shared memory as bytes, pass 1 (along
 // columns) writes float32 partials for every halo row into shared memory,
-// and pass 2 (along rows) reads them back, quantizes, masks and stores.
-// Each output byte is written once and each input byte is read about
-// (1 + 2h/32)(1 + 2h/64) times through L2: the kernel is bound by the
-// (2h + 1)-tap max chain in both passes, not by memory.
-__global__ void smear_quantize_kernel(const uint8_t* __restrict__ occ,
-                                      const int32_t* __restrict__ lim,
-                                      const float* __restrict__ taps,
-                                      uint8_t* __restrict__ out,
-                                      int S, int h) {
+// and pass 2 (along rows) reads them back and hands each value to the
+// store stage.  Each output is written once and each input byte is read
+// about (1 + 2h/32)(1 + 2h/64) times through L2: the kernel is bound by
+// the (2h + 1)-tap max chain in both passes, not by memory.
+template <class Store>
+__global__ void smear_kernel(const uint8_t* __restrict__ occ,
+                             const float* __restrict__ taps, Store store,
+                             int S, int h) {
   extern __shared__ float smem[];
   const int R = S + 2 * h;
   const int H = kTileRows + 2 * h;   // staged rows
@@ -92,9 +116,7 @@ __global__ void smear_quantize_kernel(const uint8_t* __restrict__ occ,
   }
   __syncthreads();
 
-  // pass 2 (rows) + floor(100 x) + full-grid mask
-  const int row_hi = lim[2 * n];
-  const int col_hi = lim[2 * n + 1];
+  // pass 2 (rows), then the store stage
   for (int t = threadIdx.x; t < kTileRows * kTileCols; t += blockDim.x) {
     int rr = t / kTileCols, cc = t - rr * kTileCols;
     int gi = r0 + rr, gj = c0 + cc;
@@ -105,20 +127,37 @@ __global__ void smear_quantize_kernel(const uint8_t* __restrict__ occ,
       float m = fmaxf(col[d * kTileCols], col[(2 * h - d) * kTileCols]);
       acc = fmaxf(acc, s_taps[d] * m);
     }
-    float q = floorf(acc * 100.0f);
-    if (gi >= row_hi || gj >= col_hi) q = 0.0f;
-    out[((size_t)n * S + gi) * S + gj] = (uint8_t)q;
+    store(n, S, gi, gj, acc);
   }
 }
 
-}  // namespace
-
-extern "C" int yag_smear_smem_bytes(int h) {
+int smear_smem_bytes(int h) {
   int H = kTileRows + 2 * h;
   int W = kTileCols + 2 * h;
   int n_taps_pad = (2 * h + 1 + 3) & ~3;
   return (int)(sizeof(float) * (n_taps_pad + H * kTileCols) + H * W);
 }
+
+template <class Store>
+int launch_smear(const void* occ, const void* taps, Store store, int N, int S,
+                 int h, void* stream) {
+  int smem = smear_smem_bytes(h);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        smear_kernel<Store>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((S + kTileCols - 1) / kTileCols, (S + kTileRows - 1) / kTileRows,
+            N);
+  smear_kernel<Store><<<grid, kSmearThreads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)occ, (const float*)taps, store, S, h);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int yag_smear_smem_bytes(int h) { return smear_smem_bytes(h); }
 
 extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
                                  int N, int M, int R, void* stream) {
@@ -134,17 +173,12 @@ extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
 extern "C" int yag_smear_quantize(const void* occ, const void* lim,
                                   const void* taps, void* out, int N, int S,
                                   int h, void* stream) {
-  int smem = yag_smear_smem_bytes(h);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        smear_quantize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((S + kTileCols - 1) / kTileCols, (S + kTileRows - 1) / kTileRows,
-            N);
-  smear_quantize_kernel<<<grid, kSmearThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)occ, (const int32_t*)lim, (const float*)taps,
-      (uint8_t*)out, S, h);
-  return (int)cudaGetLastError();
+  QuantizeMaskStore store{(const int32_t*)lim, (uint8_t*)out};
+  return launch_smear(occ, taps, store, N, S, h, stream);
+}
+
+extern "C" int yag_smear_grid(const void* occ, const void* taps, void* out,
+                              int N, int S, int h, void* stream) {
+  FloatStore store{(float*)out};
+  return launch_smear(occ, taps, store, N, S, h, stream);
 }

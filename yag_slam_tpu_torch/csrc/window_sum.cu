@@ -5,11 +5,13 @@
 // with reads outside [0, S) contributing 0.  q holds quantized correlation
 // scores (integers in [0, 100]) and the sum is exact in int32 (<= 100 * P).
 //
-// Replaces two Pallas scorers of yag_slam_tpu/matching/pallas_kernels.py:
-// score_windows_pallas (stride 1 or 2 on a phase-split layout) and
-// score_windows_mxu_pallas (one-hot selection matmuls, any stride).  The
-// phase split and the one-hot products exist only for the TPU's lane
-// alignment; here the stride is a runtime argument and q is read in place.
+// Replaces three Pallas scorers of yag_slam_tpu/matching/pallas_kernels.py:
+// score_windows_pallas (stride 1 or 2 on a phase-split layout),
+// score_windows_mxu_pallas (one-hot selection matmuls, any stride) and
+// score_windows_hybrid_pallas (one-hot row-select matmul + lane roll on the
+// phase-split layout).  The phase split and the one-hot products exist only
+// for the TPU's lane alignment; here the stride is a runtime argument and q
+// is read in place.
 //
 // Layout contract (checked by the wrapper in matching/kernels.py):
 //   q (N, S, S) uint8; gy0, gx0 (N, K, P) int32 subgrid cells of each

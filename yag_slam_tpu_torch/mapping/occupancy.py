@@ -7,8 +7,10 @@ beams shorter than the threshold also mark a hit at the endpoint, and a
 cell with more than MIN_PASS_THROUGH visits is occupied when
 hits >= 0.1 * passes.  The trace is one dominant-axis DDA step per
 (beam, step) pair, counted with ``index_add_``; positions are float32 as
-in the JAX package.  There is no custom kernel here: the JAX package's
-version is plain XLA as well.
+in the JAX package.  There is no custom kernel in the rendering: the JAX
+package's version is plain XLA as well.  Converting a saved map into a
+correlation grid (:func:`occupancy_grid_map_to_correlation_grid`) runs
+the matcher's scatter_cells and smear_grid kernels on CUDA.
 """
 from __future__ import annotations
 
@@ -147,3 +149,27 @@ def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0, *,
         offset=Pose2(float(ox), float(oy), 0.0),
         resolution=resolution,
     )
+
+
+def occupancy_grid_map_to_correlation_grid(map_im, res, smear_deviation=0.05,
+                                           occupied_value=0, *, device):
+    """Convert a saved occupancy image into a correlation grid: every cell
+    equal to `occupied_value` smeared by the matcher's Gaussian max-smear
+    at `res`, unquantized.  Returns an (H, W) float32 numpy array, bit-equal
+    to the JAX package's function of the same name (float32 taps; the
+    occupied cells go through the same world-to-cell rounding)."""
+    from yag_slam_tpu_torch.matching import correlation as C
+
+    map_im = np.asarray(map_im)
+    occ_y, occ_x = np.where(map_im == occupied_value)
+    h, w = map_im.shape[:2]
+    taps = torch.as_tensor(
+        C.gaussian_kernel_1d(res, smear_deviation).astype(np.float32),
+        device=device)
+    grid = C.build_correlation_grid(
+        torch.as_tensor(occ_x.astype(np.float64) * res, device=device),
+        torch.as_tensor(occ_y.astype(np.float64) * res, device=device),
+        torch.ones(len(occ_x), dtype=torch.bool, device=device), 0.0, 0.0,
+        grid_size=max(h, w), res=res, taps=taps,
+    )
+    return grid[:h, :w].cpu().numpy()

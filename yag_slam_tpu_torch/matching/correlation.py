@@ -3,9 +3,11 @@
 Counterpart of ``yag_slam_tpu/matching/correlation.py``, with the same
 semantics (banker's rounding into grid cells, int-truncated 100x scoring,
 tie-averaged argmax within 1e-8, windowed covariance with the reference's
-half-open windows).  The device work goes through the three kernels of
+half-open windows).  The device work goes through the four kernels of
 :mod:`yag_slam_tpu_torch.matching.kernels`; everything here is plain
-tensor code around them.
+tensor code around them.  The element-path scorer
+(:func:`score_lattice_element`, rounding per candidate) is plain tensor
+code, as its JAX counterpart is plain XLA.
 
 Float-to-int casts: padded point lanes sit at 1e9 m, i.e. ~1e11 cells.  A
 float->int32 cast out of range is undefined in PyTorch (and differs between
@@ -124,6 +126,13 @@ def occupancy_cells(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
     return sy, sx
 
 
+def _full_grid_limits(G: int, sox, soy):
+    """(N, 2) int32 (G - soy, G - sox): subgrid rows/cols at or past these
+    lie outside the full G x G grid."""
+    return torch.stack([G - soy.to(torch.int32), G - sox.to(torch.int32)],
+                       dim=1).contiguous()
+
+
 def build_quantized_grid(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
                          h: int, res: float, taps):
     """Quantized smeared correlation subgrids, (N, S, S) uint8.
@@ -137,9 +146,52 @@ def build_quantized_grid(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
     sy, sx = occupancy_cells(wx, wy, keep, ox, oy, sox, soy,
                              G=G, S=S, h=h, res=res)
     occ = K.scatter_cells(sy, sx, S + 2 * h)
-    lim = torch.stack([G - soy.to(torch.int32), G - sox.to(torch.int32)],
-                      dim=1).contiguous()
-    return K.smear_quantize(occ, lim, taps, S, h)
+    return K.smear_quantize(occ, _full_grid_limits(G, sox, soy), taps, S, h)
+
+
+def build_grid_staged(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
+                      h: int, res: float, taps):
+    """The staged build: the smeared float32 subgrids first, then quantize
+    and the full-grid mask as separate steps, as the JAX matcher's staged
+    path does when it hands the grid out.
+
+    Arguments as :func:`build_quantized_grid`.  Returns (q (N, S, S) uint8,
+    equal to build_quantized_grid's, and grid (N, S, S) float32, the
+    smeared grid before quantize and mask).
+    """
+    sy, sx = occupancy_cells(wx, wy, keep, ox, oy, sox, soy,
+                             G=G, S=S, h=h, res=res)
+    occ = K.scatter_cells(sy, sx, S + 2 * h)
+    grid = K.smear_grid(occ, taps, S, h)
+    return K.quantize_mask(grid, _full_grid_limits(G, sox, soy)), grid
+
+
+def build_correlation_grid(wx, wy, keep, ox, oy, *, grid_size: int,
+                           res: float, taps):
+    """The full G x G smeared correlation grid of kept world points
+    (any shape), float32: points whose cell lies outside the grid are
+    dropped, the others composite the kernel by max, clipped at the
+    borders.  The JAX package's build_correlation_grid, through the
+    scatter_cells and smear_grid kernels."""
+    G = grid_size
+    h = (taps.shape[0] - 1) // 2
+    dev = wx.device
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def origin(v):
+        return torch.as_tensor(v, dtype=wx.dtype, device=dev).reshape(1)
+
+    sy, sx = occupancy_cells(
+        wx.reshape(1, 1, -1), wy.reshape(1, 1, -1), keep.reshape(1, 1, -1),
+        origin(ox), origin(oy), zero, zero, G=G, S=G, h=h, res=res)
+    occ = K.scatter_cells(sy, sx, G + 2 * h)
+    return K.smear_grid(occ, taps, G, h)[0]
+
+
+def quantize_grid(cgrid):
+    """floor(100 * value) in the grid's dtype: the reference scores with
+    int-truncated 100x grid lookups, and values are non-negative."""
+    return torch.floor(cgrid * 100.0)
 
 
 # ---------------------------------------------------------------------------
@@ -164,11 +216,13 @@ class LatticeSpec(NamedTuple):
 
 def _lattice_penalty(xvals, yvals, tvals, ct, ox, oy, *, grid_size, grid_res,
                      dist_var_penalty, ang_var_penalty, karto=None,
-                     cx=None, cy=None):
+                     cx=None, cy=None, symmetric=True):
     """Batched distance/angle penalty factor (N, NX, NY, NT).
 
     Default: the reference's unclamped penalty centered half a cell past
-    the true grid center.  karto=(dist_var, ang_var, min_dist, min_ang):
+    the true grid center; symmetric=False centers it on the search center
+    (cx, cy) instead, as the reference's non-symmetric search does.
+    karto=(dist_var, ang_var, min_dist, min_ang):
     OpenKarto's semantics instead, offsets from the pass's search center
     (cx, cy), variances used directly, clamped at the minimum penalties."""
     G = grid_size
@@ -183,8 +237,11 @@ def _lattice_penalty(xvals, yvals, tvals, ct, ox, oy, *, grid_size, grid_res,
         sqa = (tvals - ct[:, None]) ** 2
         ang_pen = torch.clamp(1.0 - 0.2 * sqa / av, min=ma)
         return dist_pen[:, :, :, None] * ang_pen[:, None, None, :]
-    sx = ox + G * grid_res / 2.0
-    sy = oy + G * grid_res / 2.0
+    if symmetric:
+        sx = ox + G * grid_res / 2.0
+        sy = oy + G * grid_res / 2.0
+    else:
+        sx, sy = cx, cy
     sqd = (xvals[:, :, None] - sx[:, None, None]) ** 2 + (
         yvals[:, None, :] - sy[:, None, None]
     ) ** 2
@@ -258,6 +315,78 @@ def score_lattice(
     return out, xvals, yvals, tvals
 
 
+def score_lattice_element(
+    qgrid,       # (S, S) quantized grid, in the points' dtype
+    pts_x,       # (P,) query points (padded lanes far away)
+    pts_y,
+    n_pts,       # 0-dim
+    cx, cy, ct,  # 0-dim
+    ox, oy,      # 0-dim
+    *,
+    spec: LatticeSpec,
+    xy_size, xy_res, ang_size, ang_res,
+    grid_size: int,
+    grid_res: float,
+    penalize: bool,
+    dist_var_penalty: float = 0.5,
+    ang_var_penalty: float = 1.0,
+    karto_penalties: tuple | None = None,
+    symmetric: bool = True,
+    sub_size: int | None = None,
+    sox: int = 0,
+    soy: int = 0,
+):
+    """Score one search pass's lattice by element reads, rounding every
+    candidate's world coordinate into its own cell: the JAX package's
+    score_lattice.  Any lattice step works (no integer stride needed).
+
+    Reads outside the full G x G grid or the (S, S) subgrid at (sox, soy)
+    give 0.  Penalties as :func:`score_lattice`, plus symmetric=False (the
+    distance penalty centered on the search center).  The (NX, NY, P)
+    gather runs one angle at a time, so it stays bounded.
+
+    Returns (out (NX, NY, NT), xvals (NX,), yvals (NY,), tvals (NT,)).
+    """
+    NX, NY, NT = spec
+    G = grid_size
+    S = G if sub_size is None else sub_size
+    dtype = pts_x.dtype
+    dev = pts_x.device
+    xvals = (cx - xy_size) + torch.arange(NX, dtype=dtype, device=dev) * xy_res
+    yvals = (cy - xy_size) + torch.arange(NY, dtype=dtype, device=dev) * xy_res
+    tvals = (ct - ang_size) + torch.arange(NT, dtype=dtype, device=dev) * ang_res
+
+    c, s = torch.cos(tvals), torch.sin(tvals)
+    rx = c[:, None] * pts_x[None, :] - s[:, None] * pts_y[None, :]     # (NT, P)
+    ry = s[:, None] * pts_x[None, :] + c[:, None] * pts_y[None, :]
+
+    qflat = torch.cat([qgrid.reshape(-1).to(dtype),
+                       torch.zeros(1, dtype=dtype, device=dev)])
+    raw = torch.empty((NX, NY, NT), dtype=dtype, device=dev)
+    for k in range(NT):
+        gx = world_to_grid_idx(xvals[:, None] + rx[k][None, :], ox, grid_res)
+        gy = world_to_grid_idx(yvals[:, None] + ry[k][None, :], oy, grid_res)
+        sgx = gx.long() - sox
+        sgy = gy.long() - soy
+        ok_x = (gx >= 0) & (gx < G) & (sgx >= 0) & (sgx < S)        # (NX, P)
+        ok_y = (gy >= 0) & (gy < G) & (sgy >= 0) & (sgy < S)        # (NY, P)
+        lin = sgy[None, :, :] * S + sgx[:, None, :]                  # (NX, NY, P)
+        lin = torch.where(ok_x[:, None, :] & ok_y[None, :, :], lin, S * S)
+        raw[:, :, k] = qflat[lin].sum(dim=-1)
+
+    out = raw / n_pts
+    if penalize:
+        cx, cy, ct, ox, oy = (v.reshape(1) for v in (cx, cy, ct, ox, oy))
+        out = out * _lattice_penalty(
+            xvals[None], yvals[None], tvals[None], ct, ox, oy,
+            grid_size=G, grid_res=grid_res, dist_var_penalty=dist_var_penalty,
+            ang_var_penalty=ang_var_penalty, karto=karto_penalties,
+            cx=cx, cy=cy, symmetric=symmetric,
+        )[0]
+    out = out / 100.0
+    return out, xvals, yvals, tvals
+
+
 def reduce_best_pose(out, xvals, yvals, tvals):
     """Batched argmax + tie-averaging + windowed covariance.
 
@@ -266,7 +395,8 @@ def reduce_best_pose(out, xvals, yvals, tvals):
     - best pose = mean of all candidates within 1e-8 of the max response;
     - xy second moments over the half-open [i-5, min(n-1, i+6)) windows at
       the argmax theta slice, normalized by window mass and response;
-    - theta second moment over the same style of window at the argmax (i, j).
+    - theta second moment over the same style of window at the argmax (i, j);
+    - sums accumulate in float64, results come back in out's dtype.
 
     Returns (N, 8): (response, bx, by, bt, XX, YY, XY, TH).
     """
@@ -280,11 +410,19 @@ def reduce_best_pose(out, xvals, yvals, tvals):
     response = flat.max(dim=1).values
 
     ties = out >= (response - 1e-8)[:, None, None, None]
-    nties = ties.sum(dim=(1, 2, 3)).to(out.dtype)
-    zero = torch.zeros((), dtype=out.dtype, device=dev)
-    bx = torch.where(ties, xvals[:, :, None, None], zero).sum(dim=(1, 2, 3)) / nties
-    by = torch.where(ties, yvals[:, None, :, None], zero).sum(dim=(1, 2, 3)) / nties
-    bt = torch.where(ties, tvals[:, None, None, :], zero).sum(dim=(1, 2, 3)) / nties
+    dt = out.dtype
+
+    def total(x, dims):
+        # sums accumulate in float64: the device's reduction order follows
+        # the batch's shape, and float64 partials keep a job's float32
+        # result independent of the batch it rides in
+        return x.sum(dim=dims, dtype=torch.float64)
+
+    nties = ties.sum(dim=(1, 2, 3)).to(torch.float64)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    bx = (total(torch.where(ties, xvals[:, :, None, None], zero), (1, 2, 3)) / nties).to(dt)
+    by = (total(torch.where(ties, yvals[:, None, :, None], zero), (1, 2, 3)) / nties).to(dt)
+    bt = (total(torch.where(ties, tvals[:, None, None, :], zero), (1, 2, 3)) / nties).to(dt)
 
     def window(ar, c, n):
         lo = torch.clamp(c - 5, min=0)
@@ -298,20 +436,27 @@ def reduce_best_pose(out, xvals, yvals, tvals):
 
     n_idx = torch.arange(N, device=dev)
     slice_k = out[n_idx, :, :, kk]                             # (N, NX, NY)
-    norm = torch.where(mask_ij, slice_k, zero).sum(dim=(1, 2))
+    norm = total(torch.where(mask_ij, slice_k, zero), (1, 2))
     dx = xvals[:, :, None] - bx[:, None, None]
     dy = yvals[:, None, :] - by[:, None, None]
-    XX = torch.where(mask_ij, slice_k * dx**2, zero).sum(dim=(1, 2))
-    YY = torch.where(mask_ij, slice_k * dy**2, zero).sum(dim=(1, 2))
-    XY = torch.where(mask_ij, slice_k * dx * dy, zero).sum(dim=(1, 2))
+    XX = total(torch.where(mask_ij, slice_k * dx**2, zero), (1, 2))
+    YY = total(torch.where(mask_ij, slice_k * dy**2, zero), (1, 2))
+    XY = total(torch.where(mask_ij, slice_k * dx * dy, zero), (1, 2))
 
     slice_ij = out[n_idx, ii, jj, :]                           # (N, NT)
-    th_norm = torch.where(mask_k, slice_ij, zero).sum(dim=1)
-    TH = torch.where(mask_k, slice_ij * (tvals - bt[:, None]) ** 2, zero).sum(dim=1)
+    th_norm = total(torch.where(mask_k, slice_ij, zero), 1)
+    TH = total(torch.where(mask_k, slice_ij * (tvals - bt[:, None]) ** 2, zero), 1)
 
-    return torch.stack(
-        [response, bx, by, bt,
-         XX / norm / response, YY / norm / response, XY / norm / response,
-         TH / th_norm],
-        dim=1,
-    )
+    r = response.to(torch.float64)
+    moments = torch.stack([XX / norm / r, YY / norm / r, XY / norm / r,
+                           TH / th_norm], dim=1).to(dt)
+    return torch.cat([torch.stack([response, bx, by, bt], dim=1), moments], dim=1)
+
+
+def find_best_pose(qgrid, pts_x, pts_y, n_pts, cx, cy, ct, ox, oy, **kw):
+    """One search pass on the element path: :func:`score_lattice_element`
+    (same keywords) then :func:`reduce_best_pose`.  Returns the (8,)
+    (response, bx, by, bt, XX, YY, XY, TH)."""
+    out, xv, yv, tv = score_lattice_element(
+        qgrid, pts_x, pts_y, n_pts, cx, cy, ct, ox, oy, **kw)
+    return reduce_best_pose(out[None], xv[None], yv[None], tv[None])[0]

@@ -1,4 +1,4 @@
-"""The matcher's three device kernels, each beside its plain PyTorch twin.
+"""The matcher's four device kernels, each beside its plain PyTorch twin.
 
 Dispatch goes by the device of the tensors: CPU tensors run the plain
 version (``*_ref``); CUDA tensors launch the hand-written kernel from
@@ -14,22 +14,31 @@ import torch
 
 from yag_slam_tpu_torch import _build
 
-LAUNCHES = {"scatter_cells": 0, "smear_quantize": 0, "window_sum": 0}
+LAUNCHES = {"scatter_cells": 0, "smear_quantize": 0, "smear_grid": 0,
+            "window_sum": 0}
 
-# Per wrapper: its CUDA source, and the Pallas kernels it replaces as
+# Per wrapper: its CUDA source, the Pallas kernels it replaces as
 # "file:line" of each kernel's def (the first is the one it stands in for
-# on the matcher's large-grid path).
+# on the matcher's large-grid path), and a piece of the CUDA kernel's name
+# that picks its launches out of a profiler trace.
 _TPU = "yag_slam_tpu/matching/pallas_kernels.py"
 KERNELS = {
     "scatter_cells": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
-        replaces=[f"{_TPU}:931", f"{_TPU}:1058"]),
+        replaces=[f"{_TPU}:931", f"{_TPU}:1058"],
+        symbol="scatter_cells_kernel"),
     "smear_quantize": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
-        replaces=[f"{_TPU}:333", f"{_TPU}:1058"]),
+        replaces=[f"{_TPU}:333", f"{_TPU}:1058"],
+        symbol="QuantizeMaskStore"),
+    "smear_grid": dict(
+        source="yag_slam_tpu_torch/csrc/grid_build.cu",
+        replaces=[f"{_TPU}:203"],
+        symbol="FloatStore"),
     "window_sum": dict(
         source="yag_slam_tpu_torch/csrc/window_sum.cu",
-        replaces=[f"{_TPU}:578", f"{_TPU}:823"]),
+        replaces=[f"{_TPU}:578", f"{_TPU}:823", f"{_TPU}:687"],
+        symbol="window_sum_kernel"),
 }
 
 
@@ -112,11 +121,11 @@ def scatter_cells(sy, sx, rows: int):
 
 
 # ---------------------------------------------------------------------------
-# Separable max-smear + quantize + full-grid mask
+# Separable max-smear: float32 grid, or quantized with the full-grid mask
 # ---------------------------------------------------------------------------
 
-def smear_quantize_ref(occ, lim, taps, S: int, h: int):
-    """Plain version of :func:`smear_quantize` (same f32 product order)."""
+def smear_grid_ref(occ, taps, S: int, h: int):
+    """Plain version of :func:`smear_grid` (same f32 product order)."""
     x = occ.to(torch.float32)
     t = [taps[d] for d in range(2 * h + 1)]     # 0-dim float32 tensors
     a1 = t[h] * x[:, :, h:h + S]
@@ -127,12 +136,39 @@ def smear_quantize_ref(occ, lim, taps, S: int, h: int):
     for d in range(h):
         m = torch.maximum(a1[:, d:d + S, :], a1[:, 2 * h - d:2 * h - d + S, :])
         a2 = torch.maximum(a2, t[d] * m)
-    q = torch.floor(a2 * 100.0)
-    ar = torch.arange(S, device=occ.device, dtype=torch.int32)
+    return a2
+
+
+def quantize_mask(grid, lim):
+    """floor(100 x) in float32, cells at or past lim = (row_hi, col_hi)
+    zeroed, as uint8: the store stage of :func:`smear_quantize` as plain
+    tensor ops (the staged build runs it after :func:`smear_grid`)."""
+    S = grid.shape[-1]
+    q = torch.floor(grid * 100.0)
+    ar = torch.arange(S, device=grid.device, dtype=torch.int32)
     row_ok = ar[None, :] < lim[:, 0:1]
     col_ok = ar[None, :] < lim[:, 1:2]
     q = torch.where(row_ok[:, :, None] & col_ok[:, None, :], q, 0.0)
     return q.to(torch.uint8)
+
+
+def smear_quantize_ref(occ, lim, taps, S: int, h: int):
+    """Plain version of :func:`smear_quantize`."""
+    return quantize_mask(smear_grid_ref(occ, taps, S, h), lim)
+
+
+def _smear_checks(occ, taps, S, h):
+    N = occ.shape[0]
+    R = S + 2 * h
+    if h < 0:
+        raise ValueError(f"smear half-width must be >= 0, got {h}")
+    _require(occ, torch.uint8, (N, R, R), "occ")
+    _require(taps, torch.float32, (2 * h + 1,), "taps")
+    lib = _build.library()
+    smem = lib.yag_smear_smem_bytes(h)
+    if smem > 227 * 1024:
+        raise ValueError(f"smear half-width {h} needs {smem} B of shared memory")
+    return lib
 
 
 def smear_quantize(occ, lim, taps, S: int, h: int):
@@ -140,7 +176,7 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
 
     Weighted max over the 2h+1 float32 taps along columns, then along rows,
     then floor(100 x) in float32, then zero every cell at or past
-    lim = (G - soy, G - sox).
+    lim = (G - soy, G - sox).  h = 0 (one tap) is a plain copy scaled by it.
 
     Replaces pallas_kernels.py:smear_quantize_pallas and the smear half of
     build_grid_fused.  On the H100 each block stages a 32 x 64 output tile
@@ -151,16 +187,8 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
     if not _on_cuda(occ, lim, taps):
         return smear_quantize_ref(occ, lim, taps, S, h)
     N = occ.shape[0]
-    R = S + 2 * h
-    if h < 1:
-        raise ValueError(f"smear half-width must be >= 1, got {h}")
-    _require(occ, torch.uint8, (N, R, R), "occ")
+    lib = _smear_checks(occ, taps, S, h)
     _require(lim, torch.int32, (N, 2), "lim")
-    _require(taps, torch.float32, (2 * h + 1,), "taps")
-    lib = _build.library()
-    smem = lib.yag_smear_smem_bytes(h)
-    if smem > 227 * 1024:
-        raise ValueError(f"smear half-width {h} needs {smem} B of shared memory")
     out = torch.empty((N, S, S), dtype=torch.uint8, device=occ.device)
     if N == 0:
         return out
@@ -169,6 +197,32 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
                                  _stream(occ))
     LAUNCHES["smear_quantize"] += 1
     _check(err, "smear_quantize")
+    return out
+
+
+def smear_grid(occ, taps, S: int, h: int):
+    """(N, S+2h, S+2h) uint8 occupancy -> (N, S, S) float32 smeared grid:
+    :func:`smear_quantize` without the quantize and the mask.
+
+    Replaces pallas_kernels.py:smear_grid_pallas (the staged build's
+    smear, whose output the matcher hands out as its meta grid, and the
+    conversion of a saved map).  Same kernel as smear_quantize with a
+    float32 store stage, so floor(100 x) of its output masked at lim is
+    smear_quantize's output bit for bit.  Any S (the TPU kernel's
+    S <= 1024 came from its VMEM output block); bound like smear_quantize
+    by the max chain, plus 4 output bytes per cell instead of 1.
+    """
+    if not _on_cuda(occ, taps):
+        return smear_grid_ref(occ, taps, S, h)
+    N = occ.shape[0]
+    lib = _smear_checks(occ, taps, S, h)
+    out = torch.empty((N, S, S), dtype=torch.float32, device=occ.device)
+    if N == 0:
+        return out
+    err = lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), out.data_ptr(),
+                             N, S, h, _stream(occ))
+    LAUNCHES["smear_grid"] += 1
+    _check(err, "smear_grid")
     return out
 
 
@@ -205,8 +259,11 @@ def window_sum(q, gy0, gx0, n_pts, ny: int, nx: int, stride: int):
     n_pts (N,) int32.  Returns (N, K, ny, nx) int32 (exact).
 
     Replaces pallas_kernels.py:score_windows_pallas (strides 1 and 2 on a
-    phase-split layout) and score_windows_mxu_pallas (one-hot selection
-    matmuls).  On the H100 one block per (angle, job, 256 outputs) stages
+    phase-split layout), score_windows_mxu_pallas (one-hot selection
+    matmuls) and score_windows_hybrid_pallas (a one-hot row-select matmul
+    plus a lane roll, at unit stride on the phase-split layout that folds
+    the lattice stride): all three compute this window sum, and their
+    layouts exist for the TPU's lane alignment.  On the H100 one block per (angle, job, 256 outputs) stages
     the points' origin cells in shared memory and reads the uint8 grid
     through L2; the stride is an argument, so no phase split is built.
     Bound by L2 load latency of N*K*NY*NX*P byte reads.

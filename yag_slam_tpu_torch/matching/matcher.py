@@ -1,7 +1,10 @@
 """Correlative scan matcher, in PyTorch.
 
 Counterpart of ``yag_slam_tpu/matching/matcher.py``: same config keys,
-same ``ScanMatcherResult``, same ``match_scan`` / ``match_many`` contract.
+same ``ScanMatcherResult``, same ``match_scan`` / ``match_many`` /
+``match_many_mega`` contract, their ``*_async`` handles, the scan-set
+paths (``match_scan_sets``, ``match_scan_sets_with_map``) and the opt-in
+``return_meta``.
 
 - a **device-resident scan library** holds every scan's matcher view
   (compacted beam endpoints + validation-run structure) in (K, P) tensors,
@@ -11,9 +14,14 @@ same ``ScanMatcherResult``, same ``match_scan`` / ``match_many`` contract.
   box of each match; cells outside it are provably zero, so building and
   scoring against it is exact;
 - each dispatch builds the quantized grids (kernels ``scatter_cells`` and
-  ``smear_quantize``), scores the coarse and fine lattices
-  (kernel ``window_sum``) and reduces them on the device, then copies one
-  (N, 2, 8) tensor to the host.
+  ``smear_quantize``; with ``return_meta`` the staged ``scatter_cells`` ->
+  ``smear_grid`` -> quantize build, which keeps the float32 grid), scores
+  the coarse and fine lattices (kernel ``window_sum``) and reduces them on
+  the device, then copies one (N, 2, 8) tensor to the host, without
+  blocking until a handle's ``.result()`` asks for it;
+- localizing against a saved map scores the map's quantized grid on the
+  element path (``correlation.find_best_pose``), whose lattice step need
+  not be a multiple of the cell.
 """
 from __future__ import annotations
 
@@ -52,6 +60,11 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 # scan slots allocated up front; the library doubles when full
 _LIBRARY_INITIAL_CAP = 128
+
+# The localize-against-map coarse pass's literal search: +-0.25 m at
+# 0.01 m, +-0.1 rad at 0.01 rad, on a 0.05 m grid, unpenalized.
+_MAP_COARSE = dict(xy_size=0.25, xy_res=0.01, ang_size=0.1, ang_res=0.01,
+                   grid_res=0.05)
 
 
 def sanitize_covariance(covar, cfg):
@@ -188,16 +201,81 @@ class DeviceScanLibrary:
         return np.asarray(out, dtype=np.int64)
 
 
+def _host_copy_async(t):
+    """Start copying `t` to the host without blocking; returns a function
+    that waits for the copy and gives the numpy array."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+class _MatchHandle:
+    """In-flight batch dispatched by match_scan_async / match_many_async.
+    `.result()` waits for the packed device output, retries the jobs whose
+    coarse response came back empty (one widened batch per expansion
+    attempt) and assembles one ScanMatcherResult (match_scan_async) or
+    the list of them (match_many_async)."""
+
+    __slots__ = ("_m", "_pending", "_args", "_P", "_penalty", "_do_fine",
+                 "_S", "_single", "_res")
+
+    def __init__(self, matcher, pending, args, P, penalty, do_fine, S, single):
+        self._m = matcher
+        self._pending = pending
+        self._args = args
+        self._P = P
+        self._penalty = penalty
+        self._do_fine = do_fine
+        self._S = S
+        self._single = single
+        self._res = None
+
+    def result(self):
+        if self._res is None:
+            res = self._m._finish(self._pending, self._args, self._P,
+                                  self._penalty, self._do_fine, self._S,
+                                  with_meta=self._single)
+            self._res = res[0] if self._single else res
+            self._pending = self._args = None
+        return self._res
+
+
+class _EmptyBatchHandle:
+    """Trivial handle for an empty match_many_async batch."""
+
+    __slots__ = ()
+
+    def result(self):
+        return []
+
+
 class CorrelativeScanMatcher:
     """Correlative scan matcher (coarse-to-fine, with response expansion)
     running on one torch device.
 
     ``device`` is required: CUDA tensors go through the hand-written
     kernels, CPU tensors through their plain PyTorch versions.  ``meta`` is
-    always None (the grid stays on the device)."""
+    None unless ``return_meta=True``: then match_scan and the scan-set
+    paths carry {'grid': job 0's smeared grid before quantize and mask,
+    'kernel': the 2-D smear kernel}, as the reference's matchers do.
+    ``point_capacity`` / ``base_capacity`` fix the point and base-scan
+    buckets up front (the point cap still grows for wider scans).  The
+    JAX package's TPU route switches have no counterpart: the device
+    decides."""
 
     def __init__(self, config_dict=None, loop: bool = False, *, device,
-                 dtype=torch.float32):
+                 dtype=torch.float32, point_capacity: int | None = None,
+                 base_capacity: int | None = None, return_meta: bool = False,
+                 sanitize_covariance: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but CUDA is not available")
@@ -214,7 +292,10 @@ class CorrelativeScanMatcher:
         )
         self.dtype = dtype
         self.np_dtype = _NP_DTYPES[dtype]
-        self._point_cap = None
+        self.return_meta = return_meta
+        self.sanitize_covariance = sanitize_covariance
+        self._point_cap = point_capacity
+        self._base_cap = base_capacity
         self._k1 = C.gaussian_kernel_1d(cfg.resolution, cfg.smear_deviation)
         self._half = (len(self._k1) - 1) // 2
         # float32 taps, as the TPU kernels use them
@@ -228,8 +309,11 @@ class CorrelativeScanMatcher:
             self._point_cap = _next_bucket(need)
         return self._point_cap
 
-    @staticmethod
-    def _base_bucket(n: int) -> int:
+    def _base_bucket(self, n: int) -> int:
+        if self._base_cap is not None:
+            if n > self._base_cap:
+                raise ValueError(f"{n} base scans > base_capacity {self._base_cap}")
+            return self._base_cap
         b = 1
         while b < n:
             b *= 2
@@ -312,29 +396,34 @@ class CorrelativeScanMatcher:
         return coarse, fine
 
     @torch.no_grad()
-    def _run(self, args, P, penalty, do_fine, coarse_offset, S):
+    def _run(self, args, P, penalty, do_fine, coarse_offset, S, queries=None):
         """Grid build + coarse (+ fine) pass for a batch of jobs on the
-        device; returns the packed (N, 2, 8) host array
-        [coarse, fine] x (response, x, y, theta, XX, YY, XY, TH)."""
+        device.  Query points come from the library (args' slots) or from
+        `queries` = (q_lx (N, P), q_ly, n_q (N,)) host arrays.  Returns the
+        packed (N, 2, 8) device tensor [coarse, fine] x (response, x, y,
+        theta, XX, YY, XY, TH), and job 0's float32 grid before quantize
+        and mask when the matcher returns meta (else None)."""
         cfg = self.config
         G = self.grid_size
         res = cfg.resolution
         h = self._half
         dev = self.device
-        idx, mask, pose, q_idx, center, sub = args
+        idx, mask, pose, q_idx, center, vp, sub = args
         lib = self.library.fields
         idx_t = torch.as_tensor(idx, device=dev)
-        q_t = torch.as_tensor(q_idx, device=dev)
         mask_t = torch.as_tensor(mask, device=dev)
         pose_t = torch.as_tensor(pose, device=dev)
         center_t = torch.as_tensor(center, device=dev)
+        vp_t = torch.as_tensor(vp, device=dev)
         sub_t = torch.as_tensor(sub, device=dev)
 
         base_lx = lib["lx"][idx_t]          # (N, B, P)
         base_ly = lib["ly"][idx_t]
-        qlx = lib["lx"][q_t]                # (N, P)
-        qly = lib["ly"][q_t]
-        n_q = lib["n"][q_t]
+        if queries is None:
+            q_t = torch.as_tensor(q_idx, device=dev)
+            qlx, qly, n_q = lib["lx"][q_t], lib["ly"][q_t], lib["n"][q_t]
+        else:
+            qlx, qly, n_q = (torch.as_tensor(a, device=dev) for a in queries)
 
         cx, cy, ct = center_t[:, 0], center_t[:, 1], center_t[:, 2]
         ox = cx - 0.5 * (G - 1) * res
@@ -347,11 +436,16 @@ class CorrelativeScanMatcher:
         keep = C.keep_mask_for_viewpoint(
             wx, wy, lib["anchor"][idx_t], lib["term"][idx_t],
             lib["has_run"][idx_t], mask_t[..., None],
-            cx[:, None, None], cy[:, None, None],
+            vp_t[:, 0, None, None], vp_t[:, 1, None, None],
         )
         sox, soy = sub_t[:, 0], sub_t[:, 1]
-        q2d = C.build_quantized_grid(wx, wy, keep, ox, oy, sox, soy,
-                                     G=G, S=S, h=h, res=res, taps=self._taps)
+        build = dict(G=G, S=S, h=h, res=res, taps=self._taps)
+        grid0 = None
+        if self.return_meta:
+            q2d, grid = C.build_grid_staged(wx, wy, keep, ox, oy, sox, soy, **build)
+            grid0 = grid[0]
+        else:
+            q2d = C.build_quantized_grid(wx, wy, keep, ox, oy, sox, soy, **build)
 
         lane = torch.arange(P, device=dev)
         valid = lane[None, :] < n_q[:, None]
@@ -380,11 +474,12 @@ class CorrelativeScanMatcher:
             fine = C.reduce_best_pose(out, xv, yv, tv)
         else:
             fine = coarse
-        return torch.stack([coarse, fine], dim=1).cpu().numpy()
+        return torch.stack([coarse, fine], dim=1), grid0
 
     # -- job assembly -----------------------------------------------------------
     def _assemble_jobs(self, jobs, P, B):
-        """Host-side per-job metadata: library slots, poses, subgrids."""
+        """Host-side per-job metadata: library slots, poses, search
+        centers, viewpoints (the centers' xy) and subgrids."""
         N = len(jobs)
         idx = np.zeros((N, B), dtype=np.int64)
         mask = np.zeros((N, B), dtype=bool)
@@ -406,33 +501,83 @@ class CorrelativeScanMatcher:
             sox, soy, S_j = self._subgrid_for(base_scans, p.x, p.y, P)
             sub[j] = (sox, soy)
             S = max(S, S_j)
-        return (idx, mask, pose, q_idx, center, sub), S
+        return (idx, mask, pose, q_idx, center, center[:, :2], sub), S
 
-    # -- public API -----------------------------------------------------------
-    def match_scan(self, query, base_scans, penalty=True, do_fine=True):
-        """Match `query` against `base_scans`; returns ScanMatcherResult
-        with the covariance assembled from the coarse xy moments and the
-        fine theta moment."""
-        if not base_scans:
-            raise ValueError("match_scan needs at least one base scan")
-        return self.match_many([(query, base_scans)], penalty, do_fine)[0]
-
-    def match_many(self, jobs, penalty=True, do_fine=True):
-        """Score independent (query, base_scans) jobs in one batch.  Jobs
-        whose coarse response is empty are retried together, one widened
-        batch per expansion attempt."""
-        if not jobs:
-            return []
+    def _prepare(self, jobs):
         if any(not bs for _, bs in jobs):
             raise ValueError("every job needs at least one base scan")
         all_scans = [q for q, _ in jobs] + [s for _, bs in jobs for s in bs]
         P = self._ensure_point_cap(all_scans)
         B = self._base_bucket(max(len(bs) for _, bs in jobs))
         args, S = self._assemble_jobs(jobs, P, B)
+        return args, P, S
+
+    # -- public API -----------------------------------------------------------
+    def match_scan(self, query, base_scans, penalty=True, do_fine=True):
+        """Match `query` against `base_scans`; returns ScanMatcherResult
+        with the covariance assembled from the coarse xy moments and the
+        fine theta moment."""
+        return self.match_scan_async(query, base_scans, penalty,
+                                     do_fine).result()
+
+    def match_scan_async(self, query, base_scans, penalty=True, do_fine=True):
+        """Dispatch one match without blocking on the device; the handle's
+        `.result()` waits, applies response expansion if the coarse
+        response came back empty, and returns the ScanMatcherResult."""
+        if not base_scans:
+            raise ValueError("match_scan needs at least one base scan")
+        return self._dispatch([(query, base_scans)], penalty, do_fine,
+                              single=True)
+
+    def match_many(self, jobs, penalty=True, do_fine=True):
+        """Score independent (query, base_scans) jobs in one batch.  Jobs
+        whose coarse response is empty are retried together, one widened
+        batch per expansion attempt."""
+        return self.match_many_async(jobs, penalty, do_fine).result()
+
+    def match_many_async(self, jobs, penalty=True, do_fine=True):
+        """Dispatch a batch of independent jobs without blocking; the
+        handle's `.result()` gives the list of ScanMatcherResult (an empty
+        batch gets a trivial handle whose result is [])."""
+        if not jobs:
+            return _EmptyBatchHandle()
+        return self._dispatch(jobs, penalty, do_fine, single=False)
+
+    def _dispatch(self, jobs, penalty, do_fine, single):
+        args, P, S = self._prepare(jobs)
+        packed, grid0 = self._run(args, P, bool(penalty), bool(do_fine),
+                                  self.config.coarse_search_angle_offset, S)
+        return _MatchHandle(self, (_host_copy_async(packed), grid0), args, P,
+                            penalty, do_fine, S, single)
+
+    def match_many_mega(self, jobs, penalty=True, do_fine=True, chunk=16):
+        """Score an arbitrarily long job list in device chunks of `chunk`
+        jobs with one host copy at the end; results equal
+        :meth:`match_many`'s (jobs needing response expansion are retried
+        afterwards as widened batches)."""
+        if not jobs:
+            return []
+        args, P, S = self._prepare(jobs)
         offset = self.config.coarse_search_angle_offset
-        packed = self._run(args, P, bool(penalty), bool(do_fine), offset, S)
+        packs = [
+            self._run(tuple(a[i:i + chunk] for a in args), P, bool(penalty),
+                      bool(do_fine), offset, S)[0]
+            for i in range(0, len(jobs), chunk)
+        ]
+        pending = (_host_copy_async(torch.cat(packs)), None)
+        return self._finish(pending, args, P, penalty, do_fine, S,
+                            with_meta=False)
+
+    def _finish(self, pending, args, P, penalty, do_fine, S, with_meta):
+        """Blocking tail of a dispatched batch: wait for the packed
+        result, retry the jobs whose coarse response is empty, assemble.
+        With `with_meta`, job 0's result carries the grid of its last
+        attempt."""
+        wait, grid0 = pending
+        packed = wait()
+        offset = self.config.coarse_search_angle_offset
         need = [
-            j for j in range(len(jobs))
+            j for j in range(len(packed))
             if float(packed[j, 0, 0]) <= 0.0 and self.config.use_response_expansion
         ]
         retried = (
@@ -441,17 +586,20 @@ class CorrelativeScanMatcher:
         )
         center = args[4]
         results = []
-        for j in range(len(jobs)):
-            c, f, off = retried.get(j, (packed[j, 0], packed[j, 1], offset))
-            results.append(self._assemble(c, f, do_fine, center=center[j],
-                                          coarse_offset=off))
+        for j in range(len(packed)):
+            c, f, off, grid = retried.get(
+                j, (packed[j, 0], packed[j, 1], offset, grid0 if j == 0 else None))
+            results.append(self._assemble(
+                c, f, do_fine, center=center[j], coarse_offset=off,
+                grid=grid if with_meta else None))
         return results
 
     def _expansion_retries(self, args, rows, P, penalty, do_fine, S):
         """Response expansion: one widened batch over all empty-response
         rows per attempt; a row adopts the first attempt with a positive
         coarse response, or the last attempt.  Returns
-        {row: (coarse, fine, coarse_offset)}."""
+        {row: (coarse, fine, coarse_offset, grid)}, grid being the
+        attempt's grid for the batch's first row (else None)."""
         cfg = self.config
         rows_a = np.asarray(rows, dtype=np.int64)
         sub_args = tuple(a[rows_a] for a in args)
@@ -461,13 +609,15 @@ class CorrelativeScanMatcher:
             coarse_offset = (
                 cfg.coarse_search_angle_offset + (attempt + 1) * _EXPANSION_STEP
             )
-            packed = self._run(sub_args, P, bool(penalty), bool(do_fine),
-                               coarse_offset, S)
+            packed, grid0 = self._run(sub_args, P, bool(penalty),
+                                      bool(do_fine), coarse_offset, S)
+            packed = packed.cpu().numpy()
             last = attempt == _EXPANSION_TRIES - 1
             for k in sorted(remaining):
                 coarse, fine = packed[k, 0], packed[k, 1]
                 if float(coarse[0]) > 0.0 or last:
-                    out[int(rows_a[k])] = (coarse, fine, coarse_offset)
+                    out[int(rows_a[k])] = (coarse, fine, coarse_offset,
+                                           grid0 if k == 0 else None)
                     remaining.discard(k)
             if not remaining:
                 break
@@ -527,7 +677,8 @@ class CorrelativeScanMatcher:
             fine = coarse
         return coarse, fine
 
-    def _assemble(self, coarse, fine, do_fine, center=None, coarse_offset=None):
+    def _assemble(self, coarse, fine, do_fine, center=None, coarse_offset=None,
+                  grid=None):
         cfg = self.config
         final_resp = float(fine[0] if do_fine else coarse[0])
         if center is not None and final_resp <= 0.0:
@@ -545,9 +696,156 @@ class CorrelativeScanMatcher:
         # xy covariance from the coarse pass, theta from the fine pass, as
         # the reference does
         xx, yy, xy = float(coarse[4]), float(coarse[5]), float(coarse[6])
-        covar = sanitize_covariance(
-            np.array([[xx, xy, 0.0], [xy, yy, 0.0], [0.0, 0.0, th]]), cfg)
+        covar = np.array([[xx, xy, 0.0], [xy, yy, 0.0], [0.0, 0.0, th]])
+        if self.sanitize_covariance:
+            covar = sanitize_covariance(covar, cfg)
+        meta = None
+        if grid is not None:
+            meta = {"grid": grid.to(self.dtype).cpu().numpy(),
+                    "kernel": np.outer(self._k1, self._k1)}
         return ScanMatcherResult(
-            response, covar, Transform.from_position_euler(x, y, 0, 0, 0, t), None
+            response, covar, Transform.from_position_euler(x, y, 0, 0, 0, t), meta
         )
 
+    # -- scan-set (submap) matching ------------------------------------------
+    @staticmethod
+    def _scan_set_points(query_scans):
+        """Mean position of the query scans' poses, and all their world
+        beam endpoints relative to it."""
+        ox_real = float(np.mean([q.corrected_pose.x for q in query_scans]))
+        oy_real = float(np.mean([q.corrected_pose.y for q in query_scans]))
+        pts = [q.points() for q in query_scans]
+        qx = np.concatenate([px - ox_real for px, _ in pts])
+        qy = np.concatenate([py - oy_real for _, py in pts])
+        return ox_real, oy_real, qx, qy
+
+    def _match_explicit_query(self, base_scans, q_lx, q_ly, n_q, center_xyt,
+                              viewpoint_xy, penalty, do_fine, P):
+        """One match with explicit query points (not library-resident):
+        the scan-set paths.  base_scans[0] stands in as the library query
+        of the job assembly; its center and subgrid are replaced."""
+        B = self._base_bucket(len(base_scans))
+        (idx, mask, pose, q_idx, _, _, _), _ = self._assemble_jobs(
+            [(base_scans[0], base_scans)], P, B
+        )
+        dt = self.np_dtype
+        center = np.asarray(center_xyt, dtype=dt)[None]
+        sox, soy, S = self._subgrid_for(
+            base_scans, float(center_xyt[0]), float(center_xyt[1]), P
+        )
+        sub = np.array([[sox, soy]], dtype=np.int32)
+        vp = np.asarray(viewpoint_xy, dtype=dt)[None]
+        queries = (q_lx[None].astype(dt), q_ly[None].astype(dt),
+                   np.asarray([n_q], dtype=np.int32))
+        packed, grid0 = self._run(
+            (idx, mask, pose, q_idx, center, vp, sub), P, bool(penalty),
+            bool(do_fine), self.config.coarse_search_angle_offset, S,
+            queries=queries,
+        )
+        packed = packed.cpu().numpy()
+        return self._assemble(packed[0, 0], packed[0, 1], do_fine,
+                              center=center[0], grid=grid0)
+
+    def match_scan_sets(self, query_scans, base_scans, penalty=True,
+                        do_fine=True):
+        """Rigidly match a set of query scans against base scans (submap
+        alignment).  The grid is centered on the query set's mean position;
+        base points are validated against the LAST query scan's pose, as
+        the reference does.  The result carries one corrected pose per
+        query scan."""
+        if not query_scans or not base_scans:
+            raise ValueError("match_scan_sets needs query and base scans")
+        ox_real, oy_real, qx, qy = self._scan_set_points(query_scans)
+        oxy = Transform.from_position_euler(ox_real, oy_real, 0, 0, 0, 0)
+        viewpoint = query_scans[-1].corrected_pose
+
+        # the widened cap is kept, so the library re-queues at it
+        P = max(self._ensure_point_cap(base_scans), _next_bucket(len(qx)))
+        self._point_cap = P
+        q_lx = np.full(P, _FAR)
+        q_ly = np.full(P, _FAR)
+        q_lx[: len(qx)] = qx
+        q_ly[: len(qy)] = qy
+
+        result = self._match_explicit_query(
+            base_scans, q_lx, q_ly, len(qx),
+            (ox_real, oy_real, 0.0), (viewpoint.x, viewpoint.y),
+            penalty, do_fine, P,
+        )
+        diff = result.best_pose - oxy
+        return ScanMatcherResult(
+            result.response, result.covariance,
+            [diff + q.corrected_pose for q in query_scans], result.meta,
+        )
+
+    @torch.no_grad()
+    def match_scan_sets_with_map(self, cgrid, ox, oy, query_scans,
+                                 penalty=True, do_fine=True):
+        """Localize a set of query scans against a precomputed correlation
+        grid (e.g. a saved map through
+        mapping.occupancy_grid_map_to_correlation_grid; `cgrid` is an
+        (H, W) array or tensor, (ox, oy) its world origin).  The coarse
+        pass is the reference's literal search (+-0.25 m at 0.01 m,
+        +-0.1 rad at 0.01 rad, grid res 0.05, unpenalized); the fine pass
+        uses the matcher's resolution.  Both score on the element path,
+        since 0.01 m is no multiple of the 0.05 m cell."""
+        if not query_scans:
+            raise ValueError("match_scan_sets_with_map needs query scans")
+        cfg = self.config
+        res = cfg.resolution
+        dev = self.device
+        dt = self.np_dtype
+        ox_real, oy_real, qx, qy = self._scan_set_points(query_scans)
+        oxy = Transform.from_position_euler(ox_real, oy_real, 0, 0, 0, 0)
+        P = _next_bucket(len(qx))
+        q_lx = np.full(P, _FAR, dtype=dt)
+        q_ly = np.full(P, _FAR, dtype=dt)
+        q_lx[: len(qx)] = qx
+        q_ly[: len(qy)] = qy
+
+        # pad to a square grid and quantize in the matcher dtype, as the
+        # JAX package does
+        grid = torch.as_tensor(cgrid).to(device=dev, dtype=self.dtype)
+        H, W = grid.shape
+        G = max(H, W)
+        padded = torch.zeros((G, G), dtype=self.dtype, device=dev)
+        padded[:H, :W] = grid
+        qgrid = C.quantize_grid(padded)
+
+        cx, cy, ct, gox, goy = torch.as_tensor(
+            np.array([ox_real, oy_real, 0.0, ox, oy], dtype=dt), device=dev)
+        px = torch.as_tensor(q_lx, device=dev)
+        py = torch.as_tensor(q_ly, device=dev)
+        n_pts = torch.tensor(len(qx), dtype=self.dtype, device=dev)
+        coarse = C.find_best_pose(
+            qgrid, px, py, n_pts, cx, cy, ct, gox, goy,
+            spec=C.LatticeSpec.from_search(
+                0.0, 0.0, 0.0, _MAP_COARSE["xy_size"], _MAP_COARSE["xy_res"],
+                _MAP_COARSE["ang_size"], _MAP_COARSE["ang_res"]),
+            grid_size=G, penalize=False, symmetric=False, **_MAP_COARSE,
+        )
+        if do_fine:
+            fine = C.find_best_pose(
+                qgrid, px, py, n_pts, coarse[1], coarse[2], coarse[3],
+                gox, goy,
+                spec=C.LatticeSpec.from_search(
+                    0.0, 0.0, 0.0, res * 2, res, _FINE_ANGLE_SIZE,
+                    cfg.fine_search_angle_resolution),
+                xy_size=res * 2, xy_res=res, ang_size=_FINE_ANGLE_SIZE,
+                ang_res=cfg.fine_search_angle_resolution, grid_size=G,
+                grid_res=res, penalize=bool(penalty), symmetric=False,
+            )
+        else:
+            fine = coarse
+        packed = torch.stack([coarse, fine]).cpu().numpy()
+        # no search center: the zero-response fixup does not apply here
+        result = self._assemble(packed[0], packed[1], do_fine)
+        diff = result.best_pose - oxy
+        return ScanMatcherResult(
+            result.response, result.covariance,
+            [q.corrected_pose + diff for q in query_scans], result.meta,
+        )
+
+
+# API-parity alias (the reference's Scan2DMatcher)
+Scan2DMatcher = CorrelativeScanMatcher
