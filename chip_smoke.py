@@ -25,7 +25,24 @@ Phases, one line each; any failure raises (non-zero exit):
   8. localize against the tour's map: convert the 0.05 m occupancy image
      on the card, offset 3 consecutive scans by (+0.08, -0.06) m and run
      match_scan_sets_with_map; poses back within 0.1 m of the SLAM poses
-     and within 1e-6 of the host's float32 plain path.
+     and within 1e-6 of the host's float32 plain path;
+  9. stream: the tour through GraphSlam.process_scan_stream (blocks of 8,
+     block dispatch) at the default configs in float32; after 300 scans
+     the same counts as phase 4's blocking run and poses within 1e-4, over
+     the whole tour closures within +-1 and ATE below odometry's; then the
+     first 100 scans through OnlineMatchPipeline in block mode, in
+     streaming mode with one lagged group and through the blocking
+     match_scan loop, all equal; scans/s of each and the pipeline stats;
+ 10. entry points: the offline CLI in-process on the tour log (node
+     defaults, --device cuda) per scan and with --stream, the same vertex
+     and closure counts and ATE below odometry's; ThreadedOnlineMapper
+     with 60 tour scans enqueued at once, drained, equal to the per-scan
+     OnlineMapper on the card;
+ 11. lifelong: an OnlineMapper spliced into phase 4's map image
+     (segmentation and raytracing on the card, held to the host's plain
+     run), fed the tour's first 20 scans from their pose in the map; the
+     splice bootstrap links the first, the graph grows by 20, and the poses
+     come back within 0.3 m of phase 4's.
 Each path's kernel launches are counted from 0 just before it runs.  The
 last lines are a JSON line of per-kernel results, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -33,6 +50,8 @@ last lines are a JSON line of per-kernel results, the nvidia-smi line and
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -61,11 +80,16 @@ HOLD_BACK = 5   # scans processed after the checkpoint round trip
 # and two fine angle steps (2 x 0.00349 rad).
 HOST_RUNS = ((torch.float32, 300, 1e-6, 1e-6), (torch.float64, 50, 0.02, 0.00698))
 PROFILE_SCANS = (150, 210)   # the traced window of phase 6
+STREAM_PREFIX = 300          # phase 9 is held to phase 4 after these scans
+SNAPSHOTS = {n for _, n, _, _ in HOST_RUNS} | {STREAM_PREFIX}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the kernels of GraphSlam.process_scan (phase 4); smear_grid runs on the
 # meta, scan-set and localize paths (phases 7 and 8)
 SLAM_KERNELS = ("scatter_cells", "smear_quantize", "window_sum")
 H0_S, H0_G = 1024, 1100     # the one-tap (h = 0) smear case of phase 3
+# the node-default sequential config (res 0.01 m, smear 0.07 m, range
+# 20 m) of the CLI and the online mapper: its smear has h = 14
+NODE_G, NODE_S, NODE_H = 4031, 3072, 14
 META_QUERIES = (60, 150, 240)   # tour scans matched with return_meta
 SET_QUERY = 300                 # scans 300-302 against 290-299
 MEGA_QUERIES = range(100, 116)  # one batch of 16 sequential jobs
@@ -81,6 +105,18 @@ LOCALIZE_OFFSET = (0.08, -0.06)
 # within 1e-6 (the lattice values are the same; sums differ in order),
 # covariance within 1e-4 relative (window moments of float32 sums)
 API_TOL, COV_RTOL = 1e-6, 1e-4
+# phase 9: blocks of 8; the streamed run is held to phase 4's blocking run
+# at its 300-scan snapshot, poses within 1e-4 m / 1e-4 rad
+STREAM_SYNC, STREAM_TOL = 8, 1e-4
+PIPELINE_SCANS = 100      # the pipeline modes against each other
+THREADED_SCANS = 60       # phase 10's enqueued burst
+LIFELONG_SCANS, LIFELONG_TOL = 20, 0.3
+# phase 11, card against host: segment labels may differ on this share of
+# the free pixels (the matmul of the k-means distance may round a near-tie
+# apart); ray lengths within 1e-3 px, except this share of rays, which may
+# end one step apart (float32 cos/sin last bits at .5 sample positions)
+LABEL_FLIPS, RAY_TOL, RAY_STEP_SHARE = 1e-3, 1e-3, 1e-3
+LIFELONG_RAY_CENTROIDS = 8
 
 
 def log(msg):
@@ -133,7 +169,7 @@ def grid_case(rng, dev, *, N, S, h, G, so, B=16):
             torch.as_tensor(lim, device=dev))
 
 
-def check_kernels(K, taps_seq, taps_loop, dev):
+def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
     """Kernel vs plain version at the main path's shapes; returns
     {kernel: [case dicts]} and the grids for the window-sum cases."""
     rng = np.random.default_rng(0)
@@ -146,6 +182,7 @@ def check_kernels(K, taps_seq, taps_loop, dev):
         ("loop", dict(N=4, S=LOOP_S, h=LOOP_H, G=LOOP_G, so=0), taps_loop),
         ("h0", dict(N=2, S=H0_S, h=0, G=H0_G, so=H0_G - H0_S + 24),
          torch.ones(1, dtype=torch.float32, device=dev)),
+        ("node_seq", dict(N=1, S=NODE_S, h=NODE_H, G=NODE_G, so=500), taps_node),
     ]
     for name, c, taps in cases:
         sy, sx, lim = grid_case(rng, dev, **c)
@@ -311,7 +348,7 @@ def run_slam(tmp, gpu, dev):
         slam.process_scan(s)
         scan_ms.append(1e3 * (time.perf_counter() - t0))
         match_ms.append(1e3 * (slam.stats["match_time_total"] - m0))
-        if any(i + 1 == r[1] for r in HOST_RUNS):
+        if i + 1 in SNAPSHOTS:
             card_at[i + 1] = graph_state(slam)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
@@ -400,6 +437,11 @@ def run_slam(tmp, gpu, dev):
     scans = [v.obj for v in slam.graph.vertices]
     summary["matcher_api"] = matcher_api(scans, dev, gpu)
     summary["localize"] = localize(slam, scans, dev, gpu)
+    tour = dict(carmen=carmen, scans_of=scans_of, gt=gt, odom=odom, log=log_path,
+                gt_path=gt_path, n_main=nm)
+    summary["stream"] = stream(tour, card_at[STREAM_PREFIX], summary, dev, gpu)
+    summary["entry_points"] = entry_points(tour, tmp, dev, gpu)
+    summary["lifelong"] = lifelong(tour, slam, dev, gpu)
     return summary
 
 
@@ -626,15 +668,295 @@ def localize(slam, scans, dev, gpu):
     return out
 
 
+# -- phase 9 / 10 / 11 -----------------------------------------------------------
+
+def xyt(p):
+    return [p.x, p.y, p.euler[-1]]
+
+
+def poses_of(scans):
+    return np.array([xyt(s.corrected_pose) for s in scans])
+
+
+def stream(tour, card_prefix, phase4, dev, gpu):
+    """Phase 9: the tour through process_scan_stream, held to phase 4's
+    blocking run; then the pipeline's modes on the first scans."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
+
+    nm, gt = tour["n_main"], tour["gt"]
+    scans = tour["scans_of"](tour["carmen"][:nm])
+    slam = GraphSlam.default(device=dev, dtype=torch.float32)
+
+    def run():
+        t0 = time.perf_counter()
+        slam.process_scan_stream(scans[:STREAM_PREFIX], sync_every=STREAM_SYNC)
+        at = graph_state(slam)
+        slam.process_scan_stream(scans[STREAM_PREFIX:], sync_every=STREAM_SYNC)
+        torch.cuda.synchronize()
+        return at, time.perf_counter() - t0
+
+    ((poses, counts), wall), launches = counted(K, run)
+    dxy, dth = pose_gap(poses, card_prefix[0])
+    est = np.array([xyt(v.obj.corrected_pose)[:2] for v in slam.graph.vertices])
+    st = slam.stats
+    out = dict(
+        scans=nm, seconds=wall, scans_per_s=nm / wall,
+        blocking_scans_per_s=phase4["scans_per_s"],
+        prefix=STREAM_PREFIX, prefix_counts=counts, blocking_counts=card_prefix[1],
+        prefix_dxy_m=dxy, prefix_dth_rad=dth, loop_closures=st["loop_closures"],
+        blocking_loop_closures=phase4["loop_closures"],
+        ate_slam_m=ate(est, gt[:nm, :2]), ate_odom_m=phase4["ate_odom_m"],
+        pipeline_stats={k: st["stream_" + k] for k in ("synced", "redo_sweeps",
+                                                       "redo_matches")},
+        launches=launches,
+    )
+    log(f"phase 9: process_scan_stream (blocks of {STREAM_SYNC}) {nm} scans in "
+        f"{wall:.3f} s = {out['scans_per_s']:.3f} scans/s against the blocking "
+        f"loop's {phase4['scans_per_s']:.3f}; first {STREAM_PREFIX}: (vertices, "
+        f"edges, closures) {counts} vs {card_prefix[1]}, max |dxy| {dxy:.3e} m, "
+        f"|dth| {dth:.3e} rad; tour: {st['loop_closures']} closures vs "
+        f"{phase4['loop_closures']}, ATE {out['ate_slam_m']:.4f} m vs odometry "
+        f"{out['ate_odom_m']:.4f} m; pipeline {out['pipeline_stats']}; "
+        f"launches {launches} ({gpu})")
+    if counts != card_prefix[1] or dxy > STREAM_TOL or dth > STREAM_TOL:
+        raise AssertionError("the streamed run parted from the blocking run")
+    if abs(st["loop_closures"] - phase4["loop_closures"]) > 1:
+        raise AssertionError("streamed closures differ from the blocking run's by > 1")
+    if not out["ate_slam_m"] < out["ate_odom_m"]:
+        raise AssertionError("streamed ATE not below odometry's")
+    out["modes"] = pipeline_modes(tour, dev, gpu)
+    return out
+
+
+def pipeline_modes(tour, dev, gpu):
+    """The first PIPELINE_SCANS scans matched against their last 10: the
+    blocking match_scan loop, the pipeline in block mode, and in streaming
+    mode with one lagged group."""
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
+    from yag_slam_tpu_torch.matching.pipeline import OnlineMatchPipeline
+
+    window = 10
+
+    def blocking(scans, m):
+        res = []
+        for k in range(1, len(scans)):
+            scan, last = scans[k], scans[k - 1]
+            scan.corrected_pose = last.corrected_pose + (scan.odom_pose - last.odom_pose)
+            r = m.match_scan(scan, scans[max(0, k - window):k])
+            scan.corrected_pose = r.best_pose
+            res.append(r)
+        return res, None
+
+    def piped(scans, m, **kw):
+        pipe = OnlineMatchPipeline(m, window=window, sync_every=STREAM_SYNC, **kw)
+        pipe.seed(scans[:1])
+        res = []
+        for s in scans[1:]:
+            pipe.push(s)
+            res += pipe.drain()
+        return res + pipe.flush(), dict(pipe.stats)
+
+    runs = {}
+    for name, fn in (("blocking", blocking),
+                     ("block", lambda sc, m: piped(sc, m, block_dispatch=True)),
+                     ("streaming_lag1", lambda sc, m: piped(sc, m, lag_blocks=1))):
+        scans = tour["scans_of"](tour["carmen"][:PIPELINE_SCANS])
+        m = CorrelativeScanMatcher(device=dev)
+        (res, stats), ms = timed(lambda: fn(scans, m))
+        runs[name] = dict(res=res, poses=poses_of(scans[1:]), ms=ms, stats=stats)
+    out = {}
+    for name, r in runs.items():
+        dxy, dth = pose_gap(r["poses"], runs["block"]["poses"])
+        dresp = max(abs(a.response - b.response)
+                    for a, b in zip(r["res"], runs["block"]["res"]))
+        out[name] = dict(scans_per_s=(PIPELINE_SCANS - 1) / (r["ms"] / 1e3),
+                         ms=r["ms"], stats=r["stats"], dxy_vs_block_m=dxy,
+                         dth_vs_block_rad=dth, dresponse_vs_block=dresp)
+        log(f"phase 9: {PIPELINE_SCANS - 1} matches {name}: "
+            f"{out[name]['scans_per_s']:.3f} scans/s; vs block mode max |dxy| "
+            f"{dxy:.3e} m, |dth| {dth:.3e} rad, |dresponse| {dresp:.3e}; "
+            f"stats {r['stats']} ({gpu})")
+        if len(r["res"]) != PIPELINE_SCANS - 1 or max(dxy, dth) > STREAM_TOL \
+                or dresp > STREAM_TOL:
+            raise AssertionError(f"pipeline {name} differs from block mode")
+    return out
+
+
+def quiet(fn):
+    """fn() with its standard output captured; (out, captured lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def tour_args(records):
+    return [(c.ranges, c.min_angle, c.max_angle, c.angle_increment, 0.0,
+             c.max_range, (c.odom_x, c.odom_y, c.odom_theta)) for c in records]
+
+
+def entry_points(tour, tmp, dev, gpu):
+    """Phase 10: the offline CLI in-process and the threaded mapper."""
+    from yag_slam_tpu_torch.apps import offline_mapper
+    from yag_slam_tpu_torch.apps.online import OnlineMapper, ThreadedOnlineMapper
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    out = dict(launches={})
+    base = ["--carmen", tour["log"], "--gt", tour["gt_path"], "--device", dev.type,
+            "--no-map-image"]
+
+    def cli():
+        a = offline_mapper.main(base + ["--out", os.path.join(tmp, "cli")])
+        b = offline_mapper.main(base + ["--out", os.path.join(tmp, "cli_s"), "--stream"])
+        return a, b
+
+    ((a, b), lines), out["launches"]["cli"] = counted(K, lambda: quiet(cli))
+    keys = ("vertices", "edges", "loop_closures", "integrated", "scans_per_s",
+            "ate_rmse", "ate_rmse_odom")
+    out["cli"] = {k: a[k] for k in keys}
+    out["cli_stream"] = dict({k: b[k] for k in keys}, pipeline=b["pipeline"])
+    for line in lines:
+        log(f"phase 10: cli: {line}")
+    log(f"phase 10: CLI per scan {a['integrated']} scans at {a['scans_per_s']:.3f} "
+        f"scans/s, --stream at {b['scans_per_s']:.3f}; (vertices, closures) "
+        f"{(a['vertices'], a['loop_closures'])} vs {(b['vertices'], b['loop_closures'])}; "
+        f"ATE {a['ate_rmse']:.4f} / {b['ate_rmse']:.4f} m vs odometry "
+        f"{a['ate_rmse_odom']:.4f} m; --stream pipeline {b['pipeline']}; launches "
+        f"{out['launches']['cli']} ({gpu})")
+    if (a["vertices"], a["loop_closures"]) != (b["vertices"], b["loop_closures"]):
+        raise AssertionError("the CLI's --stream run differs from its per-scan run")
+    for r in (a, b):
+        if not r["ate_rmse"] < r["ate_rmse_odom"]:
+            raise AssertionError(f"CLI ATE {r['ate_rmse']} not below odometry's")
+
+    args = tour_args(tour["carmen"][:THREADED_SCANS])
+    kw = dict(device=dev, min_distance=0.0, min_rotation=0.0)
+    renders = []
+
+    def threaded():
+        mapper = ThreadedOnlineMapper(map_callback=lambda im, g: renders.append(im.shape),
+                                      **kw)
+        try:
+            t0 = time.perf_counter()
+            for x in args:
+                mapper.enqueue_scan(*x)
+            ok = mapper.drain(timeout=600)
+            return mapper, ok, time.perf_counter() - t0
+        finally:
+            mapper.close()
+
+    (mapper, ok, secs), out["launches"]["threaded"] = counted(K, threaded)
+    ref = OnlineMapper(**kw)
+    for x in args:
+        ref.add_scan(*x)
+    got_poses, got_counts = graph_state(mapper.slam)
+    ref_poses, ref_counts = graph_state(ref.slam)
+    dxy, dth = pose_gap(got_poses, ref_poses)
+    out["threaded"] = dict(scans=THREADED_SCANS, drained=ok, seconds=secs,
+                           counts=got_counts, per_scan_counts=ref_counts,
+                           dxy_m=dxy, dth_rad=dth, renders=len(renders))
+    log(f"phase 10: ThreadedOnlineMapper {THREADED_SCANS} scans enqueued at once: "
+        f"drained {ok} in {secs:.3f} s, (vertices, edges, closures) {got_counts} vs "
+        f"the per-scan mapper's {ref_counts}, max |dxy| {dxy:.3e} m, |dth| "
+        f"{dth:.3e} rad, {len(renders)} map renders; launches "
+        f"{out['launches']['threaded']} ({gpu})")
+    if not ok or got_counts[0] != THREADED_SCANS or got_counts != ref_counts \
+            or max(dxy, dth) > STREAM_TOL:
+        raise AssertionError("the threaded mapper differs from the per-scan mapper")
+    return out
+
+
+def lifelong(tour, slam, dev, gpu):
+    """Phase 11: splice phase 4's map into an OnlineMapper on the card and
+    localize the tour's first scans in it."""
+    from yag_slam_tpu.core.transform import Transform
+    from yag_slam_tpu_torch.apps.online import OnlineMapper
+    from yag_slam_tpu_torch.mapping.raytrace import trace_rays
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.splicing import splice
+
+    grid = slam.make_occupancy_grid()
+    im = np.ascontiguousarray(grid.image[::-1])   # a saved map: top row first
+    origin = [grid.offset.x, grid.offset.y]
+    seg, seg_ms = timed(lambda: splice.segment_map(im, density=5, device=dev))
+    t0 = time.perf_counter()
+    host_seg = splice.segment_map(im, density=5, device="cpu")
+    host_seg_ms = 1e3 * (time.perf_counter() - t0)
+    flips = float((seg != host_seg).sum() / max((host_seg > 0).sum(), 1))
+    cents = splice.determine_centroids(host_seg)
+    angles = np.arange(-180, 180, 0.25)[:-1][::-1]
+    picks = sorted(cents)[:: max(1, len(cents) // LIFELONG_RAY_CENTROIDS)]
+    d = np.concatenate([
+        np.abs(trace_rays(im, angles, *cents[k], device=dev)[2]
+               - trace_rays(im, angles, *cents[k], device="cpu")[2])
+        for k in picks[:LIFELONG_RAY_CENTROIDS]])
+    far = d > RAY_TOL
+    out = dict(map_shape=list(im.shape), segments=int(host_seg.max()),
+               label_flip_share=flips, segment_ms=seg_ms, host_segment_ms=host_seg_ms,
+               rays=int(d.size), rays_one_step=int(far.sum()),
+               max_ray_gap_px=float(d.max()))
+    log(f"phase 11: map {im.shape[1]}x{im.shape[0]}, {out['segments']} segments "
+        f"in {seg_ms:.3f} ms on the card ({host_seg_ms:.3f} ms host), label flips "
+        f"{flips:.2e}; {d.size} rays card vs host: {int(far.sum())} one step "
+        f"apart, max gap {d.max():.3e} px")
+    if flips > LABEL_FLIPS or far.mean() > RAY_STEP_SHARE or (d[far] > 1 + RAY_TOL).any():
+        raise AssertionError("segmentation or raytracing on the card differs from the host's")
+
+    vs = slam.graph.vertices
+    recs = tour["carmen"][:LIFELONG_SCANS]
+    truth = np.array([xyt(vs[i].obj.corrected_pose) for i in range(LIFELONG_SCANS)])
+    # carry the odometry into the map frame: T = P0 o O0^-1
+    odom = [Transform.from_xyt(c.odom_x, c.odom_y, c.odom_theta) for c in recs]
+    T = vs[0].obj.corrected_pose + odom[0].inverse()
+    in_map = [xyt(T + o) for o in odom]
+
+    def run():
+        t0 = time.perf_counter()
+        mapper = OnlineMapper(device=dev, base_map=(im, grid.resolution, origin),
+                              initial_pose=tuple(in_map[0]), min_distance=0.0,
+                              min_rotation=0.0)
+        t1 = time.perf_counter()
+        n_base = len(mapper.slam.graph.vertices)
+        for c, pose in zip(recs, in_map):
+            mapper.add_scan(c.ranges, c.min_angle, c.max_angle, c.angle_increment,
+                            0.0, c.max_range, pose)
+        torch.cuda.synchronize()
+        return mapper, n_base, t1 - t0, time.perf_counter() - t1
+
+    (mapper, n_base, build_s, feed_s), launches = counted(K, run)
+    live = mapper.slam.graph.vertices[n_base:]
+    got = poses_of([v.obj for v in live])
+    back_m, back_rad = pose_gap(got, truth) if len(got) == len(truth) else (np.inf, np.inf)
+    linked = any(e.target.obj.num < n_base for e in live[0].edges) if live else False
+    out.update(base_vertices=n_base, live_vertices=len(live), bootstrap_linked=linked,
+               build_s=build_s, feed_s=feed_s, back_m=back_m, back_rad=back_rad,
+               loop_closures=mapper.slam.stats["loop_closures"], launches=launches)
+    log(f"phase 11: spliced {n_base} base vertices in {build_s:.3f} s; {len(live)} "
+        f"tour scans localized in {feed_s:.3f} s, bootstrap linked {linked}, "
+        f"{out['loop_closures']} closures, back within {back_m:.4f} m / "
+        f"{back_rad:.4f} rad of phase 4's poses; launches {launches} ({gpu})")
+    if not linked or len(live) != LIFELONG_SCANS or back_m > LIFELONG_TOL:
+        raise AssertionError("the lifelong splice did not localize the tour's scans")
+    return out
+
+
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
     smear of phase 8) and the launches of every driven path."""
     checks["smear_grid"].append(slam["localize"]["smear_case"])
     paths = dict(slam=slam["launches"], **slam["matcher_api"]["launches"],
-                 localize=slam["localize"]["launches"])
+                 localize=slam["localize"]["launches"],
+                 stream=slam["stream"]["launches"],
+                 **slam["entry_points"]["launches"],
+                 lifelong=slam["lifelong"]["launches"])
     for path in ("meta", "scan_sets", "localize"):
         if paths[path]["smear_grid"] <= 0:
             raise AssertionError(f"smear_grid never launched on the {path} path")
+    for path in ("stream", "cli", "threaded", "lifelong"):
+        for k in SLAM_KERNELS:
+            if paths[path][k] <= 0:
+                raise AssertionError(f"{k} never launched on the {path} path")
     kernels = []
     for k, info in K.KERNELS.items():
         main_case = checks[k][0]
@@ -676,9 +998,13 @@ def main():
     log(f"phase 2: kernels built in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
 
-    taps = {res: torch.as_tensor(C.gaussian_kernel_1d(res, 0.05).astype(np.float32),
-                                 device=dev) for res in (0.01, 0.05)}
-    checks = check_kernels(K, taps[0.01], taps[0.05], dev)
+    taps = {cfg: torch.as_tensor(C.gaussian_kernel_1d(*cfg).astype(np.float32),
+                                 device=dev)
+            for cfg in ((0.01, 0.05), (0.05, 0.05), (0.01, 0.07))}
+    if len(taps[(0.01, 0.07)]) != 2 * NODE_H + 1:
+        raise AssertionError("the node-default smear is not h = 14")
+    checks = check_kernels(K, taps[(0.01, 0.05)], taps[(0.05, 0.05)],
+                           taps[(0.01, 0.07)], dev)
     with tempfile.TemporaryDirectory() as tmp:
         slam = run_slam(tmp, gpu, dev)
     out = dict(gpu=gpu, device=name, kernels=checks, slam=slam)

@@ -59,3 +59,58 @@ def test_pose_gap_wraps_heading():
     assert dxy == pytest.approx(0.005)
     assert dth == pytest.approx(0.002)
 
+
+
+NEW_PATHS = ("stream", "cli", "threaded", "lifelong")
+
+
+def _run_summary(zero=None):
+    """A phase summary as run_slam returns it, with one launch on every
+    path for every kernel (smear_grid only on its own paths); `zero` =
+    (path, kernel) sets that count to 0."""
+    def n(path, **kw):
+        counts = {k: kw.get(k, 1) for k in KERNELS}
+        if zero and zero[0] == path:
+            counts[zero[1]] = 0
+        return counts
+
+    case = dict(case="c", max_abs_err=0, ms=0.1, plain_ms=1.0)
+    checks = {k: [dict(case)] for k in KERNELS}
+    slam = dict(
+        launches=n("slam", smear_grid=0),
+        matcher_api=dict(launches=dict(meta=n("meta"), scan_sets=n("scan_sets"),
+                                       mega=n("mega", smear_grid=0))),
+        localize=dict(launches=n("localize"), smear_case=dict(case, case="tour_map")),
+        stream=dict(launches=n("stream", smear_grid=0)),
+        entry_points=dict(launches=dict(cli=n("cli", smear_grid=0),
+                                        threaded=n("threaded", smear_grid=0))),
+        lifelong=dict(launches=n("lifelong", smear_grid=0)),
+    )
+    return checks, slam
+
+
+def test_kernel_lines_count_launches_by_path():
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    checks, slam = _run_summary()
+    rows = {r["name"]: r for r in smoke.kernel_lines(K, checks, slam)}
+    assert set(rows) == set(KERNELS)
+    for k in smoke.SLAM_KERNELS:
+        assert set(NEW_PATHS) <= set(rows[k]["launches_by_path"])
+        assert rows[k]["launches"] == sum(rows[k]["launches_by_path"].values())
+    assert not set(NEW_PATHS) & set(rows["smear_grid"]["launches_by_path"])
+    assert rows["window_sum"]["route"] == "cuda"
+
+
+@pytest.mark.parametrize("path", NEW_PATHS)
+def test_kernel_lines_fail_when_a_path_skips_a_kernel(path):
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    checks, slam = _run_summary(zero=(path, "smear_quantize"))
+    with pytest.raises(AssertionError, match=f"smear_quantize never launched on the {path}"):
+        smoke.kernel_lines(K, checks, slam)
+
+
+def test_quiet_captures_standard_output():
+    out, lines = smoke.quiet(lambda: print("a\nb") or 7)
+    assert out == 7 and lines == ["a", "b"]

@@ -29,6 +29,18 @@ PORT_MODULES = [
     "yag_slam_tpu_torch.slam",
     "yag_slam_tpu_torch.slam.graph_slam",
     "yag_slam_tpu_torch.slam.serde",
+    "yag_slam_tpu_torch.matching.pipeline",
+    "yag_slam_tpu_torch.mapping.raytrace",
+    "yag_slam_tpu_torch.splicing",
+    "yag_slam_tpu_torch.splicing.segmentation",
+    "yag_slam_tpu_torch.splicing.splice",
+    "yag_slam_tpu_torch.apps",
+    "yag_slam_tpu_torch.apps.online",
+    "yag_slam_tpu_torch.apps.offline_mapper",
+    "yag_slam_tpu_torch.utils",
+    "yag_slam_tpu_torch.utils.profiling",
+    # the JAX package's host metrics, which the port's CLI reports with
+    "yag_slam_tpu.utils.metrics",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +73,48 @@ def test_cuda_request_never_runs_on_cpu():
             CorrelativeScanMatcher(device="cuda")
         with pytest.raises(RuntimeError):
             GraphSlam.default(device="cuda")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the card-less case")
+def test_mapper_and_cli_refuse_cuda_without_a_card(tmp_path):
+    """The online mapper and the CLI (whose --device defaults to cuda)
+    raise without a card; neither falls back to the CPU."""
+    from yag_slam_tpu_torch.apps import offline_mapper
+    from yag_slam_tpu_torch.apps.online import OnlineMapper, ThreadedOnlineMapper
+
+    for cls in (OnlineMapper, ThreadedOnlineMapper):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(device="cuda")
+    out = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        offline_mapper.main(["--synthetic-laps", "1", "--out", out])
+    assert not (tmp_path / "run.graph").exists()
+
+
+def test_stage_timer_and_block_and_time():
+    from yag_slam_tpu_torch.utils.profiling import StageTimer, block_and_time
+
+    timer = StageTimer()
+    for _ in range(3):
+        with timer("match"):
+            pass
+    row = timer.summary()["match"]
+    assert row["count"] == 3 and row["total_s"] >= 0.0
+    calls = []
+    mean_s, out = block_and_time(lambda x: calls.append(x) or x + 1, 4, repeats=5)
+    assert out == 5 and len(calls) == 6 and mean_s >= 0.0
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    from yag_slam_tpu_torch.utils.profiling import device_trace
+
+    path = tmp_path / "trace" / "t.json"
+    with device_trace(str(path)):
+        torch.ones(64).cumsum(0)
+    import json
+
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
 
 
 def test_wrappers_reject_other_devices():

@@ -20,22 +20,27 @@ from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 
 from test_slam_e2e import LOOP_CFG, SEQ_CFG, build_sequence
 
+# The suite runs several pytest workers side by side; one intra-op thread
+# per process keeps torch's per-core OpenMP pools from oversubscribing the
+# cores, which slows these tests manyfold.
+torch.set_num_threads(1)
+
 POSE_TOL = 1e-6
 SLAM_KW = dict(scan_buffer_len=10, loop_search_dist=2.0,
                loop_search_min_chain_size=5, min_response_coarse=0.35,
                min_response_fine=0.45)
 
 
-def jax_slam():
+def jax_slam(**kw):
     mk = lambda cfg, loop: JaxMatcher(  # noqa: E731
         cfg, loop=loop, dtype=np.float64, use_patch=True, use_pallas=False)
-    return JaxGraphSlam(mk(SEQ_CFG, False), mk(LOOP_CFG, True), **SLAM_KW)
+    return JaxGraphSlam(mk(SEQ_CFG, False), mk(LOOP_CFG, True), **dict(SLAM_KW, **kw))
 
 
-def torch_slam():
+def torch_slam(**kw):
     mk = lambda cfg, loop: CorrelativeScanMatcher(  # noqa: E731
         cfg, loop=loop, device="cpu", dtype=torch.float64)
-    return GraphSlam(mk(SEQ_CFG, False), mk(LOOP_CFG, True), **SLAM_KW)
+    return GraphSlam(mk(SEQ_CFG, False), mk(LOOP_CFG, True), **dict(SLAM_KW, **kw))
 
 
 def _poses(slam):
@@ -132,3 +137,47 @@ def test_state_carried_over_mid_run(runs):
     ja_b = graph_slam_from_state(states[b], device="cpu", dtype=torch.float64)
     _assert_same_graph(ja_b, tb, same_stats=False)
     assert any(bool(c) for _, c in out_a[1:a]), "a closure before the hand-over"
+
+
+@pytest.mark.parametrize("flags", [
+    # a fine gate above any response: only the reference's gate, which
+    # rejects in verbose mode alone, lets the closures through
+    dict(bug_compatible_fine_gate=True, min_response_fine=1.01),
+    # the reference's chain gate: squared distance against the radius
+    dict(bug_compatible_chain_gate=True),
+], ids=["fine_gate", "chain_gate"])
+def test_bug_compatible_gates_match_jax(flags):
+    _, _, scans_a = build_sequence(laps=2)
+    _, _, scans_b = build_sequence(laps=2)
+    ja, tb = jax_slam(**flags), torch_slam(**flags)
+    out_a = [ja.process_scan(s) for s in scans_a]
+    out_b = [tb.process_scan(s) for s in scans_b]
+    assert tb.stats["loop_closures"] >= 1
+    _assert_same_graph(ja, tb)
+    assert [bool(c) for _, c in out_b[1:]] == [bool(c) for _, c in out_a[1:]]
+    assert tb.stats["loop_chains_tried"] == ja.stats["loop_chains_tried"]
+
+
+def test_fine_gate_rejects_by_default():
+    """Without the flag the same fine gate rejects every closure."""
+    _, _, scans = build_sequence(laps=2)
+    tb = torch_slam(min_response_fine=1.01)
+    for s in scans:
+        tb.process_scan(s)
+    assert tb.stats["loop_closures"] == 0 and tb.stats["loop_chains_tried"] > 0
+
+
+def test_opt_hook_takes_a_second_solver(runs):
+    """opt= replaces the solver (the JAX package's drop-in hook); a second
+    SPA2d instance gives the default run's graph."""
+    from yag_slam_tpu_torch.graphopt.spa import SPA2d
+
+    _, _, _, tb, _, _, _ = runs
+    solver = SPA2d()
+    _, _, scans = build_sequence(laps=2)
+    slam = torch_slam(opt=solver)
+    assert slam.opt is solver
+    for s in scans:
+        slam.process_scan(s)
+    assert solver.nodes and slam.stats["opt_runs"] >= 1
+    _assert_same_graph(tb, slam)

@@ -161,11 +161,10 @@ class DeviceScanLibrary:
             has_run=np.stack([v["has_run"] for v in views]),
             n=np.asarray([v["n"] for v in views], dtype=np.int32),
         )
-        slots = torch.as_tensor([sl for sl, _ in pending], dtype=torch.long,
-                                device=self.device)
+        slots = _to_device(np.asarray([sl for sl, _ in pending], dtype=np.int64),
+                           self.device)
         for k, v in rows.items():
-            self._fields[k].index_copy_(
-                0, slots, torch.from_numpy(v).to(self.device))
+            self._fields[k].index_copy_(0, slots, _to_device(v, self.device))
 
     def ensure(self, scans, P):
         """Give every scan a slot at point capacity P (uploads are queued);
@@ -199,6 +198,16 @@ class DeviceScanLibrary:
                 self._pending.append((slot, s))
             out.append(slot)
         return np.asarray(out, dtype=np.int64)
+
+
+def _to_device(a, device):
+    """Host array -> tensor on `device` without waiting for the device: on
+    CUDA through a pinned staging copy and a non-blocking transfer (the
+    caching host allocator keeps the staging buffer until the copy ran)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _host_copy_async(t):
@@ -343,10 +352,13 @@ class CorrelativeScanMatcher:
             cache[key] = hit
         return hit
 
-    def _subgrid_for(self, base_scans, center_x, center_y, P):
+    def _subgrid_for(self, base_scans, center_x, center_y, P,
+                     margin_cells: int = 0):
         """Host-side tight occupied-bbox subgrid: (sox, soy, S).  Exact:
         every base point inside the full grid lands inside the subgrid
-        (+ smear halo), so all other cells are zero."""
+        (+ smear halo), so all other cells are zero.  `margin_cells` widens
+        the box on every side: the chained pipeline's host pose estimates
+        can lag the device's poses by a bounded number of cells."""
         cfg = self.config
         res = cfg.resolution
         G = self.grid_size
@@ -363,10 +375,11 @@ class CorrelativeScanMatcher:
             miny = min(miny, y0)
             maxy = max(maxy, y1)
 
-        gminx = int(np.clip(np.floor((minx - ox) / res) - 1, 0, G - 1))
-        gmaxx = int(np.clip(np.ceil((maxx - ox) / res) + 1, 0, G - 1))
-        gminy = int(np.clip(np.floor((miny - oy) / res) - 1, 0, G - 1))
-        gmaxy = int(np.clip(np.ceil((maxy - oy) / res) + 1, 0, G - 1))
+        mc = int(margin_cells)
+        gminx = int(np.clip(np.floor((minx - ox) / res) - 1 - mc, 0, G - 1))
+        gmaxx = int(np.clip(np.ceil((maxx - ox) / res) + 1 + mc, 0, G - 1))
+        gminy = int(np.clip(np.floor((miny - oy) / res) - 1 - mc, 0, G - 1))
+        gmaxy = int(np.clip(np.ceil((maxy - oy) / res) + 1 + mc, 0, G - 1))
         span = max(gmaxx - gminx, gmaxy - gminy) + 1 + 2 * h + 4
 
         s_max = self._max_sub()
@@ -399,7 +412,9 @@ class CorrelativeScanMatcher:
     def _run(self, args, P, penalty, do_fine, coarse_offset, S, queries=None):
         """Grid build + coarse (+ fine) pass for a batch of jobs on the
         device.  Query points come from the library (args' slots) or from
-        `queries` = (q_lx (N, P), q_ly, n_q (N,)) host arrays.  Returns the
+        `queries` = (q_lx (N, P), q_ly, n_q (N,)) host arrays.  The args
+        may be host arrays or tensors already on the device (the chained
+        pipeline passes device poses and centers).  Returns the
         packed (N, 2, 8) device tensor [coarse, fine] x (response, x, y,
         theta, XX, YY, XY, TH), and job 0's float32 grid before quantize
         and mask when the matcher returns meta (else None)."""

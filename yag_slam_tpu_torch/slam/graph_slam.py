@@ -10,7 +10,12 @@ flow stays on the host; the matchers run on their device.
 The JAX package's two deliberate divergences from the reference are kept:
 the fine-response gate rejects (the reference rejects only in verbose
 mode), and the chain distance gate compares squared distance with the
-squared radius.
+squared radius.  The constructor flags ``bug_compatible_fine_gate`` and
+``bug_compatible_chain_gate`` restore the reference's behaviour, as in the
+JAX package.
+
+``process_scan_stream`` ingests scans in blocks through the device-chained
+pipeline (``matching/pipeline.py``), with loop closure at each block's end.
 """
 from __future__ import annotations
 
@@ -64,6 +69,10 @@ class GraphSlam:
         min_response_coarse=0.35,
         min_response_fine=0.45,
         verbose=False,
+        *,
+        bug_compatible_fine_gate=False,
+        bug_compatible_chain_gate=False,
+        opt=None,
     ):
         self.seq_matcher = seq_matcher
         self.loop_matcher = loop_matcher
@@ -73,11 +82,15 @@ class GraphSlam:
         self.loop_search_min_chain_size = loop_search_min_chain_size
         self.near_scan_visitor = make_near_scan_visitor(loop_search_dist)
         self.running_scans = []
-        self.opt = SPA2d()
+        # any solver with SPA2d's add_node / add_constraint / compute /
+        # nodes contract drops in
+        self.opt = opt if opt is not None else SPA2d()
         self.search = RadiusHashSearch([], res=self.loop_search_dist)
         self.min_response_coarse = min_response_coarse
         self.min_response_fine = min_response_fine
         self.verbose = verbose
+        self.bug_compatible_fine_gate = bug_compatible_fine_gate
+        self.bug_compatible_chain_gate = bug_compatible_chain_gate
         self.stats = {
             "scans_processed": 0,
             "loop_closures": 0,
@@ -85,6 +98,10 @@ class GraphSlam:
             "opt_runs": 0,
             "opt_time_total": 0.0,
             "match_time_total": 0.0,
+            # the streamed path's pipeline counters (OnlineMatchPipeline.stats)
+            "stream_synced": 0,
+            "stream_redo_sweeps": 0,
+            "stream_redo_matches": 0,
         }
 
     @property
@@ -222,7 +239,12 @@ class GraphSlam:
         )
         candidates.sort(key=lambda v: v.obj.num)
 
-        dist_gate = self.loop_search_dist**2
+        # the reference compares squared distance with the radius itself
+        dist_gate = (
+            self.loop_search_dist
+            if self.bug_compatible_chain_gate
+            else self.loop_search_dist**2
+        )
 
         current_chain = []
         # pairwise walk: the last candidate (the query itself) is only seen
@@ -281,7 +303,9 @@ class GraphSlam:
             if res.response < self.min_response_fine:
                 if self.verbose:
                     print(f"Loop closure fine response too low: {res.response}")
-                continue
+                # the reference rejects here only when verbose is on
+                if self.verbose or not self.bug_compatible_fine_gate:
+                    continue
             scan.corrected_pose = res.best_pose
             self.link_to_closest_scan_in_chain(
                 scan, chain, res.best_pose, res.covariance,
@@ -347,6 +371,83 @@ class GraphSlam:
         self.running_scans.append(query)
         self.running_scans = self.running_scans[-self.scan_buffer_len:]
         return closed
+
+    def process_scan_stream(self, scans, sync_every=8, block_dispatch=True):
+        """Streamed ingestion: sequential matching through the
+        device-chained pipeline (with `block_dispatch`, `sync_every` chained
+        matches are launched back to back and read back with one copy),
+        graph bookkeeping and loop closure at each block's end.
+
+        Equal to calling :meth:`process_scan` per scan: when a loop closure
+        fires inside a block, the block's later matches were made against
+        poses from before the optimization, so they are redone through the
+        blocking path and the pipeline's device poses are re-seeded from the
+        optimized window.  Returns a list of (match_result, closed) aligned
+        with `scans` ((None, None) for the very first scan of a map)."""
+        from yag_slam_tpu_torch.matching.pipeline import OnlineMatchPipeline
+
+        out = []
+        pipe = None
+        buf = []
+
+        def flush_block():
+            t0 = time.perf_counter()
+            results = pipe.flush()
+            self.stats["match_time_total"] += time.perf_counter() - t0
+            redo_from = None
+            for i, (scan, res) in enumerate(zip(buf, results)):
+                self.stats["scans_processed"] += 1
+                closed = self._post_match(scan, res)
+                out.append((res, closed))
+                if closed:
+                    redo_from = i + 1
+                    break
+            if redo_from is not None:
+                for scan in buf[redo_from:]:
+                    last = self.running_scans[-1]
+                    scan.corrected_pose = last.corrected_pose + (
+                        scan.odom_pose - last.odom_pose
+                    )
+                    t0 = time.perf_counter()
+                    res = self.seq_matcher.match_scan(
+                        scan, self.running_scans, True, True
+                    )
+                    self.stats["match_time_total"] += time.perf_counter() - t0
+                    scan.corrected_pose = res.best_pose
+                    self.stats["scans_processed"] += 1
+                    closed = self._post_match(scan, res)
+                    out.append((res, closed))
+                # re-align the pipeline's device poses with the optimized
+                # window
+                pipe.seed(self.running_scans)
+            del buf[:]
+
+        for scan in scans:
+            if len(self.running_scans) == 0:
+                scan.num = 0
+                self.running_scans.append(scan)
+                self.add_vertex(scan)
+                self.stats["scans_processed"] += 1
+                out.append((None, None))
+                continue
+            if pipe is None:
+                pipe = OnlineMatchPipeline(
+                    self.seq_matcher, window=self.scan_buffer_len,
+                    sync_every=sync_every, block_dispatch=block_dispatch,
+                )
+                pipe.seed(self.running_scans)
+            prev = buf[-1] if buf else self.running_scans[-1]
+            scan.num = prev.num + 1
+            pipe.push(scan)
+            buf.append(scan)
+            if len(buf) >= sync_every:
+                flush_block()
+        if pipe is not None:
+            if buf:
+                flush_block()
+            for k, v in pipe.stats.items():
+                self.stats["stream_" + k] += v
+        return out
 
     # -- mapping ---------------------------------------------------------------
     def make_occupancy_grid(self, resolution=0.05, range_threshold=12):
