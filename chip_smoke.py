@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--kernels-only]
 
 Phases, one line each; any failure raises (non-zero exit):
   1. require CUDA; print the card's name and power limit;
   2. build the CUDA kernels from yag_slam_tpu_torch/csrc;
   3. compare each kernel with its plain PyTorch version on the card, at the
-     SLAM main path's shapes (bit equality), and time both;
+     SLAM main path's shapes (bit equality); time the wrapper and the plain
+     version, the bare kernel on preallocated outputs and the one-call
+     PyTorch form where there is one (index_put_ for scatter_cells,
+     F.conv2d for window_sum at seq_coarse) by device time, beside the
+     bound (HBM bytes or float32 operations at the published peak); then
+     smear_quantize on {0,1} grids at three densities and window_sum at
+     other point counts, bit-equal (--kernels-only stops here);
   4. run the building-tour CARMEN log through the port's GraphSlam at the
      default matcher configs in float32 on the card: require a loop
      closure, ATE below odometry's and every kernel launched; then hold
@@ -44,14 +50,16 @@ Phases, one line each; any failure raises (non-zero exit):
      splice bootstrap links the first, the graph grows by 20, and the poses
      come back within 0.3 m of phase 4's.
 Each path's kernel launches are counted from 0 just before it runs.  The
-last lines are a JSON line of per-kernel results, the nvidia-smi line and
-{"ok": true, "device": {...}}.
+last lines are a JSON line of per-kernel results (ms is the bare kernel's
+device time at its main-path case; launches_per_scan is phase 4's count
+over its scans), the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -59,6 +67,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -69,6 +78,20 @@ SEQ_G, SEQ_S, SEQ_H = 4051, 3072, 10
 LOOP_G, LOOP_S, LOOP_H = 881, 768, 2
 P, N_BEAMS = 256, 180
 TIMING_REPS = 20
+# Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM
+# bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+SPIN_CYCLES = 1_000_000      # the card's spin before each device_ms launch
+# the float32 chain of the smear: per pass-1 element (S x (S + 2h) of them)
+# and per output, one multiply for the centre and a max, a multiply and a
+# max per tap pair (3h + 1 ops)
+SMEAR_OPS = lambda N, S, h: (3 * h + 1) * N * (S * (S + 2 * h) + S * S)  # noqa: E731
+NO_LIBRARY_SMEAR = ("none: a weighted max-dilation is no single PyTorch op "
+                    "(max_pool2d is unweighted)")
+SMEAR_DENSITIES = (0.001, 0.05, 0.5)
+TOUR_GRID_SCANS = (60, 10)     # phase 3's tour grid: scans 60-69
+WINDOW_POINTS = (1, 31, 180, 257, 2100)   # 2100: more than one staged chunk
+LIBRARY_LATTICE = "seq_coarse"
 HOLD_BACK = 5   # scans processed after the checkpoint round trip
 # The tour's first scans rerun on the host by the plain path, each as
 # (dtype, scans, tolerance m, tolerance rad) for the card run's poses.
@@ -169,12 +192,74 @@ def grid_case(rng, dev, *, N, S, h, G, so, B=16):
             torch.as_tensor(lim, device=dev))
 
 
+def device_ms(fn, reps=TIMING_REPS, warmup=3):
+    """Median device milliseconds of fn(), by CUDA events around it with
+    the card kept busy (a spin) while the host queues the events and the
+    launches, so host launch time is not counted."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(n_bytes, ops=0):
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the HBM rate, or the float32
+    operations at the card's peak, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bytes=int(n_bytes), ops=int(ops), bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def timings(row, wrapper, plain, bare, library=None):
+    """Wrapper and plain ms by events (as in earlier runs), kernel-only and
+    library ms by device_ms, and the share of the bound."""
+    row.update(ms=cuda_ms(wrapper), plain_ms=cuda_ms(plain), kernel_ms=device_ms(bare),
+               library_ms=None if library is None else device_ms(library, reps=5, warmup=1))
+    row["share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def smear_bytes(N, S, h, out_bytes):
+    return N * (S + 2 * h) ** 2 + out_bytes * N * S * S + 4 * (2 * h + 1)
+
+
 def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
-    """Kernel vs plain version at the main path's shapes; returns
-    {kernel: [case dicts]} and the grids for the window-sum cases."""
+    """Kernel vs plain version at the main path's shapes (bit equality),
+    timed as wrapper, bare kernel, plain version and the one-call PyTorch
+    form where there is one, beside the bound; then the redesigned
+    kernels on more inputs (correctness only).  Returns {kernel: [case
+    dicts]}; the first case of each kernel is its main-path case."""
+    from yag_slam_tpu_torch import _build
+
+    lib = _build.library()
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     results = {k: [] for k in K.KERNELS}
     grids = {}
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def ok(err, name):
+        if err != 0:
+            raise AssertionError(f"{name}: bare launch failed, cudaError {err}")
+
+    # what device_ms reads for the smallest launch: a one-element add_
+    one = torch.zeros(1, device=dev)
+    log(f"phase 3: event floor (device_ms of a one-element add_) "
+        f"{device_ms(lambda: one.add_(1)):.4f} ms")
+
     cases = [
         ("seq", dict(N=1, S=SEQ_S, h=SEQ_H, G=SEQ_G, so=500), taps_seq),
         ("seq_masked", dict(N=1, S=SEQ_S, h=SEQ_H, G=SEQ_G,
@@ -186,38 +271,108 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
     ]
     for name, c, taps in cases:
         sy, sx, lim = grid_case(rng, dev, **c)
-        S, h = c["S"], c["h"]
-        R = S + 2 * h
+        N, S, h = c["N"], c["S"], c["h"]
+        M, R = sy.shape[1], S + 2 * h
         occ = K.scatter_cells(sy, sx, R)
         occ_ref = K.scatter_cells_ref(sy, sx, R)
         err = max_abs_err(occ, occ_ref)
-        results["scatter_cells"].append(dict(
-            case=name, shape=[c["N"], sy.shape[1], R], max_abs_err=err,
-            ms=cuda_ms(lambda: K.scatter_cells(sy, sx, R)),
-            plain_ms=cuda_ms(lambda: K.scatter_cells_ref(sy, sx, R))))
+        # the function is a zeroed grid with ones at the cells: the bare
+        # kernel and index_put_ each run after the same zero fill of a
+        # preallocated grid
+        pre = torch.empty_like(occ)
+        ok_lane = (sy >= 0) & (sy < R) & (sx >= 0) & (sx < R)
+        flat = (torch.arange(N, device=dev)[:, None] * R * R + sy.long() * R
+                + sx.long())[ok_lane]
+        one = torch.ones((), dtype=torch.uint8, device=dev)
+
+        def bare_scatter():
+            pre.zero_()
+            ok(lib.yag_scatter_cells(sy.data_ptr(), sx.data_ptr(), pre.data_ptr(),
+                                     N, M, R, stream()), "scatter_cells")
+
+        def put():
+            pre.zero_()
+            pre.view(-1).index_put_((flat,), one)
+
+        results["scatter_cells"].append(timings(
+            dict(case=name, shape=[N, M, R], max_abs_err=err,
+                 library="index_put_ of 1 at the flat cells, after the same zero fill",
+                 **bound(8 * N * M + N * R * R)),
+            lambda: K.scatter_cells(sy, sx, R), lambda: K.scatter_cells_ref(sy, sx, R),
+            bare_scatter, put))
+        if not torch.equal(pre, occ_ref):
+            raise AssertionError(f"{name}: index_put_ grid differs from the plain scatter")
+
         q = K.smear_quantize(occ, lim, taps, S, h)
         q_ref = K.smear_quantize_ref(occ, lim, taps, S, h)
         err_q = max_abs_err(q, q_ref)
         if name in ("seq_masked", "h0") and int(q[:, :, int(lim[0, 1]):].max()) != 0:
             raise AssertionError("full-grid mask did not zero the overhang")
-        results["smear_quantize"].append(dict(
-            case=name, shape=[c["N"], S, S], h=h, max_abs_err=err_q,
-            ms=cuda_ms(lambda: K.smear_quantize(occ, lim, taps, S, h)),
-            plain_ms=cuda_ms(lambda: K.smear_quantize_ref(occ, lim, taps, S, h))))
+        q_pre = torch.empty_like(q)
+        results["smear_quantize"].append(timings(
+            dict(case=name, shape=[N, S, S], h=h, max_abs_err=err_q,
+                 library=NO_LIBRARY_SMEAR, **bound(smear_bytes(N, S, h, 1) + 8 * N)),
+            lambda: K.smear_quantize(occ, lim, taps, S, h),
+            lambda: K.smear_quantize_ref(occ, lim, taps, S, h),
+            lambda: ok(lib.yag_smear_quantize(occ.data_ptr(), lim.data_ptr(),
+                                              taps.data_ptr(), q_pre.data_ptr(),
+                                              N, S, h, stream()), "smear_quantize")))
         grids[name] = q
+
         g = K.smear_grid(occ, taps, S, h)
         g_ref = K.smear_grid_ref(occ, taps, S, h)
         err_g = max_abs_err(g, g_ref)
         # quantized and masked, the float grid is smear_quantize's output
         err_gq = max_abs_err(K.quantize_mask(g, lim), q)
-        results["smear_grid"].append(dict(
-            case=name, shape=[c["N"], S, S], h=h, max_abs_err=max(err_g, err_gq),
-            quantized_vs_smear_quantize=err_gq,
-            ms=cuda_ms(lambda: K.smear_grid(occ, taps, S, h)),
-            plain_ms=cuda_ms(lambda: K.smear_grid_ref(occ, taps, S, h))))
-        log(f"phase 3: {name} grid build S={S} h={h} N={c['N']}: "
+        g_pre = torch.empty_like(g)
+        results["smear_grid"].append(timings(
+            dict(case=name, shape=[N, S, S], h=h, max_abs_err=max(err_g, err_gq),
+                 quantized_vs_smear_quantize=err_gq, library=NO_LIBRARY_SMEAR,
+                 **bound(smear_bytes(N, S, h, 4), SMEAR_OPS(N, S, h))),
+            lambda: K.smear_grid(occ, taps, S, h), lambda: K.smear_grid_ref(occ, taps, S, h),
+            lambda: ok(lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), g_pre.data_ptr(),
+                                          N, S, h, stream()), "smear_grid")))
+        log(f"phase 3: {name} grid build S={S} h={h} N={N}: "
             f"scatter err {err}, smear err {err_q}, smear_grid err {err_g}, "
             f"quantized smear_grid vs smear_quantize err {err_gq}")
+
+    # the sequential grid of ten building-tour scans: walls, not uniform
+    # points, set the identity kernel's work (a wall along a column marks
+    # every row of its tile)
+    for name, h, taps in (("seq_tour", SEQ_H, taps_seq), ("node_tour", NODE_H, taps_node)):
+        S = SEQ_S
+        occ = tour_occupancy(dev, SEQ_S, h)
+        lim = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+        err = max_abs_err(K.smear_quantize(occ, lim, taps, S, h),
+                          K.smear_quantize_ref(occ, lim, taps, S, h))
+        q_pre = torch.empty((1, S, S), dtype=torch.uint8, device=dev)
+        results["smear_quantize"].append(timings(
+            dict(case=name, shape=[1, S, S], h=h, max_abs_err=err,
+                 occupied=int(occ.sum()), library=NO_LIBRARY_SMEAR,
+                 **bound(smear_bytes(1, S, h, 1) + 8)),
+            lambda: K.smear_quantize(occ, lim, taps, S, h),
+            lambda: K.smear_quantize_ref(occ, lim, taps, S, h),
+            lambda: ok(lib.yag_smear_quantize(occ.data_ptr(), lim.data_ptr(),
+                                              taps.data_ptr(), q_pre.data_ptr(),
+                                              1, S, h, stream()), "smear_quantize")))
+        log(f"phase 3: smear_quantize {name} S={S} h={h}, {int(occ.sum())} occupied "
+            f"cells: err {err}")
+
+    # smear_quantize's {0,1} identity on denser grids, at the main-path
+    # shapes and h = 0, 2, 10, 14 (correctness only)
+    for (name, N, S, h, taps), density in itertools.product(
+            (("seq", 1, SEQ_S, SEQ_H, taps_seq), ("loop", 4, LOOP_S, LOOP_H, taps_loop),
+             ("node_seq", 1, NODE_S, NODE_H, taps_node),
+             ("h0", 2, H0_S, 0, torch.ones(1, dtype=torch.float32, device=dev))),
+            SMEAR_DENSITIES):
+        R = S + 2 * h
+        occ = (torch.rand((N, R, R), generator=gen, device=dev) < density).to(torch.uint8)
+        lo = torch.randint(S // 2, S + 1, (N, 2), generator=gen, device=dev, dtype=torch.int32)
+        err = max_abs_err(K.smear_quantize(occ, lo, taps, S, h),
+                          K.smear_quantize_ref(occ, lo, taps, S, h))
+        results["smear_quantize"].append(dict(case=f"{name}_density_{density}", shape=[N, S, S],
+                                              h=h, max_abs_err=err))
+        log(f"phase 3: smear_quantize {name} N={N} S={S} h={h} density {density}: err {err}")
 
     lattices = [
         ("seq_coarse", "seq", (25, 25, 10), 2),
@@ -235,19 +390,124 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
         err = max_abs_err(raw, raw_ref)
         if int(raw.max()) <= 0:
             raise AssertionError(f"{name}: window sums are all zero")
-        results["window_sum"].append(dict(
-            case=name, shape=[N, nt, ny, nx], stride=stride, points=N_BEAMS,
-            max_abs_err=err,
-            ms=cuda_ms(lambda: K.window_sum(q, gy0, gx0, n_pts, ny, nx, stride)),
-            plain_ms=cuda_ms(lambda: K.window_sum_ref(q, gy0, gx0, n_pts, ny, nx, stride))))
+        pre = torch.empty_like(raw)
+        row = dict(case=name, shape=[N, nt, ny, nx], stride=stride, points=N_BEAMS,
+                   max_abs_err=err, **bound(window_bytes(q, gy0, gx0, N_BEAMS, ny, nx, stride)))
+        library = None
+        if name == LIBRARY_LATTICE:
+            library, row["library"] = window_conv(q, gy0, gx0, N_BEAMS, ny, nx, stride, raw)
+        else:
+            row["library"] = f"F.conv2d timed at {LIBRARY_LATTICE} only"
+        results["window_sum"].append(timings(
+            row, lambda: K.window_sum(q, gy0, gx0, n_pts, ny, nx, stride),
+            lambda: K.window_sum_ref(q, gy0, gx0, n_pts, ny, nx, stride),
+            lambda: ok(lib.yag_window_sum(q.data_ptr(), gy0.data_ptr(), gx0.data_ptr(),
+                                          n_pts.data_ptr(), pre.data_ptr(), N, S, nt, P,
+                                          ny, nx, stride, stream()), "window_sum"),
+            library))
         log(f"phase 3: window sum {name} N={N} {nx}x{ny}x{nt} s={stride}: err {err}")
+
+        # point counts around the warp width and the staging chunk, fewer
+        # live points than lanes per job, points off the grid
+        for n_lanes in WINDOW_POINTS:
+            gy = torch.as_tensor(rng.integers(-80, S + 80, (N, nt, n_lanes)).astype(np.int32),
+                                 device=dev)
+            gx = torch.as_tensor(rng.integers(-80, S + 80, (N, nt, n_lanes)).astype(np.int32),
+                                 device=dev)
+            live = torch.as_tensor(rng.integers(max(n_lanes - 40, 0), n_lanes + 1, N)
+                                   .astype(np.int32), device=dev)
+            err = max_abs_err(K.window_sum(q, gy, gx, live, ny, nx, stride),
+                              K.window_sum_ref(q, gy, gx, live, ny, nx, stride))
+            results["window_sum"].append(dict(case=f"{name}_P{n_lanes}", shape=[N, nt, ny, nx],
+                                              stride=stride, points=live.tolist(),
+                                              max_abs_err=err))
+            log(f"phase 3: window sum {name} P={n_lanes} live {live.tolist()}: err {err}")
     for k, rows in results.items():
         for r in rows:
             if r["max_abs_err"] != 0:
                 raise AssertionError(f"{k} {r['case']}: kernel != plain ({r})")
-            log(f"phase 3: {k} {r['case']}: kernel {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms")
+            if "kernel_ms" in r:
+                lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+                log(f"phase 3: {k} {r['case']}: wrapper {r['ms']:.4f} ms, kernel "
+                    f"{r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                    f"{lib_ms}; bound {1e3 * r['bound_ms']:.3f} us by {r['bound_by']} "
+                    f"({r['bytes']} B, {r['ops']} ops), share {r['share']:.3f}")
     return results
+
+
+def tour_occupancy(dev, S, h, first=TOUR_GRID_SCANS[0], n=TOUR_GRID_SCANS[1]):
+    """(1, S+2h, S+2h) uint8 occupancy of the building tour's scans
+    first .. first+n-1 at their odometry poses, at 0.01 m, centred on their
+    points (as a sequential match's base window)."""
+    from yag_slam_tpu_torch.io import (
+        carmen_to_localized_scans, generate_benchmark_log, load_carmen_log)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path, _, _ = generate_benchmark_log(
+            os.path.join(tmp, "tour.clf"), step=0.4, laps=1, n_beams=N_BEAMS, seed=0)
+        scans = carmen_to_localized_scans(load_carmen_log(log_path)[first:first + n])
+    pts = [s.points(odom=True) for s in scans]
+    x = np.concatenate([p[0] for p in pts])
+    y = np.concatenate([p[1] for p in pts])
+    R = S + 2 * h
+    gx = np.round((x - x.mean()) / 0.01).astype(np.int64) + S // 2 + h
+    gy = np.round((y - y.mean()) / 0.01).astype(np.int64) + S // 2 + h
+    inside = (gx >= 0) & (gx < R) & (gy >= 0) & (gy < R)
+    occ = torch.zeros((1, R, R), dtype=torch.uint8, device=dev)
+    occ[0, torch.as_tensor(gy[inside], device=dev), torch.as_tensor(gx[inside], device=dev)] = 1
+    return occ
+
+
+def window_bytes(q, gy0, gx0, n_pts, ny, nx, stride):
+    """What the lattice needs: the distinct in-grid bytes its windows read,
+    the live points' cells, the counts and the int32 output."""
+    N, S, _ = q.shape
+    K_ = gy0.shape[1]
+    dev = q.device
+    y = gy0[:, :, :n_pts, None].long() + stride * torch.arange(ny, device=dev)
+    x = gx0[:, :, :n_pts, None].long() + stride * torch.arange(nx, device=dev)
+    inside = ((y >= 0) & (y < S))[..., :, None] & ((x >= 0) & (x < S))[..., None, :]
+    lin = (torch.arange(N, device=dev)[:, None, None, None, None] * S * S
+           + y[..., :, None] * S + x[..., None, :])
+    touched = torch.zeros(N * S * S, dtype=torch.bool, device=dev)
+    touched[lin[inside]] = True
+    return int(touched.sum()) + 8 * N * K_ * n_pts + 4 * N + 4 * N * K_ * ny * nx
+
+
+def window_conv(q, gy0, gx0, n_pts, ny, nx, stride, raw):
+    """One F.conv2d with the same result as window_sum for job 0: each
+    angle's point-count stencil (built here, outside the timing) over the
+    float grid crop its lattice reads.  Returns (the timed call, what it
+    is); raises if its result differs from the kernel's."""
+    import torch.nn.functional as F
+
+    N, S, _ = q.shape
+    if N != 1:
+        raise ValueError("the conv2d yardstick takes one job")
+    K_ = gy0.shape[1]
+    y, x = gy0[0, :, :n_pts].long(), gx0[0, :, :n_pts].long()
+    y0, x0 = int(y.min()), int(x.min())
+    kh, kw = int(y.max()) - y0 + 1, int(x.max()) - x0 + 1
+    stencil = torch.zeros((K_, kh * kw), dtype=torch.float32, device=q.device)
+    stencil.index_put_((torch.arange(K_, device=q.device)[:, None].expand_as(y),
+                        (y - y0) * kw + (x - x0)),
+                       torch.ones((), device=q.device), accumulate=True)
+    stencil = stencil.view(K_, 1, kh, kw)
+    hh, ww = kh + stride * (ny - 1), kw + stride * (nx - 1)
+    crop = torch.zeros((1, 1, hh, ww), dtype=torch.float32, device=q.device)
+    ys, xs = max(y0, 0), max(x0, 0)
+    ye, xe = min(y0 + hh, S), min(x0 + ww, S)
+    crop[0, 0, ys - y0:ye - y0, xs - x0:xe - x0] = q[0, ys:ye, xs:xe].float()
+
+    def call():
+        return F.conv2d(crop, stencil, stride=stride)
+
+    got = call()[0].round().to(torch.int32)
+    if not torch.equal(got, raw[0]):
+        raise AssertionError("the conv2d yardstick differs from window_sum")
+    what = (f"F.conv2d, float32 without TF32, of the {hh}x{ww} grid crop with the "
+            f"{K_} angles' {kh}x{kw} point-count stencils at stride {stride}")
+    return call, what
 
 
 # -- phase 4 / 5 / 6 -----------------------------------------------------------
@@ -275,8 +535,8 @@ def graph_state(slam):
 def device_timeline(events, symbols):
     """Device time in the events of a Chrome trace: the union of kernel,
     memcpy and memset intervals (host-side events are ignored), plus the
-    time and count of the kernels of `symbols` ({name: a piece of the CUDA
-    kernel's name}), of all other kernels, and of copies and sets.  Times
+    time and count of the kernels of `symbols` ({name: pieces of its CUDA
+    kernels' names}), of all other kernels, and of copies and sets.  Times
     in ms."""
     names = tuple(symbols)
     spans, parts = [], {n: [0.0, 0] for n in (*names, "other_kernels", "memcpy_memset")}
@@ -288,7 +548,8 @@ def device_timeline(events, symbols):
         if e["cat"] != "kernel":
             key = "memcpy_memset"
         else:
-            key = next((n for n in names if symbols[n] in e["name"]), "other_kernels")
+            key = next((n for n in names if any(p in e["name"] for p in symbols[n])),
+                       "other_kernels")
         parts[key][0] += d / 1e3
         parts[key][1] += 1
     busy, end = 0.0, float("-inf")
@@ -468,7 +729,7 @@ def profile_window(scans, dev, tmp, gpu):
     prof.export_chrome_trace(path)
     with open(path) as f:
         tl = device_timeline(json.load(f)["traceEvents"],
-                             {k: v["symbol"] for k, v in K.KERNELS.items()})
+                             {k: v["symbols"] for k, v in K.KERNELS.items()})
     if tl["parts"]["other_kernels"]["count"] + sum(
             tl["parts"][k]["count"] for k in K.KERNELS) == 0:
         raise AssertionError("the trace holds no kernel on the card")
@@ -598,7 +859,7 @@ def matcher_api(scans, dev, gpu):
 
 def localize(slam, scans, dev, gpu):
     """Phase 8: localize offset tour scans against the tour's map."""
-    from yag_slam_tpu.core.transform import Transform
+    from yag_slam_tpu_torch.core.transform import Transform
     from yag_slam_tpu_torch.mapping import occupancy_grid_map_to_correlation_grid
     from yag_slam_tpu_torch.matching import correlation as C
     from yag_slam_tpu_torch.matching import kernels as K
@@ -870,7 +1131,7 @@ def entry_points(tour, tmp, dev, gpu):
 def lifelong(tour, slam, dev, gpu):
     """Phase 11: splice phase 4's map into an OnlineMapper on the card and
     localize the tour's first scans in it."""
-    from yag_slam_tpu.core.transform import Transform
+    from yag_slam_tpu_torch.core.transform import Transform
     from yag_slam_tpu_torch.apps.online import OnlineMapper
     from yag_slam_tpu_torch.mapping.raytrace import trace_rays
     from yag_slam_tpu_torch.matching import kernels as K
@@ -968,17 +1229,36 @@ def kernel_lines(K, checks, slam):
             source=info["source"], replaces=info["replaces"][0],
             also_replaces=info["replaces"][1:],
             launches=sum(by_path.values()), launches_by_path=by_path,
+            launches_per_scan=slam["launches"][k] / slam["scans"],
             max_abs_err=max(r["max_abs_err"] for r in checks[k]),
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"],
+            ms=main_case["kernel_ms"], wrapper_ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+            library=main_case["library"], share=main_case["share"],
             case=main_case["case"], cases=checks[k],
         ))
     return kernels
 
 
+def package_modules():
+    """JAX and JAX-package modules loaded in this process (the port and
+    this script import neither)."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "yag_slam_tpu"))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results as JSON here")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-3 only: build, hold each kernel to its plain "
+                         "version and time it; prints no result line")
+    ap.add_argument("--csrc", help="with --kernels-only: build the kernels from this "
+                                   "directory of CUDA sources (an earlier tree's "
+                                   "csrc, to time its kernels the same way)")
     args = ap.parse_args()
+    if args.csrc and not args.kernels_only:
+        ap.error("--csrc needs --kernels-only")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -993,26 +1273,35 @@ def main():
     from yag_slam_tpu_torch.matching import correlation as C
     from yag_slam_tpu_torch.matching import kernels as K
 
+    if args.csrc:
+        _build.CSRC_DIR = Path(args.csrc).resolve()
     t0 = time.perf_counter()
     _build.library()
-    log(f"phase 2: kernels built in {time.perf_counter() - t0:.3f} s "
+    log(f"phase 2: kernels from {_build.CSRC_DIR} built in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
 
-    taps = {cfg: torch.as_tensor(C.gaussian_kernel_1d(*cfg).astype(np.float32),
-                                 device=dev)
+    taps = {cfg: torch.as_tensor(
+                C.check_smear_taps(C.gaussian_kernel_1d(*cfg).astype(np.float32)),
+                device=dev)
             for cfg in ((0.01, 0.05), (0.05, 0.05), (0.01, 0.07))}
     if len(taps[(0.01, 0.07)]) != 2 * NODE_H + 1:
         raise AssertionError("the node-default smear is not h = 14")
     checks = check_kernels(K, taps[(0.01, 0.05)], taps[(0.05, 0.05)],
                            taps[(0.01, 0.07)], dev)
+    if args.kernels_only:
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(gpu=gpu, device=name, kernels=checks), f, indent=1)
+        log(f"phase 3: done ({gpu}); --kernels-only, no result line")
+        return
     with tempfile.TemporaryDirectory() as tmp:
         slam = run_slam(tmp, gpu, dev)
     out = dict(gpu=gpu, device=name, kernels=checks, slam=slam)
 
-    # the port and the host modules it shares run without JAX
-    jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-    if jax_mods:
-        raise AssertionError(f"JAX was imported: {jax_mods[:5]}")
+    # the port runs without JAX and without any module of the JAX package
+    loaded = package_modules()
+    if loaded:
+        raise AssertionError(f"JAX or the JAX package was imported: {loaded[:5]}")
 
     kernels = kernel_lines(K, checks, slam)
     if args.out:

@@ -94,7 +94,7 @@ def test_map_callback_images_match_jax(fed):
         assert (a != b).mean() <= MAP_FLIPS
     assert set(np.unique(maps["port"][-1])) <= {-1, 0, 100}
     scans = [v.obj for v in t.slam.graph.vertices]
-    np.testing.assert_array_equal(create_occupancy_grid(scans, 0.05, 12.0).image,
+    np.testing.assert_array_equal(create_occupancy_grid(scans, 0.05, 12.0, device="cpu").image,
                                   jax_grid(scans, 0.05, 12.0).image)
 
 

@@ -13,19 +13,21 @@ _spec.loader.exec_module(smoke)
 
 from yag_slam_tpu_torch.matching.kernels import KERNELS
 
-NAMES = {k: v["symbol"] for k, v in KERNELS.items()}
+NAMES = {k: v["symbols"] for k, v in KERNELS.items()}
 
 
 def test_device_timeline_merges_only_device_events():
     events = [
-        dict(cat="kernel", name="void (anonymous namespace)::smear_kernel<"
-             "(anonymous namespace)::QuantizeMaskStore>(unsigned char const*, "
-             "float const*, (anonymous namespace)::QuantizeMaskStore, int, int)",
-             ts=100.0, dur=10.0),
+        dict(cat="kernel", name="(anonymous namespace)::smear_quantize_kernel("
+             "unsigned char const*, int const*, float const*, unsigned char*, "
+             "int, int)", ts=100.0, dur=10.0),
         dict(cat="kernel", name="at::native::elementwise_kernel", ts=105.0, dur=10.0),
         dict(cat="kernel", name="window_sum_kernel(int)", ts=108.0, dur=2.0),
-        dict(cat="kernel", name="void (anonymous namespace)::smear_kernel<"
+        dict(cat="kernel", name="void (anonymous namespace)::smear_chain_kernel<"
              "(anonymous namespace)::FloatStore>(int)", ts=111.0, dur=1.0),
+        # smear_quantize on a small grid takes the chain kernel
+        dict(cat="kernel", name="void (anonymous namespace)::smear_chain_kernel<"
+             "(anonymous namespace)::QuantizeMaskStore>(int)", ts=140.0, dur=3.0),
         dict(cat="gpu_memcpy", name="Memcpy DtoH", ts=130.0, dur=4.0),
         dict(cat="gpu_memset", name="Memset", ts=200.0, dur=1.0),
         # host-side events never count as device time
@@ -34,11 +36,11 @@ def test_device_timeline_merges_only_device_events():
         dict(ph="M", name="process_name"),
     ]
     tl = smoke.device_timeline(events, NAMES)
-    assert tl["events"] == 6
-    # union of [100, 115), [130, 134), [200, 201) in us
-    assert tl["busy_ms"] == pytest.approx((15.0 + 4.0 + 1.0) / 1e3)
+    assert tl["events"] == 7
+    # union of [100, 115), [130, 134), [140, 143), [200, 201) in us
+    assert tl["busy_ms"] == pytest.approx((15.0 + 4.0 + 3.0 + 1.0) / 1e3)
     parts = tl["parts"]
-    assert parts["smear_quantize"] == dict(ms=pytest.approx(0.010), count=1)
+    assert parts["smear_quantize"] == dict(ms=pytest.approx(0.013), count=2)
     assert parts["window_sum"] == dict(ms=pytest.approx(0.002), count=1)
     assert parts["smear_grid"] == dict(ms=pytest.approx(0.001), count=1)
     assert parts["scatter_cells"] == dict(ms=0.0, count=0)
@@ -74,9 +76,12 @@ def _run_summary(zero=None):
             counts[zero[1]] = 0
         return counts
 
-    case = dict(case="c", max_abs_err=0, ms=0.1, plain_ms=1.0)
+    case = dict(case="c", max_abs_err=0, ms=0.1, plain_ms=1.0, kernel_ms=0.05,
+                bound_ms=0.01, bound_by="bytes", library_ms=None, library="none",
+                share=0.2)
     checks = {k: [dict(case)] for k in KERNELS}
     slam = dict(
+        scans=4,
         launches=n("slam", smear_grid=0),
         matcher_api=dict(launches=dict(meta=n("meta"), scan_sets=n("scan_sets"),
                                        mega=n("mega", smear_grid=0))),
@@ -100,6 +105,13 @@ def test_kernel_lines_count_launches_by_path():
         assert rows[k]["launches"] == sum(rows[k]["launches_by_path"].values())
     assert not set(NEW_PATHS) & set(rows["smear_grid"]["launches_by_path"])
     assert rows["window_sum"]["route"] == "cuda"
+    for r in rows.values():
+        # the keys the result line must carry for every kernel
+        assert {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launches",
+                "max_abs_err", "replaces", "source"} <= set(r)
+        assert r["ms"] == 0.05 and r["wrapper_ms"] == 0.1
+    assert rows["window_sum"]["launches_per_scan"] == 0.25
+    assert rows["smear_grid"]["launches_per_scan"] == 0.0
 
 
 @pytest.mark.parametrize("path", NEW_PATHS)
@@ -114,3 +126,40 @@ def test_kernel_lines_fail_when_a_path_skips_a_kernel(path):
 def test_quiet_captures_standard_output():
     out, lines = smoke.quiet(lambda: print("a\nb") or 7)
     assert out == 7 and lines == ["a", "b"]
+
+
+def test_bound_takes_the_larger_limit():
+    b = smoke.bound(3.35e9)
+    assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == "bytes"
+    b = smoke.bound(3.35e6, ops=67e9)
+    assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == "operations"
+    # the smear's float32 chain: 31 ops per element at h = 10, as counted
+    assert smoke.SMEAR_OPS(1, 3072, 10) == 31 * (3072 * 3092 + 3072 * 3072)
+
+
+@pytest.mark.parametrize("stride,nx,ny", [(1, 4, 4), (2, 5, 3), (3, 2, 6)])
+def test_window_conv_yardstick_equals_the_window_sum(stride, nx, ny):
+    """The conv2d form of window_sum (phase 3's library call) on the CPU:
+    the same sums as the plain version, and the byte count the bound
+    uses."""
+    import torch
+
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    rng = np.random.default_rng(stride)
+    S, K_, P_ = 48, 3, 20
+    q = torch.as_tensor(rng.integers(0, 101, (1, S, S)).astype(np.uint8))
+    gy0 = torch.as_tensor(rng.integers(-10, S + 5, (1, K_, P_)).astype(np.int32))
+    gx0 = torch.as_tensor(rng.integers(-10, S + 5, (1, K_, P_)).astype(np.int32))
+    n_live = 17
+    raw = K.window_sum_ref(q, gy0, gx0, torch.tensor([n_live], dtype=torch.int32),
+                           ny, nx, stride)
+    call, what = smoke.window_conv(q, gy0, gx0, n_live, ny, nx, stride, raw)
+    assert torch.equal(call()[0].round().to(torch.int32), raw[0])
+    assert "F.conv2d" in what
+    # distinct cells read, by brute force
+    cells = {(int(gy0[0, k, p]) + stride * j, int(gx0[0, k, p]) + stride * i)
+             for k in range(K_) for p in range(n_live) for j in range(ny) for i in range(nx)}
+    inside = sum(0 <= y < S and 0 <= x < S for y, x in cells)
+    want = inside + 8 * K_ * n_live + 4 + 4 * K_ * ny * nx
+    assert smoke.window_bytes(q, gy0, gx0, n_live, ny, nx, stride) == want

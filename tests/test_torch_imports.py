@@ -1,5 +1,8 @@
-"""The port's boundaries: no JAX, no silent fallback, honest counters."""
+"""The port's boundaries: no JAX, no JAX-package module, no silent
+fallback, honest counters."""
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -39,40 +42,135 @@ PORT_MODULES = [
     "yag_slam_tpu_torch.apps.offline_mapper",
     "yag_slam_tpu_torch.utils",
     "yag_slam_tpu_torch.utils.profiling",
-    # the JAX package's host metrics, which the port's CLI reports with
-    "yag_slam_tpu.utils.metrics",
+    "yag_slam_tpu_torch.utils.metrics",
+    "yag_slam_tpu_torch._device",
+    "yag_slam_tpu_torch.core",
+    "yag_slam_tpu_torch.core.config",
+    "yag_slam_tpu_torch.core.scan",
+    "yag_slam_tpu_torch.core.transform",
+    "yag_slam_tpu_torch.io.benchmark",
+    "yag_slam_tpu_torch.io.carmen",
+    "yag_slam_tpu_torch.io.simulator",
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_port_never_imports_jax():
+def _modules_loaded_by_the_port(prefix):
+    """Names under `prefix` in sys.modules of a fresh interpreter that
+    imported every port module and chip_smoke.py as a module."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"print(sorted(k for k in sys.modules if k == {prefix!r} "
+        f"or k.startswith({prefix + '.'!r})))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "ok"
+    return proc.stdout.strip()
 
 
-def test_cuda_request_never_runs_on_cpu():
-    """device="cuda" either gets a CUDA matcher or raises; it never quietly
+def test_port_never_imports_jax():
+    assert _modules_loaded_by_the_port("jax") == "[]"
+
+
+def test_port_never_imports_the_jax_package():
+    """Not even its JAX-free host modules: the port has its own copies."""
+    assert _modules_loaded_by_the_port("yag_slam_tpu") == "[]"
+
+
+def _port_sources():
+    root = pathlib.Path(REPO)
+    return sorted((root / "yag_slam_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+
+
+def test_no_port_source_names_the_jax_package_in_an_import():
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}:{node.lineno} {n}" for n in names
+                    if n == "yag_slam_tpu" or n.startswith("yag_slam_tpu.")
+                    or n.split(".")[0] == "jax"]
+    assert len(_port_sources()) > 30 and not bad, bad
+
+
+def _checkpoint(tmp_path):
+    slam = GraphSlam.default(device="cpu")
+    path = tmp_path / "empty.graph"
+    slam.to_file(str(path))
+    return slam.serialize(), slam.binarize(), str(path)
+
+
+def _entry_point_calls(tmp_path):
+    """Every public entry point of the port, called without `device`."""
+    from yag_slam_tpu_torch.apps.online import OnlineMapper, ThreadedOnlineMapper
+    from yag_slam_tpu_torch.interop import graph_slam_from_state
+    from yag_slam_tpu_torch.io.simulator import SimWorld, simulate_scan
+    from yag_slam_tpu_torch.mapping import (
+        create_occupancy_grid, occupancy_grid_map_to_correlation_grid,
+        run_raytracing_sweep, trace_rays)
+    from yag_slam_tpu_torch.splicing import map_to_graph, segment_map, spatial_segments
+
+    im = np.full((40, 40), 255, dtype=np.uint8)
+    im[5, :] = 0
+    scan = simulate_scan(SimWorld.office(), np.zeros(3), n_beams=90)
+    return {
+        "CorrelativeScanMatcher": lambda: CorrelativeScanMatcher(),
+        "GraphSlam.default": lambda: GraphSlam.default(),
+        "GraphSlam.deserialize": lambda: GraphSlam.deserialize(_checkpoint(tmp_path)[0]),
+        "GraphSlam.unbinarize": lambda: GraphSlam.unbinarize(_checkpoint(tmp_path)[1]),
+        "GraphSlam.from_file": lambda: GraphSlam.from_file(_checkpoint(tmp_path)[2]),
+        "graph_slam_from_state": lambda: graph_slam_from_state(_checkpoint(tmp_path)[0]),
+        "OnlineMapper": lambda: OnlineMapper(),
+        "ThreadedOnlineMapper": lambda: ThreadedOnlineMapper(),
+        "create_occupancy_grid": lambda: create_occupancy_grid([scan]),
+        "occupancy_grid_map_to_correlation_grid":
+            lambda: occupancy_grid_map_to_correlation_grid(im, 0.05),
+        "trace_rays": lambda: trace_rays(im, [0.0, 90.0], 20, 20),
+        "run_raytracing_sweep": lambda: run_raytracing_sweep(im, [0.0, 90.0], 20, 20),
+        "spatial_segments": lambda: spatial_segments(im == 255, 2),
+        "segment_map": lambda: segment_map(im),
+        "map_to_graph": lambda: map_to_graph(im, 0.05, (0.0, 0.0)),
+    }
+
+
+ENTRY_POINTS = (
+    "CorrelativeScanMatcher", "GraphSlam.default", "GraphSlam.deserialize",
+    "GraphSlam.unbinarize", "GraphSlam.from_file", "graph_slam_from_state",
+    "OnlineMapper", "ThreadedOnlineMapper", "create_occupancy_grid",
+    "occupancy_grid_map_to_correlation_grid", "trace_rays",
+    "run_raytracing_sweep", "spatial_segments", "segment_map", "map_to_graph",
+)
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_cuda_request_never_runs_on_cpu(entry, tmp_path):
+    """Every entry point runs on cuda unless the caller asks for the CPU:
+    called without `device` it gets the card or raises; it never quietly
     becomes a CPU run."""
+    calls = _entry_point_calls(tmp_path)
+    assert set(calls) == set(ENTRY_POINTS)
     if torch.cuda.is_available():
-        m = CorrelativeScanMatcher(device="cuda")
+        if entry != "CorrelativeScanMatcher":
+            pytest.skip("checks the card-less case")
+        m = calls[entry]()
         assert m.device.type == "cuda" and m._taps.device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            CorrelativeScanMatcher(device="cuda")
-        with pytest.raises(RuntimeError):
-            GraphSlam.default(device="cuda")
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CorrelativeScanMatcher(device="cuda")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the card-less case")

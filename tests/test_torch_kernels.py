@@ -5,6 +5,8 @@ interpret mode, the port's wrappers take their plain PyTorch versions
 (CPU tensors).  Grids and raw window sums are integers and must be
 bit-equal; scaled lattice scores agree to 1e-12 (float64 on both sides).
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -179,6 +181,174 @@ def test_quantized_smear_grid_is_smear_quantize(h):
     assert q[0, :, S - 7:].max() == 0 and q[1].max() == 100
 
 
+# -- the {0,1} identity of the quantizing smear kernel ----------------------------
+#
+# On the card smear_quantize does no float arithmetic per cell: with occ in
+# {0, 1} and taps non-increasing away from the centre, pass 1's value is the
+# tap at the row distance d to the nearest occupied cell, and the quantized
+# output is max over dy of Q[|dy|][d(row + dy)], Q = floor(100 * tap * tap)
+# in float32 (csrc/grid_build.cu).  These tests hold that design to the
+# plain version bit for bit on the CPU.
+
+def _q_table(taps, h):
+    """(h+1, h+2) uint8 Q[dy][d] = floor(100 * (tap(dy) * tap(d))) in
+    float32, tap(k) = taps[h - k], tap(h + 1) = 0."""
+    tap = torch.cat([taps[:h + 1].flip(0), torch.zeros(1, dtype=torch.float32)])
+    return torch.floor((tap[:h + 1, None] * tap[None, :]) * 100.0).to(torch.uint8)
+
+
+def _smear_quantize_by_table(occ, lim, taps, S, h):
+    """The kernel's design in plain torch: row distance, Q table, integer
+    max over the window, mask at lim."""
+    N, R, _ = occ.shape
+    x = occ.bool()
+    d = torch.full((N, R, S), h + 1, dtype=torch.int64)
+    for k in range(h, -1, -1):          # nearer distances overwrite
+        d = torch.where(x[:, :, h - k:h - k + S] | x[:, :, h + k:h + k + S], k, d)
+    q = _q_table(taps, h).to(torch.int64)
+    out = torch.zeros((N, S, S), dtype=torch.int64)
+    for b in range(2 * h + 1):
+        out = torch.maximum(out, q[abs(b - h)][d[:, b:b + S, :]])
+    ar = torch.arange(S)
+    keep = (ar[None, :, None] < lim[:, 0, None, None]) & (ar[None, None, :] < lim[:, 1, None, None])
+    return torch.where(keep, out, 0).to(torch.uint8)
+
+
+def _binary_grid(rng, N, S, h, density):
+    R = S + 2 * h
+    return (rng.uniform(size=(N, R, R)) < density).astype(np.uint8)
+
+
+SMEAR_LIMS = lambda S: np.array([[S, S], [S - 17, S - 40], [5, S - 1]], dtype=np.int32)  # noqa: E731
+
+
+@pytest.mark.parametrize("density", [0.001, 0.01, 0.1, 0.5])
+@pytest.mark.parametrize("h", [0, 1, 2, 10, 14])
+def test_smear_quantize_table_identity(h, density):
+    """Row distance + Q table + integer max + mask == smear_quantize_ref,
+    on N = 3 seeded {0,1} grids, S = 300 (no multiple of the card's 256 x
+    (128 - 2h) tile), three lims per case."""
+    rng = np.random.default_rng(1000 * h + int(1000 * density))
+    S = 300
+    occ = _t(_binary_grid(rng, 3, S, h, density))
+    taps = _t(_smear_taps(h))
+    lim = _t(SMEAR_LIMS(S))
+    want = K.smear_quantize_ref(occ, lim, taps, S, h)
+    got = _smear_quantize_by_table(occ, lim, taps, S, h)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert want[0].max() == 100 and (want[1, :, S - 40:] == 0).all()
+
+
+def _emulate_smear_quantize_kernel(occ, lim, taps, S, h):
+    """smear_quantize_kernel's integer steps, block by block, in Python:
+    ballot-packed 32-bit row words and the rows holding any bit, four
+    threads per column each owning a quarter of the output rows, the
+    64-bit funnel-shifted window, ffs / clz distances, the scatter-max of
+    Q into the output tile (masked at lim), the tile written out."""
+    occ, lim, taps = occ.numpy(), lim.numpy(), taps.numpy()
+    N, R, _ = occ.shape
+    cols, staged, words = 256, 128, (256 + 63) // 32 + 1
+    rows_out = staged - 2 * h
+    q = _q_table(torch.as_tensor(taps), h).numpy()
+    win, low = (1 << (2 * h + 1)) - 1, (1 << (h + 1)) - 1
+    out = np.full((N, S, S), 255, dtype=np.uint8)     # every cell must be written
+    for n in range(N):
+        for r0 in range(0, S, rows_out):
+            for c0 in range(0, S, cols):
+                bits = np.zeros((staged, words), dtype=np.uint64)
+                row_words = [0] * (staged // 32)
+                for i in range(staged):
+                    for w in range(words):
+                        for lane in range(32):
+                            j = 32 * w + lane
+                            if r0 + i < R and j < cols + 2 * h and c0 + j < R \
+                                    and occ[n, r0 + i, c0 + j]:
+                                bits[i, w] |= np.uint64(1 << lane)
+                    if bits[i].any():
+                        row_words[i >> 5] |= 1 << (i & 31)
+                tile = np.zeros((staged, cols), dtype=np.uint8)
+                rows_hi = int(min(rows_out, min(S, lim[n, 0]) - r0))
+                per = -(-rows_out // 4)
+                for part, c in itertools.product(range(4), range(cols)):
+                    p_lo, p_hi = part * per, min(rows_hi, part * per + per)
+                    if c0 + c >= S or c0 + c >= lim[n, 1] or p_lo >= p_hi:
+                        continue
+                    i_hi = min(p_hi - 1 + 2 * h, staged - 1)
+                    marked = []
+                    for k in range(p_lo >> 5, (i_hi >> 5) + 1):
+                        rows = row_words[k]
+                        if k == p_lo >> 5:
+                            rows &= (0xFFFFFFFF << (p_lo & 31)) & 0xFFFFFFFF
+                        if k == i_hi >> 5 and (i_hi & 31) != 31:
+                            rows &= (1 << ((i_hi & 31) + 1)) - 1
+                        marked += [32 * k + b for b in range(32) if rows >> b & 1]
+                    wi, off = c >> 5, c & 31
+                    for i in marked:
+                        v = (int(bits[i, wi + 1]) << 32) | int(bits[i, wi])
+                        if off:
+                            v = ((v >> off) | (int(bits[i, wi + 2]) << (64 - off))) & (2**64 - 1)
+                        v &= win
+                        if not v:
+                            continue
+                        left, right = v & low, v >> h
+                        d = h + 1
+                        if right:
+                            d = (right & -right).bit_length() - 1   # __ffsll - 1
+                        if left:
+                            d = min(d, h - (left.bit_length() - 1))  # 63 - __clzll
+                        for r in range(max(p_lo, i - 2 * h), min(p_hi, i + 1)):
+                            tile[r, c] = max(tile[r, c], q[abs(i - r - h), d])
+                rows, cs = min(rows_out, S - r0), min(cols, S - c0)
+                out[n, r0:r0 + rows, c0:c0 + cs] = tile[:rows, :cs]
+    return torch.as_tensor(out)
+
+
+@pytest.mark.parametrize("h,density", [(0, 0.05), (2, 0.5), (10, 0.01), (14, 0.002)])
+def test_smear_quantize_kernel_steps_emulated(h, density):
+    """The CUDA kernel's bit-level steps, emulated over two column tiles and
+    three row tiles, equal the plain version bit for bit."""
+    rng = np.random.default_rng(7 + h)
+    S, N = 270, 1
+    occ = _binary_grid(rng, N, S, h, density)
+    occ[0, h + 99:h + 102, 250:262] = 1     # across the row and column tile seams
+    occ, taps = _t(occ), _t(_smear_taps(h))
+    lim = _t(np.array([[S - 3, S - 11]], dtype=np.int32))
+    want = K.smear_quantize_ref(occ, lim, taps, S, h)
+    np.testing.assert_array_equal(
+        _emulate_smear_quantize_kernel(occ, lim, taps, S, h).numpy(), want.numpy())
+    assert want.max() == 100
+
+
+@pytest.mark.parametrize("res,smear,h", [
+    (0.01, 0.05, 10),    # default sequential
+    (0.05, 0.05, 2),     # default loop
+    (0.01, 0.07, 14),    # node-default sequential
+    (0.05, 0.03, 2),     # node-default loop
+])
+def test_matcher_taps_fit_the_table_identity(res, smear, h):
+    """The taps of the seq, loop and node-default configs are symmetric,
+    positive and non-increasing away from the centre, as the kernel needs;
+    the matcher checks them once, when it makes them."""
+    taps = TC.gaussian_kernel_1d(res, smear).astype(np.float32)
+    assert len(taps) == 2 * h + 1
+    assert TC.check_smear_taps(taps) is taps
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
+
+    cfg = {"resolution": res, "smear_deviation": smear}
+    np.testing.assert_array_equal(
+        CorrelativeScanMatcher(cfg, device="cpu")._taps.numpy(), taps)
+
+
+@pytest.mark.parametrize("taps", [
+    [0.5, 1.0, 0.7],                 # not symmetric
+    [0.9, 0.5, 1.0, 0.5, 0.9],       # rises away from the centre
+    [0.0, 1.0, 0.0],                 # not positive
+])
+def test_check_smear_taps_refuses_other_shapes(taps):
+    with pytest.raises(ValueError, match="non-increasing"):
+        TC.check_smear_taps(np.asarray(taps, dtype=np.float32))
+
+
 # -- window sum ----------------------------------------------------------------
 
 def _lattice_inputs(stride, n_per_job):
@@ -252,6 +422,62 @@ def test_window_sum_plain_matches_loop():
     got = K.window_sum(_t(q), _t(gy0), _t(gx0), _t(n_pts), ny, nx, stride)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _window_sum_by_kernel_tiling(q, gy0, gx0, n_pts, ny, nx, stride, sms=132):
+    """yag_window_sum's launch choice and output mapping in Python: the
+    per-output kernel (thread = output over all points) for many outputs,
+    else the split kernel (warp = up to 4 outputs, lane = every 32nd
+    point, then a warp sum); every output must be stored exactly once."""
+    N, S, _ = q.shape
+    _, K_, P_ = gy0.shape
+    n_out = ny * nx
+    per_output = N * K_ * n_out >= 8 * 32 * sms
+    ow, warps = 4, 8
+    while not (per_output or N * K_ * -(-n_out // (ow * warps)) >= 2 * sms
+               or (ow, warps) == (1, 1)):
+        ow, warps = (ow // 2, warps) if ow > 1 else (ow, warps // 2)
+    lanes = 1 if per_output else 32      # lanes that split one output's points
+    tiles = -(-n_out // 256) if per_output else -(-n_out // (ow * warps))
+    out = torch.full((N, K_, ny, nx), -1, dtype=torch.int32)
+    for n in range(N):
+        m = int(min(max(int(n_pts[n]), 0), P_))
+        for k in range(K_):
+            # partial[l] = the sum over points p = l, l + lanes, ... < m
+            partial = [K.window_sum_ref(
+                q[n:n + 1], gy0[n:n + 1, k:k + 1, l:m:lanes].contiguous(),
+                gx0[n:n + 1, k:k + 1, l:m:lanes].contiguous(),
+                torch.tensor([len(range(l, m, lanes))], dtype=torch.int32),
+                ny, nx, stride)[0, 0].reshape(-1) for l in range(lanes)]
+            flat = out[n, k].reshape(-1)
+            for tile in range(tiles):                       # blockIdx.z
+                if per_output:
+                    outs = [tile * 256 + t for t in range(256)]
+                else:
+                    outs = [(tile * warps + w) * ow + u for w in range(warps) for u in range(ow)]
+                for o in outs:
+                    if o < n_out:
+                        assert flat[o] == -1, "stored twice"
+                        flat[o] = sum(int(pl[o]) for pl in partial)
+    return out
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 10, 4, 4, 1),      # seq fine: 160 outputs, lanes on points
+    (1, 10, 25, 25, 2),    # seq coarse: 6250
+    (4, 10, 30, 30, 2),    # 36000 outputs: one output per lane
+])
+def test_window_sum_kernel_tiling_emulated(shape):
+    N, K_, ny, nx, stride = shape
+    rng = np.random.default_rng(sum(shape))
+    S, P_ = 90, 70
+    q = _t(rng.integers(0, 101, (N, S, S)).astype(np.uint8))
+    gy0 = _t(rng.integers(-20, S + 5, (N, K_, P_)).astype(np.int32))
+    gx0 = _t(rng.integers(-20, S + 5, (N, K_, P_)).astype(np.int32))
+    n_pts = _t(rng.integers(40, P_ + 1, N).astype(np.int32))
+    want = K.window_sum_ref(q, gy0, gx0, n_pts, ny, nx, stride)
+    got = _window_sum_by_kernel_tiling(q, gy0, gx0, n_pts, ny, nx, stride)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_world_to_grid_idx_clamps_far_lanes():

@@ -97,7 +97,7 @@ def test_occupancy_grid_matches_jax(runs):
     scans_a = [v.obj for v in ja.graph.vertices]
     scans_b = [v.obj for v in tb.graph.vertices]
     a = jax_grid(scans_a, 0.05, 5.0)
-    b = create_occupancy_grid(scans_b, 0.05, 5.0)
+    b = create_occupancy_grid(scans_b, 0.05, 5.0, device="cpu")
     assert (b.width, b.height) == (a.width, a.height)
     assert b.offset == pytest.approx(a.offset, abs=1e-9)
     np.testing.assert_array_equal(b.image, a.image)

@@ -58,7 +58,7 @@ def rendered():
     grid = make_map_image()
     im = grid.image
     return grid, im, jax_splice.segment_map(im, density=DENSITY), \
-        splice.segment_map(im, density=DENSITY)
+        splice.segment_map(im, density=DENSITY, device="cpu")
 
 
 def test_spatial_segments_match_jax():
@@ -66,10 +66,10 @@ def test_spatial_segments_match_jax():
     mask[10:50, 10:90] = True
     mask[20:30, 30:40] = False
     for k in (1, 4, 9):
-        seg = spatial_segments(mask, k)
+        seg = spatial_segments(mask, k, device="cpu")
         np.testing.assert_array_equal(seg, jax_segments(mask, k))
         assert set(np.unique(seg[~mask])) == {0}
-    assert not spatial_segments(np.zeros((5, 5), bool), 3).any()
+    assert not spatial_segments(np.zeros((5, 5), bool), 3, device="cpu").any()
 
 
 def test_segment_map_centroids_and_edges_match_jax(rendered):
@@ -102,7 +102,7 @@ def _random_image():
 def test_trace_rays_match_jax_and_oracle(sx, sy):
     img = _random_image()
     angles = np.arange(-180, 180, 3.0)
-    ex, ey, ln = trace_rays(img, angles, sx, sy)
+    ex, ey, ln = trace_rays(img, angles, sx, sy, device="cpu")
     jex, jey, jln = jax_trace_rays(img, angles, sx, sy)
     assert ln.dtype == np.float32 and ln.shape == angles.shape
     for got, ref in ((ln, jln), (ex, jex), (ey, jey)):
@@ -117,7 +117,7 @@ def test_sweeps_from_every_centroid_match_jax(rendered):
     """The 1439-ray sweeps of map_to_graph from every region centroid."""
     _, im, seg_j, _ = rendered
     cents = jax_splice.determine_centroids(seg_j)
-    got = [trace_rays(im, SWEEP, *cents[k])[2] for k in sorted(cents)]
+    got = [trace_rays(im, SWEEP, *cents[k], device="cpu")[2] for k in sorted(cents)]
     ref = [jax_trace_rays(im, SWEEP, *cents[k])[2] for k in sorted(cents)]
     assert_rays_close(np.concatenate(got), np.concatenate(ref))
 
@@ -128,10 +128,10 @@ def test_run_raytracing_sweep_api():
     img[-2:, :] = 0
     img[:, 0:2] = 0
     img[:, -2:] = 0
-    rays = run_raytracing_sweep(img, np.arange(0, 360, 10.0), 30, 30)
+    rays = run_raytracing_sweep(img, np.arange(0, 360, 10.0), 30, 30, device="cpu")
     assert len(rays) == 36
     assert all(10 < r.length < 45 for r in rays)
-    ex, ey, ln = trace_rays(img, np.arange(0, 360, 10.0), 30, 30)
+    ex, ey, ln = trace_rays(img, np.arange(0, 360, 10.0), 30, 30, device="cpu")
     assert [r.length for r in rays] == [float(v) for v in ln]
     assert rays[0].end_x == float(ex[0]) and rays[0].end_y == float(ey[0])
 

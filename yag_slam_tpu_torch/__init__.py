@@ -5,12 +5,16 @@ A port beside the JAX package, which stays the reference.  The layout
 mirrors ``yag_slam_tpu``: ``matching`` (correlative scan matcher; its three
 device kernels live in ``matching/kernels.py`` and ``csrc/``), ``graphopt``
 (pose graph, host sparse SPA), ``slam`` (GraphSlam, checkpoints),
-``mapping`` (occupancy grids) and ``interop`` (carry a JAX-package state
-over).  It shares the JAX-free host modules ``yag_slam_tpu.core``,
-``yag_slam_tpu.io`` and ``yag_slam_tpu.native`` and never imports JAX.
+``mapping`` (occupancy grids), ``splicing`` (lifelong mapping), ``apps``
+(online mappers, offline CLI), the host modules ``core`` (poses, scans,
+configs), ``io`` (CARMEN logs, synthetic worlds) and ``utils``, and
+``interop`` (carry a JAX-package state over).  It imports neither JAX nor
+any module of the JAX package: the host modules are the port's own copies.
 
-CPU tensors run the kernels' plain PyTorch versions; CUDA tensors run the
-kernels, which are compiled with nvcc at first use.
+Every public entry point runs on ``device="cuda"`` unless the caller asks
+for ``device="cpu"``; without a card it raises.  CPU tensors run the
+kernels' plain PyTorch versions; CUDA tensors run the kernels, which are
+compiled with nvcc at first use.
 """
 
 __version__ = "0.1.0"

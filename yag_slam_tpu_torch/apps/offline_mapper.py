@@ -20,7 +20,7 @@ import numpy as np
 
 
 def run_carmen(args):
-    from yag_slam_tpu.io.carmen import load_carmen_log
+    from yag_slam_tpu_torch.io.carmen import load_carmen_log
     from yag_slam_tpu_torch.apps.online import OnlineMapper
 
     scans = load_carmen_log(args.carmen, max_scans=args.max_scans)
@@ -93,7 +93,7 @@ def run_carmen(args):
 
 
 def run_synthetic(args):
-    from yag_slam_tpu.io.simulator import (
+    from yag_slam_tpu_torch.io.simulator import (
         SimWorld, drifted_odometry, simulate_scan, square_loop_trajectory,
     )
     from yag_slam_tpu_torch.apps.online import OnlineMapper
@@ -217,7 +217,7 @@ def main(argv=None):
             print("map image not saved:", e)
         summary["map_size"] = [grid.width, grid.height]
     if gt is not None:
-        from yag_slam_tpu.utils.metrics import ate_rmse, trajectory_from_slam
+        from yag_slam_tpu_torch.utils.metrics import ate_rmse, trajectory_from_slam
 
         est = trajectory_from_slam(mapper.slam)
         summary["ate_rmse"] = ate_rmse(est, gt[:, :2], align=False)

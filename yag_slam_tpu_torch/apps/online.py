@@ -15,8 +15,9 @@ import time
 import numpy as np
 import torch
 
-from yag_slam_tpu.core.scan import LocalizedRangeScan
-from yag_slam_tpu.core.transform import Transform
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+from yag_slam_tpu_torch.core.scan import LocalizedRangeScan
+from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
 from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 from yag_slam_tpu_torch.splicing.splice import map_to_graphslam
@@ -79,7 +80,7 @@ class OnlineMapper:
         seq_config=None,
         loop_config=None,
         *,
-        device,
+        device=DEFAULT_DEVICE,
         dtype=torch.float32,
         min_distance=0.5,
         min_rotation=0.5,
@@ -98,7 +99,7 @@ class OnlineMapper:
         seq_matcher=None,
         loop_matcher=None,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.min_distance = min_distance
         self.min_rotation = min_rotation
@@ -170,7 +171,7 @@ class OnlineMapper:
         (to exactly one scan), not here."""
         pose = (
             (odom_pose.x, odom_pose.y, odom_pose.euler[-1])
-            if isinstance(odom_pose, Transform)
+            if hasattr(odom_pose, "euler")
             else tuple(float(v) for v in odom_pose)
         )
         if not self._should_integrate(pose):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE
 from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 
 _STATE_KEYS = (
@@ -19,7 +20,7 @@ _STATE_KEYS = (
 )
 
 
-def graph_slam_from_state(state: dict, *, device, dtype=torch.float32) -> GraphSlam:
+def graph_slam_from_state(state: dict, *, device=DEFAULT_DEVICE, dtype=torch.float32) -> GraphSlam:
     """Port GraphSlam rebuilt from a JAX-package ``GraphSlam.serialize()``
     dict, with its matchers on `device` in `dtype`."""
     missing = [k for k in _STATE_KEYS if k not in state]

@@ -1,0 +1,6 @@
+"""Log readers, the benchmark-log generator and the synthetic worlds the
+port runs on: host code (numpy), laid out as ``yag_slam_tpu.io``."""
+from yag_slam_tpu_torch.io.benchmark import generate_benchmark_log
+from yag_slam_tpu_torch.io.carmen import carmen_to_localized_scans, load_carmen_log
+
+__all__ = ["generate_benchmark_log", "carmen_to_localized_scans", "load_carmen_log"]

@@ -19,7 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from yag_slam_tpu.core.transform import Pose2
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+from yag_slam_tpu_torch.core.transform import Pose2
 
 GRID_OCCUPIED = 0
 GRID_UNKNOWN = 200
@@ -93,9 +94,10 @@ def _render_counts(origin_x, origin_y, end_x, end_y, is_hit, ox, oy, res, *,
 
 
 def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0, *,
-                          device="cpu"):
+                          device=DEFAULT_DEVICE):
     """Render all scans into an occupancy image on `device`; returns an
     OccupancyGrid with the image on the host."""
+    device = resolve_device(device)
     if not scans:
         raise ValueError("create_occupancy_grid needs at least one scan")
 
@@ -152,7 +154,8 @@ def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0, *,
 
 
 def occupancy_grid_map_to_correlation_grid(map_im, res, smear_deviation=0.05,
-                                           occupied_value=0, *, device):
+                                           occupied_value=0, *,
+                                           device=DEFAULT_DEVICE):
     """Convert a saved occupancy image into a correlation grid: every cell
     equal to `occupied_value` smeared by the matcher's Gaussian max-smear
     at `res`, unquantized.  Returns an (H, W) float32 numpy array, bit-equal
@@ -160,11 +163,12 @@ def occupancy_grid_map_to_correlation_grid(map_im, res, smear_deviation=0.05,
     occupied cells go through the same world-to-cell rounding)."""
     from yag_slam_tpu_torch.matching import correlation as C
 
+    device = resolve_device(device)
     map_im = np.asarray(map_im)
     occ_y, occ_x = np.where(map_im == occupied_value)
     h, w = map_im.shape[:2]
     taps = torch.as_tensor(
-        C.gaussian_kernel_1d(res, smear_deviation).astype(np.float32),
+        C.check_smear_taps(C.gaussian_kernel_1d(res, smear_deviation).astype(np.float32)),
         device=device)
     grid = C.build_correlation_grid(
         torch.as_tensor(occ_x.astype(np.float64) * res, device=device),

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+
 
 def _trace_rays(img, angles_rad, sx: float, sy: float, max_steps: int):
     """img (H, W) float32, angles (A,) float32 -> end_x, end_y, length."""
@@ -56,9 +58,10 @@ def _trace_rays(img, angles_rad, sx: float, sy: float, max_steps: int):
     return ex, ey, length
 
 
-def trace_rays(img, angles_deg, sx, sy, *, device="cpu"):
+def trace_rays(img, angles_deg, sx, sy, *, device=DEFAULT_DEVICE):
     """Sweep of rays from pixel (sx, sy) on `device`; returns (end_x, end_y,
     length_px) float32 numpy arrays."""
+    device = resolve_device(device)
     img = np.asarray(img)
     h, w = img.shape[:2]
     max_steps = int(np.ceil(np.hypot(h, w))) + 2
@@ -80,7 +83,7 @@ class _Ray:
         self.length = ln
 
 
-def run_raytracing_sweep(img, angles_deg, sx, sy, *, device="cpu"):
+def run_raytracing_sweep(img, angles_deg, sx, sy, *, device=DEFAULT_DEVICE):
     """Reference-shaped API: a list of objects with .end_x, .end_y and
     .length (pixels), one per angle."""
     ex, ey, ln = trace_rays(img, angles_deg, sx, sy, device=device)

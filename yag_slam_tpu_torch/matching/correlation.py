@@ -44,6 +44,20 @@ def gaussian_kernel_1d(res: float, smear_deviation: float) -> np.ndarray:
     return np.exp(-0.5 * offs**2 / smear_deviation**2)
 
 
+def check_smear_taps(taps: np.ndarray) -> np.ndarray:
+    """`taps` (2h+1,) host array, returned as it is once checked to be
+    symmetric, positive and non-increasing away from the centre: the shape
+    under which :func:`kernels.smear_quantize`'s lookup table equals the
+    tap chain.  Checked where the taps are made, never per launch."""
+    t = np.asarray(taps)
+    h = (len(t) - 1) // 2
+    if len(t) != 2 * h + 1 or not (t > 0).all() or not np.array_equal(t, t[::-1]) \
+            or not (np.diff(t[:h + 1]) >= 0).all():
+        raise ValueError(f"smear taps must be symmetric, positive and "
+                         f"non-increasing away from the centre: {t}")
+    return taps
+
+
 def segment_validation_runs(px, py, n):
     """Host-side, pose-independent half of the back-facing-surface filter:
     group the first `n` beam points into runs that end when a point moves
@@ -52,10 +66,6 @@ def segment_validation_runs(px, py, n):
     Returns (anchor_idx int32, term_idx int32, has_run bool), each (n,).
     Point 0 and a trailing unflushed run have has_run=False.
     """
-    from yag_slam_tpu import native
-
-    if native.available():
-        return native.segment_runs(px, py, n)
     anchor = np.zeros(n, dtype=np.int32)
     term = np.zeros(n, dtype=np.int32)
     has = np.zeros(n, dtype=bool)

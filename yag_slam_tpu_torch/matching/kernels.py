@@ -19,26 +19,26 @@ LAUNCHES = {"scatter_cells": 0, "smear_quantize": 0, "smear_grid": 0,
 
 # Per wrapper: its CUDA source, the Pallas kernels it replaces as
 # "file:line" of each kernel's def (the first is the one it stands in for
-# on the matcher's large-grid path), and a piece of the CUDA kernel's name
-# that picks its launches out of a profiler trace.
+# on the matcher's large-grid path), and pieces of the CUDA kernels' names
+# that pick its launches out of a profiler trace.
 _TPU = "yag_slam_tpu/matching/pallas_kernels.py"
 KERNELS = {
     "scatter_cells": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
         replaces=[f"{_TPU}:931", f"{_TPU}:1058"],
-        symbol="scatter_cells_kernel"),
+        symbols=("scatter_cells_kernel",)),
     "smear_quantize": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
         replaces=[f"{_TPU}:333", f"{_TPU}:1058"],
-        symbol="QuantizeMaskStore"),
+        symbols=("smear_quantize_kernel", "QuantizeMaskStore")),
     "smear_grid": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
         replaces=[f"{_TPU}:203"],
-        symbol="FloatStore"),
+        symbols=("FloatStore",)),
     "window_sum": dict(
         source="yag_slam_tpu_torch/csrc/window_sum.cu",
         replaces=[f"{_TPU}:578", f"{_TPU}:823", f"{_TPU}:687"],
-        symbol="window_sum_kernel"),
+        symbols=("window_sum_kernel", "window_sum_split_kernel")),
 }
 
 
@@ -178,11 +178,23 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
     then floor(100 x) in float32, then zero every cell at or past
     lim = (G - soy, G - sox).  h = 0 (one tap) is a plain copy scaled by it.
 
+    Contract on the card: every occ value is 0 or 1 (scatter_cells stores
+    only 1 into zeros), and the taps are symmetric, positive and
+    non-increasing away from the centre (correlation.check_smear_taps,
+    where the taps are made; not checked here, which would sync).  The
+    plain version takes any input.
+
     Replaces pallas_kernels.py:smear_quantize_pallas and the smear half of
-    build_grid_fused.  On the H100 each block stages a 32 x 64 output tile
-    plus its h-cell halo in shared memory and runs both passes there, so
-    the float32 partials never reach device memory; at S = 3072, h = 10 it
-    is bound by the 2 x (h + 1) max/multiply chain per cell, not bytes.
+    build_grid_fused.  On the H100 it uses the {0,1} identity: pass 1's
+    value is the tap at the distance d to the nearest occupied cell of the
+    row, so the output is an integer max of lookups Q[|dy|][d] in a table
+    of floor(100 * tap * tap); each staged row that holds an occupied cell
+    max-updates the 2h + 1 outputs it reaches in a shared-memory tile
+    (csrc/grid_build.cu).  No float arithmetic runs per cell; on the main
+    path's sparse grids it is bound by the grid's bytes.  Its 128 x 256
+    tiles pay off once they give every SM a block (the sequential
+    matcher's 3072^2 grid); smaller grids (the loop matcher's 4 x 768^2),
+    and h > 31, run smear_grid's float32 chain with a quantizing store.
     """
     if not _on_cuda(occ, lim, taps):
         return smear_quantize_ref(occ, lim, taps, S, h)
@@ -206,11 +218,12 @@ def smear_grid(occ, taps, S: int, h: int):
 
     Replaces pallas_kernels.py:smear_grid_pallas (the staged build's
     smear, whose output the matcher hands out as its meta grid, and the
-    conversion of a saved map).  Same kernel as smear_quantize with a
-    float32 store stage, so floor(100 x) of its output masked at lim is
+    conversion of a saved map).  The float32 tap chain of the plain
+    version, both passes in a 32 x 64 output tile plus its h-cell halo in
+    shared memory, so floor(100 x) of its output masked at lim is
     smear_quantize's output bit for bit.  Any S (the TPU kernel's
-    S <= 1024 came from its VMEM output block); bound like smear_quantize
-    by the max chain, plus 4 output bytes per cell instead of 1.
+    S <= 1024 came from its VMEM output block); bound by the 2 x (h + 1)
+    max/multiply chain per cell, not bytes.
     """
     if not _on_cuda(occ, taps):
         return smear_grid_ref(occ, taps, S, h)
@@ -263,10 +276,14 @@ def window_sum(q, gy0, gx0, n_pts, ny: int, nx: int, stride: int):
     matmuls) and score_windows_hybrid_pallas (a one-hot row-select matmul
     plus a lane roll, at unit stride on the phase-split layout that folds
     the lattice stride): all three compute this window sum, and their
-    layouts exist for the TPU's lane alignment.  On the H100 one block per (angle, job, 256 outputs) stages
-    the points' origin cells in shared memory and reads the uint8 grid
-    through L2; the stride is an argument, so no phase split is built.
-    Bound by L2 load latency of N*K*NY*NX*P byte reads.
+    layouts exist for the TPU's lane alignment.  On the H100, with few
+    outputs (the sequential passes) a warp's 32 lanes split each output's
+    points and shuffles add them; with many (the loop matcher's batches)
+    each lane sums one output, neighbouring lanes reading neighbouring
+    bytes.  A block of 1-8 warps per (output tile, angle, job) stages the
+    points' origin cells in shared memory and reads the uint8 grid through
+    L2; the stride is an argument, so no phase split is built.  Bound by
+    launch latency: the lattice touches few distinct grid bytes.
     """
     if not _on_cuda(q, gy0, gx0, n_pts):
         return window_sum_ref(q, gy0, gx0, n_pts, ny, nx, stride)

@@ -31,8 +31,9 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from yag_slam_tpu.core.config import make_config
-from yag_slam_tpu.core.transform import Transform
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+from yag_slam_tpu_torch.core.config import make_config
+from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching import correlation as C
 
 ScanMatcherResult = namedtuple(
@@ -271,25 +272,23 @@ class CorrelativeScanMatcher:
     """Correlative scan matcher (coarse-to-fine, with response expansion)
     running on one torch device.
 
-    ``device`` is required: CUDA tensors go through the hand-written
-    kernels, CPU tensors through their plain PyTorch versions.  ``meta`` is
-    None unless ``return_meta=True``: then match_scan and the scan-set
-    paths carry {'grid': job 0's smeared grid before quantize and mask,
-    'kernel': the 2-D smear kernel}, as the reference's matchers do.
+    ``device`` defaults to cuda (raising without a card): CUDA tensors go
+    through the hand-written kernels; ``device="cpu"`` runs their plain
+    PyTorch versions.  ``meta`` is None unless ``return_meta=True``: then
+    match_scan and the scan-set paths carry {'grid': job 0's smeared grid
+    before quantize and mask, 'kernel': the 2-D smear kernel}, as the
+    reference's matchers do.
     ``point_capacity`` / ``base_capacity`` fix the point and base-scan
     buckets up front (the point cap still grows for wider scans).  The
     JAX package's TPU route switches have no counterpart: the device
     decides."""
 
-    def __init__(self, config_dict=None, loop: bool = False, *, device,
+    def __init__(self, config_dict=None, loop: bool = False, *,
+                 device=DEFAULT_DEVICE,
                  dtype=torch.float32, point_capacity: int | None = None,
                  base_capacity: int | None = None, return_meta: bool = False,
                  sanitize_covariance: bool = True):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is not available")
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = resolve_device(device)
         if dtype not in _NP_DTYPES:
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         self.config = make_config(config_dict, loop)
@@ -307,8 +306,10 @@ class CorrelativeScanMatcher:
         self._base_cap = base_capacity
         self._k1 = C.gaussian_kernel_1d(cfg.resolution, cfg.smear_deviation)
         self._half = (len(self._k1) - 1) // 2
-        # float32 taps, as the TPU kernels use them
-        self._taps = torch.as_tensor(self._k1.astype(np.float32), device=self.device)
+        # float32 taps, as the TPU kernels use them; checked once here for
+        # the shape the smear_quantize kernel relies on
+        self._taps = torch.as_tensor(
+            C.check_smear_taps(self._k1.astype(np.float32)), device=self.device)
         self.library = DeviceScanLibrary(dtype, self.device)
 
     # -- capacity management ------------------------------------------------

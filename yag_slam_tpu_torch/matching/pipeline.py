@@ -38,8 +38,8 @@ import math
 import numpy as np
 import torch
 
-from yag_slam_tpu.core import transform as T
-from yag_slam_tpu.core.transform import Transform
+from yag_slam_tpu_torch.core import transform as T
+from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching.matcher import _host_copy_async, _to_device
 
 

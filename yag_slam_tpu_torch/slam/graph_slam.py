@@ -26,8 +26,9 @@ import msgpack
 import numpy as np
 import torch
 
-from yag_slam_tpu.core.config import default_config, default_config_loop
-from yag_slam_tpu.core.transform import Pose2, Transform
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE
+from yag_slam_tpu_torch.core.config import default_config, default_config_loop
+from yag_slam_tpu_torch.core.transform import Pose2, Transform
 from yag_slam_tpu_torch.graphopt.graph import (
     Edge,
     Graph,
@@ -110,7 +111,7 @@ class GraphSlam:
 
     # -- factories -----------------------------------------------------------
     @classmethod
-    def default(cls, *, device, dtype=torch.float32, **kwargs):
+    def default(cls, *, device=DEFAULT_DEVICE, dtype=torch.float32, **kwargs):
         """Default sequential + loop matcher configs on `device`."""
         return cls(
             CorrelativeScanMatcher(default_config, device=device, dtype=dtype),
@@ -143,7 +144,7 @@ class GraphSlam:
         return zlib.compress(msgpack.packb(self.serialize()))
 
     @classmethod
-    def unbinarize(cls, blob, *, device, dtype=torch.float32):
+    def unbinarize(cls, blob, *, device=DEFAULT_DEVICE, dtype=torch.float32):
         return cls.deserialize(msgpack.unpackb(zlib.decompress(blob)),
                                device=device, dtype=dtype)
 
@@ -152,12 +153,12 @@ class GraphSlam:
             ff.write(self.binarize())
 
     @classmethod
-    def from_file(cls, path, *, device, dtype=torch.float32):
+    def from_file(cls, path, *, device=DEFAULT_DEVICE, dtype=torch.float32):
         with open(path, "rb") as ff:
             return cls.unbinarize(ff.read(), device=device, dtype=dtype)
 
     @classmethod
-    def deserialize(cls, d, *, device, dtype=torch.float32):
+    def deserialize(cls, d, *, device=DEFAULT_DEVICE, dtype=torch.float32):
         """Rebuild from a serialized state (either package's), with port
         matchers on `device`."""
         loop_matcher = (

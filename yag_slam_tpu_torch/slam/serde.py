@@ -10,13 +10,13 @@ from collections import namedtuple
 
 import numpy as np
 
-from yag_slam_tpu.core.config import (
+from yag_slam_tpu_torch.core.config import (
     REFERENCE_CONFIG_KEYS,
     ScanMatcherConfig,
     make_config,
 )
-from yag_slam_tpu.core.scan import LaserScanConfig, LocalizedRangeScan
-from yag_slam_tpu.core.transform import Pose2, Transform
+from yag_slam_tpu_torch.core.scan import LaserScanConfig, LocalizedRangeScan
+from yag_slam_tpu_torch.core.transform import Pose2, Transform
 from yag_slam_tpu_torch.graphopt.graph import LinkLabel
 
 SerdeConfig = namedtuple("SerdeConfig", ["cls", "variables", "factory"])

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+
 
 def _sq_dists(pts, centers):
     """(M, K) float32 |p - c|^2 as |p|^2 - 2 p.c + |c|^2."""
@@ -41,10 +43,12 @@ def _kmeans(pts, centers, n_iters: int):
     return torch.argmin(_sq_dists(pts, centers), dim=1)
 
 
-def spatial_segments(mask, n_segments, n_iters=12, seed=0, *, device="cpu"):
+def spatial_segments(mask, n_segments, n_iters=12, seed=0, *,
+                     device=DEFAULT_DEVICE):
     """Cluster the True pixels of `mask` (H, W) into `n_segments` spatially
     compact regions on `device`.  Returns an (H, W) int32 array: 0 =
     background, segment ids 1..K (the reference's SLIC label contract)."""
+    device = resolve_device(device)
     mask = np.asarray(mask).astype(bool)
     ys, xs = np.nonzero(mask)
     m = len(xs)

@@ -15,7 +15,8 @@ from collections import defaultdict
 
 import numpy as np
 
-from yag_slam_tpu.core.scan import LocalizedRangeScan
+from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+from yag_slam_tpu_torch.core.scan import LocalizedRangeScan
 from yag_slam_tpu_torch.mapping.raytrace import trace_rays
 from yag_slam_tpu_torch.splicing.segmentation import (
     open_free_space,
@@ -28,10 +29,12 @@ def pixel_to_meters(resolution, origin, h, x, y):
     return (x * resolution) + origin[0], ((h - y) * resolution) + origin[1]
 
 
-def segment_map(imin, verbose=False, density=1, seed=0, *, device="cpu"):
+def segment_map(imin, verbose=False, density=1, seed=0, *,
+                device=DEFAULT_DEVICE):
     """Segment the free space of a map image into spatially compact
     regions (about one per 600k free-pixel mass times `density`, the
     reference's segment count)."""
+    device = resolve_device(device)
     im = np.asarray(imin).copy()
     free = im >= 254
     free = open_free_space(free, size=11)
@@ -67,11 +70,13 @@ def create_edges(segments, min_shared=4):
     return [pair for pair, freq in counts.items() if freq > min_shared - 1]
 
 
-def map_to_graph(map_image, resolution, origin, density=1, *, device="cpu"):
+def map_to_graph(map_image, resolution, origin, density=1, *,
+                 device=DEFAULT_DEVICE):
     """Synthetic scans (one per free-space region centroid) and adjacency
     edges from a saved map image: a 1439-ray sweep (-180..180 deg at 0.25
     deg, reversed, as the reference zips reversed sweep angles onto
     forward range slots), ranges over 20 m poisoned to 100 (invalid)."""
+    device = resolve_device(device)
     im = np.asarray(map_image)
     segments = segment_map(im, density=density, device=device)
     centroid_map = determine_centroids(segments)

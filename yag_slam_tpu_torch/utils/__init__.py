@@ -1,3 +1,5 @@
+from yag_slam_tpu_torch.utils.metrics import ate_rmse, trajectory_from_slam, umeyama_2d
 from yag_slam_tpu_torch.utils.profiling import StageTimer, block_and_time, device_trace
 
-__all__ = ["StageTimer", "block_and_time", "device_trace"]
+__all__ = ["ate_rmse", "trajectory_from_slam", "umeyama_2d",
+           "StageTimer", "block_and_time", "device_trace"]
