@@ -7,13 +7,15 @@ Phases, one line each; any failure raises (non-zero exit):
   1. require CUDA; print the card's name and power limit;
   2. build the CUDA kernels from yag_slam_tpu_torch/csrc;
   3. compare each kernel with its plain PyTorch version on the card, at the
-     SLAM main path's shapes (bit equality); time the wrapper and the plain
-     version, the bare kernel on preallocated outputs and the one-call
-     PyTorch form where there is one (index_put_ for scatter_cells,
-     F.conv2d for window_sum at seq_coarse) by device time, beside the
-     bound (HBM bytes or float32 operations at the published peak); then
-     smear_quantize on {0,1} grids at three densities and window_sum at
-     other point counts, bit-equal (--kernels-only stops here);
+     SLAM main path's shapes (bit equality; the bare scatter_cells writes a
+     grid of garbage); time the wrapper and the plain version, the bare
+     kernel on preallocated outputs and the one-call PyTorch form where
+     there is one (index_put_ for scatter_cells, a grouped F.conv2d for
+     window_sum) by device time, beside the bound (HBM bytes or float32
+     operations at the published peak); both smears also on a grid of tour
+     scans; then both smears on {0,1} grids at three densities and
+     window_sum at other point counts, bit-equal (--kernels-only stops
+     here);
   4. run the building-tour CARMEN log through the port's GraphSlam at the
      default matcher configs in float32 on the card: require a loop
      closure, ATE below odometry's and every kernel launched; then hold
@@ -31,7 +33,8 @@ Phases, one line each; any failure raises (non-zero exit):
   8. localize against the tour's map: convert the 0.05 m occupancy image
      on the card, offset 3 consecutive scans by (+0.08, -0.06) m and run
      match_scan_sets_with_map; poses back within 0.1 m of the SLAM poses
-     and within 1e-6 of the host's float32 plain path;
+     and within 1e-6 of the host's float32 plain path; smear_grid at the
+     map's shape bit-equal and timed bare beside its bound;
   9. stream: the tour through GraphSlam.process_scan_stream (blocks of 8,
      block dispatch) at the default configs in float32; after 300 scans
      the same counts as phase 4's blocking run and poses within 1e-4, over
@@ -75,6 +78,9 @@ import torch
 # (G, S, h) of the default sequential and loop matchers at the building
 # tour, and the points per scan (P lanes, 180 beams used)
 SEQ_G, SEQ_S, SEQ_H = 4051, 3072, 10
+# the sequential subgrid most tour matches take (109 of 412; 768 to 3072
+# in all), and the meta grid of phase 7
+SEQ_MODE_S = 1792
 LOOP_G, LOOP_S, LOOP_H = 881, 768, 2
 P, N_BEAMS = 256, 180
 TIMING_REPS = 20
@@ -91,7 +97,6 @@ NO_LIBRARY_SMEAR = ("none: a weighted max-dilation is no single PyTorch op "
 SMEAR_DENSITIES = (0.001, 0.05, 0.5)
 TOUR_GRID_SCANS = (60, 10)     # phase 3's tour grid: scans 60-69
 WINDOW_POINTS = (1, 31, 180, 257, 2100)   # 2100: more than one staged chunk
-LIBRARY_LATTICE = "seq_coarse"
 HOLD_BACK = 5   # scans processed after the checkpoint round trip
 # The tour's first scans rerun on the host by the plain path, each as
 # (dtype, scans, tolerance m, tolerance rad) for the card run's poses.
@@ -262,6 +267,7 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
 
     cases = [
         ("seq", dict(N=1, S=SEQ_S, h=SEQ_H, G=SEQ_G, so=500), taps_seq),
+        ("seq_1792", dict(N=1, S=SEQ_MODE_S, h=SEQ_H, G=SEQ_G, so=500), taps_seq),
         ("seq_masked", dict(N=1, S=SEQ_S, h=SEQ_H, G=SEQ_G,
                             so=SEQ_G - SEQ_S + 100), taps_seq),
         ("loop", dict(N=4, S=LOOP_S, h=LOOP_H, G=LOOP_G, so=0), taps_loop),
@@ -269,38 +275,45 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
          torch.ones(1, dtype=torch.float32, device=dev)),
         ("node_seq", dict(N=1, S=NODE_S, h=NODE_H, G=NODE_G, so=500), taps_node),
     ]
+    # seq_1792 draws from a generator of its own, so the other cases keep
+    # the cells of earlier runs and their times stay comparable
+    own_rng = {"seq_1792": np.random.default_rng(SEQ_MODE_S)}
     for name, c, taps in cases:
-        sy, sx, lim = grid_case(rng, dev, **c)
+        sy, sx, lim = grid_case(own_rng.get(name, rng), dev, **c)
         N, S, h = c["N"], c["S"], c["h"]
         M, R = sy.shape[1], S + 2 * h
         occ = K.scatter_cells(sy, sx, R)
         occ_ref = K.scatter_cells_ref(sy, sx, R)
         err = max_abs_err(occ, occ_ref)
-        # the function is a zeroed grid with ones at the cells: the bare
-        # kernel and index_put_ each run after the same zero fill of a
-        # preallocated grid
-        pre = torch.empty_like(occ)
+        # the function is the whole grid, zeros and ones: the bare kernel
+        # writes a preallocated grid of garbage (0xFF, filled once), and
+        # index_put_ runs after a zero fill of its own
+        pre = torch.full_like(occ, 0xFF)
+        put_pre = torch.empty_like(occ)
         ok_lane = (sy >= 0) & (sy < R) & (sx >= 0) & (sx < R)
         flat = (torch.arange(N, device=dev)[:, None] * R * R + sy.long() * R
                 + sx.long())[ok_lane]
         one = torch.ones((), dtype=torch.uint8, device=dev)
 
         def bare_scatter():
-            pre.zero_()
             ok(lib.yag_scatter_cells(sy.data_ptr(), sx.data_ptr(), pre.data_ptr(),
                                      N, M, R, stream()), "scatter_cells")
 
         def put():
-            pre.zero_()
-            pre.view(-1).index_put_((flat,), one)
+            put_pre.zero_()
+            put_pre.view(-1).index_put_((flat,), one)
 
-        results["scatter_cells"].append(timings(
-            dict(case=name, shape=[N, M, R], max_abs_err=err,
-                 library="index_put_ of 1 at the flat cells, after the same zero fill",
+        bare_scatter()
+        err = max(err, max_abs_err(pre, occ_ref))     # the first launch on garbage
+        row = timings(
+            dict(case=name, shape=[N, M, R],
+                 library="index_put_ of 1 at the flat cells, after a zero fill",
                  **bound(8 * N * M + N * R * R)),
             lambda: K.scatter_cells(sy, sx, R), lambda: K.scatter_cells_ref(sy, sx, R),
-            bare_scatter, put))
-        if not torch.equal(pre, occ_ref):
+            bare_scatter, put)
+        row["max_abs_err"] = max(err, max_abs_err(pre, occ_ref))   # and the last
+        results["scatter_cells"].append(row)
+        if not torch.equal(put_pre, occ_ref):
             raise AssertionError(f"{name}: index_put_ grid differs from the plain scatter")
 
         q = K.smear_quantize(occ, lim, taps, S, h)
@@ -337,14 +350,14 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
             f"quantized smear_grid vs smear_quantize err {err_gq}")
 
     # the sequential grid of ten building-tour scans: walls, not uniform
-    # points, set the identity kernel's work (a wall along a column marks
+    # points, set the identity kernels' work (a wall along a column marks
     # every row of its tile)
     for name, h, taps in (("seq_tour", SEQ_H, taps_seq), ("node_tour", NODE_H, taps_node)):
         S = SEQ_S
         occ = tour_occupancy(dev, SEQ_S, h)
         lim = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
-        err = max_abs_err(K.smear_quantize(occ, lim, taps, S, h),
-                          K.smear_quantize_ref(occ, lim, taps, S, h))
+        q = K.smear_quantize(occ, lim, taps, S, h)
+        err = max_abs_err(q, K.smear_quantize_ref(occ, lim, taps, S, h))
         q_pre = torch.empty((1, S, S), dtype=torch.uint8, device=dev)
         results["smear_quantize"].append(timings(
             dict(case=name, shape=[1, S, S], h=h, max_abs_err=err,
@@ -355,11 +368,24 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
             lambda: ok(lib.yag_smear_quantize(occ.data_ptr(), lim.data_ptr(),
                                               taps.data_ptr(), q_pre.data_ptr(),
                                               1, S, h, stream()), "smear_quantize")))
-        log(f"phase 3: smear_quantize {name} S={S} h={h}, {int(occ.sum())} occupied "
-            f"cells: err {err}")
+        g = K.smear_grid(occ, taps, S, h)
+        err_g = max_abs_err(g, K.smear_grid_ref(occ, taps, S, h))
+        err_gq = max_abs_err(K.quantize_mask(g, lim), q)
+        g_pre = torch.empty((1, S, S), dtype=torch.float32, device=dev)
+        results["smear_grid"].append(timings(
+            dict(case=name, shape=[1, S, S], h=h, max_abs_err=max(err_g, err_gq),
+                 quantized_vs_smear_quantize=err_gq, occupied=int(occ.sum()),
+                 library=NO_LIBRARY_SMEAR,
+                 **bound(smear_bytes(1, S, h, 4), SMEAR_OPS(1, S, h))),
+            lambda: K.smear_grid(occ, taps, S, h), lambda: K.smear_grid_ref(occ, taps, S, h),
+            lambda: ok(lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), g_pre.data_ptr(),
+                                          1, S, h, stream()), "smear_grid")))
+        log(f"phase 3: {name} S={S} h={h}, {int(occ.sum())} occupied cells: "
+            f"smear_quantize err {err}, smear_grid err {err_g}, quantized smear_grid "
+            f"vs smear_quantize err {err_gq}")
 
-    # smear_quantize's {0,1} identity on denser grids, at the main-path
-    # shapes and h = 0, 2, 10, 14 (correctness only)
+    # both identity kernels on denser {0,1} grids, at the main-path shapes
+    # and h = 0, 2, 10, 14 (correctness only)
     for (name, N, S, h, taps), density in itertools.product(
             (("seq", 1, SEQ_S, SEQ_H, taps_seq), ("loop", 4, LOOP_S, LOOP_H, taps_loop),
              ("node_seq", 1, NODE_S, NODE_H, taps_node),
@@ -370,9 +396,12 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
         lo = torch.randint(S // 2, S + 1, (N, 2), generator=gen, device=dev, dtype=torch.int32)
         err = max_abs_err(K.smear_quantize(occ, lo, taps, S, h),
                           K.smear_quantize_ref(occ, lo, taps, S, h))
-        results["smear_quantize"].append(dict(case=f"{name}_density_{density}", shape=[N, S, S],
-                                              h=h, max_abs_err=err))
-        log(f"phase 3: smear_quantize {name} N={N} S={S} h={h} density {density}: err {err}")
+        err_g = max_abs_err(K.smear_grid(occ, taps, S, h), K.smear_grid_ref(occ, taps, S, h))
+        for k, e in (("smear_quantize", err), ("smear_grid", err_g)):
+            results[k].append(dict(case=f"{name}_density_{density}", shape=[N, S, S],
+                                   h=h, max_abs_err=e))
+        log(f"phase 3: {name} N={N} S={S} h={h} density {density}: smear_quantize err "
+            f"{err}, smear_grid err {err_g}")
 
     lattices = [
         ("seq_coarse", "seq", (25, 25, 10), 2),
@@ -393,11 +422,7 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
         pre = torch.empty_like(raw)
         row = dict(case=name, shape=[N, nt, ny, nx], stride=stride, points=N_BEAMS,
                    max_abs_err=err, **bound(window_bytes(q, gy0, gx0, N_BEAMS, ny, nx, stride)))
-        library = None
-        if name == LIBRARY_LATTICE:
-            library, row["library"] = window_conv(q, gy0, gx0, N_BEAMS, ny, nx, stride, raw)
-        else:
-            row["library"] = f"F.conv2d timed at {LIBRARY_LATTICE} only"
+        library, row["library"] = window_conv(q, gy0, gx0, N_BEAMS, ny, nx, stride, raw)
         results["window_sum"].append(timings(
             row, lambda: K.window_sum(q, gy0, gx0, n_pts, ny, nx, stride),
             lambda: K.window_sum_ref(q, gy0, gx0, n_pts, ny, nx, stride),
@@ -475,38 +500,42 @@ def window_bytes(q, gy0, gx0, n_pts, ny, nx, stride):
 
 
 def window_conv(q, gy0, gx0, n_pts, ny, nx, stride, raw):
-    """One F.conv2d with the same result as window_sum for job 0: each
-    angle's point-count stencil (built here, outside the timing) over the
-    float grid crop its lattice reads.  Returns (the timed call, what it
-    is); raises if its result differs from the kernel's."""
+    """One grouped F.conv2d with the same result as window_sum: the jobs
+    are the groups, each job's angles' point-count stencils (built here,
+    outside the timing, padded to the largest job's size) run over the
+    float crop of its grid that its lattice reads.  Returns (the timed
+    call, what it is); raises if its result differs from the kernel's."""
     import torch.nn.functional as F
 
     N, S, _ = q.shape
-    if N != 1:
-        raise ValueError("the conv2d yardstick takes one job")
     K_ = gy0.shape[1]
-    y, x = gy0[0, :, :n_pts].long(), gx0[0, :, :n_pts].long()
-    y0, x0 = int(y.min()), int(x.min())
-    kh, kw = int(y.max()) - y0 + 1, int(x.max()) - x0 + 1
-    stencil = torch.zeros((K_, kh * kw), dtype=torch.float32, device=q.device)
-    stencil.index_put_((torch.arange(K_, device=q.device)[:, None].expand_as(y),
-                        (y - y0) * kw + (x - x0)),
-                       torch.ones((), device=q.device), accumulate=True)
-    stencil = stencil.view(K_, 1, kh, kw)
+    dev = q.device
+    y, x = gy0[:, :, :n_pts].long(), gx0[:, :, :n_pts].long()     # (N, K, n)
+    y0, x0 = y.amin(dim=(1, 2)), x.amin(dim=(1, 2))
+    kh = int((y.amax(dim=(1, 2)) - y0).max()) + 1
+    kw = int((x.amax(dim=(1, 2)) - x0).max()) + 1
+    stencil = torch.zeros((N, K_, kh * kw), dtype=torch.float32, device=dev)
+    stencil.index_put_((torch.arange(N, device=dev)[:, None, None].expand_as(y),
+                        torch.arange(K_, device=dev)[None, :, None].expand_as(y),
+                        (y - y0[:, None, None]) * kw + (x - x0[:, None, None])),
+                       torch.ones((), device=dev), accumulate=True)
+    stencil = stencil.view(N * K_, 1, kh, kw)
     hh, ww = kh + stride * (ny - 1), kw + stride * (nx - 1)
-    crop = torch.zeros((1, 1, hh, ww), dtype=torch.float32, device=q.device)
-    ys, xs = max(y0, 0), max(x0, 0)
-    ye, xe = min(y0 + hh, S), min(x0 + ww, S)
-    crop[0, 0, ys - y0:ye - y0, xs - x0:xe - x0] = q[0, ys:ye, xs:xe].float()
+    crop = torch.zeros((1, N, hh, ww), dtype=torch.float32, device=dev)
+    for n, (a, b) in enumerate(zip(y0.tolist(), x0.tolist())):
+        ys, xs = max(a, 0), max(b, 0)
+        ye, xe = min(a + hh, S), min(b + ww, S)
+        crop[0, n, ys - a:ye - a, xs - b:xe - b] = q[n, ys:ye, xs:xe].float()
 
     def call():
-        return F.conv2d(crop, stencil, stride=stride)
+        return F.conv2d(crop, stencil, stride=stride, groups=N)
 
-    got = call()[0].round().to(torch.int32)
-    if not torch.equal(got, raw[0]):
+    got = call()[0].view(N, K_, ny, nx).round().to(torch.int32)
+    if not torch.equal(got, raw):
         raise AssertionError("the conv2d yardstick differs from window_sum")
-    what = (f"F.conv2d, float32 without TF32, of the {hh}x{ww} grid crop with the "
-            f"{K_} angles' {kh}x{kw} point-count stencils at stride {stride}")
+    what = (f"F.conv2d, float32 without TF32, {N} group(s) of one job each: the "
+            f"{hh}x{ww} grid crop with the {K_} angles' {kh}x{kw} point-count "
+            f"stencils at stride {stride}")
     return call, what
 
 
@@ -859,6 +888,7 @@ def matcher_api(scans, dev, gpu):
 
 def localize(slam, scans, dev, gpu):
     """Phase 8: localize offset tour scans against the tour's map."""
+    from yag_slam_tpu_torch import _build
     from yag_slam_tpu_torch.core.transform import Transform
     from yag_slam_tpu_torch.mapping import occupancy_grid_map_to_correlation_grid
     from yag_slam_tpu_torch.matching import correlation as C
@@ -911,9 +941,20 @@ def localize(slam, scans, dev, gpu):
     sx = torch.as_tensor((ox + h).astype(np.int32)[None], device=dev)
     occ = K.scatter_cells(sy, sx, G + 2 * h)
     err = max_abs_err(K.smear_grid(occ, taps, G, h), K.smear_grid_ref(occ, taps, G, h))
-    case = dict(case="tour_map", shape=[1, G, G], h=h, max_abs_err=err,
-                ms=cuda_ms(lambda: K.smear_grid(occ, taps, G, h)),
-                plain_ms=cuda_ms(lambda: K.smear_grid_ref(occ, taps, G, h)))
+    lib = _build.library()
+    g_pre = torch.empty((1, G, G), dtype=torch.float32, device=dev)
+
+    def bare():
+        rc = lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), g_pre.data_ptr(), 1, G, h,
+                                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"smear_grid: bare launch failed, cudaError {rc}")
+
+    case = timings(dict(case="tour_map", shape=[1, G, G], h=h, max_abs_err=err,
+                        library=NO_LIBRARY_SMEAR,
+                        **bound(smear_bytes(1, G, h, 4), SMEAR_OPS(1, G, h))),
+                   lambda: K.smear_grid(occ, taps, G, h),
+                   lambda: K.smear_grid_ref(occ, taps, G, h), bare)
     if err != 0:
         raise AssertionError(f"smear_grid != plain on the tour map: {case}")
     out = dict(map_shape=list(im.shape), occupied=int((im == 0).sum()),
@@ -924,8 +965,10 @@ def localize(slam, scans, dev, gpu):
         f"{conv_ms:.3f} ms (bit-equal to the host); scans {lo}-{hi - 1} offset by "
         f"{LOCALIZE_OFFSET} m localized in {match_ms:.3f} ms, response "
         f"{r.response:.6f}, back within {back_m:.4f} m / {back_rad:.4f} rad of the "
-        f"SLAM poses; card vs host {gap}; smear_grid on the map "
-        f"{case['ms']:.4f} ms vs plain {case['plain_ms']:.4f} ms; launches {launches} ({gpu})")
+        f"SLAM poses; card vs host {gap}; smear_grid on the map: kernel "
+        f"{case['kernel_ms']:.4f} ms, wrapper {case['ms']:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms; bound {1e3 * case['bound_ms']:.3f} us by "
+        f"{case['bound_by']}, share {case['share']:.3f}; launches {launches} ({gpu})")
     return out
 
 

@@ -18,9 +18,9 @@ NAMES = {k: v["symbols"] for k, v in KERNELS.items()}
 
 def test_device_timeline_merges_only_device_events():
     events = [
-        dict(cat="kernel", name="(anonymous namespace)::smear_quantize_kernel("
-             "unsigned char const*, int const*, float const*, unsigned char*, "
-             "int, int)", ts=100.0, dur=10.0),
+        dict(cat="kernel", name="void (anonymous namespace)::smear_identity_kernel<"
+             "(anonymous namespace)::QuantizeTable>(unsigned char const*, float const*, "
+             "(anonymous namespace)::QuantizeTable, int, int)", ts=100.0, dur=10.0),
         dict(cat="kernel", name="at::native::elementwise_kernel", ts=105.0, dur=10.0),
         dict(cat="kernel", name="window_sum_kernel(int)", ts=108.0, dur=2.0),
         dict(cat="kernel", name="void (anonymous namespace)::smear_chain_kernel<"
@@ -28,6 +28,10 @@ def test_device_timeline_merges_only_device_events():
         # smear_quantize on a small grid takes the chain kernel
         dict(cat="kernel", name="void (anonymous namespace)::smear_chain_kernel<"
              "(anonymous namespace)::QuantizeMaskStore>(int)", ts=140.0, dur=3.0),
+        # smear_grid on a large grid takes the identity kernel
+        dict(cat="kernel", name="void (anonymous namespace)::smear_identity_kernel<"
+             "(anonymous namespace)::RankTable>(unsigned char const*, float const*, "
+             "(anonymous namespace)::RankTable, int, int)", ts=300.0, dur=2.0),
         dict(cat="gpu_memcpy", name="Memcpy DtoH", ts=130.0, dur=4.0),
         dict(cat="gpu_memset", name="Memset", ts=200.0, dur=1.0),
         # host-side events never count as device time
@@ -36,13 +40,13 @@ def test_device_timeline_merges_only_device_events():
         dict(ph="M", name="process_name"),
     ]
     tl = smoke.device_timeline(events, NAMES)
-    assert tl["events"] == 7
-    # union of [100, 115), [130, 134), [140, 143), [200, 201) in us
-    assert tl["busy_ms"] == pytest.approx((15.0 + 4.0 + 3.0 + 1.0) / 1e3)
+    assert tl["events"] == 8
+    # union of [100, 115), [130, 134), [140, 143), [200, 201), [300, 302) in us
+    assert tl["busy_ms"] == pytest.approx((15.0 + 4.0 + 3.0 + 1.0 + 2.0) / 1e3)
     parts = tl["parts"]
     assert parts["smear_quantize"] == dict(ms=pytest.approx(0.013), count=2)
     assert parts["window_sum"] == dict(ms=pytest.approx(0.002), count=1)
-    assert parts["smear_grid"] == dict(ms=pytest.approx(0.001), count=1)
+    assert parts["smear_grid"] == dict(ms=pytest.approx(0.003), count=2)
     assert parts["scatter_cells"] == dict(ms=0.0, count=0)
     assert parts["other_kernels"] == dict(ms=pytest.approx(0.010), count=1)
     assert parts["memcpy_memset"] == dict(ms=pytest.approx(0.005), count=2)
@@ -139,27 +143,32 @@ def test_bound_takes_the_larger_limit():
 
 @pytest.mark.parametrize("stride,nx,ny", [(1, 4, 4), (2, 5, 3), (3, 2, 6)])
 def test_window_conv_yardstick_equals_the_window_sum(stride, nx, ny):
-    """The conv2d form of window_sum (phase 3's library call) on the CPU:
-    the same sums as the plain version, and the byte count the bound
-    uses."""
+    """The grouped conv2d form of window_sum (phase 3's library call) on the
+    CPU, for one job and for three (one group each, stencils of different
+    spans padded to one size): the same sums as the plain version, and the
+    byte count the bound uses."""
     import torch
 
     from yag_slam_tpu_torch.matching import kernels as K
 
     rng = np.random.default_rng(stride)
     S, K_, P_ = 48, 3, 20
-    q = torch.as_tensor(rng.integers(0, 101, (1, S, S)).astype(np.uint8))
-    gy0 = torch.as_tensor(rng.integers(-10, S + 5, (1, K_, P_)).astype(np.int32))
-    gx0 = torch.as_tensor(rng.integers(-10, S + 5, (1, K_, P_)).astype(np.int32))
     n_live = 17
-    raw = K.window_sum_ref(q, gy0, gx0, torch.tensor([n_live], dtype=torch.int32),
-                           ny, nx, stride)
-    call, what = smoke.window_conv(q, gy0, gx0, n_live, ny, nx, stride, raw)
-    assert torch.equal(call()[0].round().to(torch.int32), raw[0])
-    assert "F.conv2d" in what
-    # distinct cells read, by brute force
-    cells = {(int(gy0[0, k, p]) + stride * j, int(gx0[0, k, p]) + stride * i)
-             for k in range(K_) for p in range(n_live) for j in range(ny) for i in range(nx)}
-    inside = sum(0 <= y < S and 0 <= x < S for y, x in cells)
-    want = inside + 8 * K_ * n_live + 4 + 4 * K_ * ny * nx
-    assert smoke.window_bytes(q, gy0, gx0, n_live, ny, nx, stride) == want
+    for N in (1, 3):
+        q = torch.as_tensor(rng.integers(0, 101, (N, S, S)).astype(np.uint8))
+        gy0 = rng.integers(-10, S + 5, (N, K_, P_)).astype(np.int32)
+        gx0 = rng.integers(-10, S + 5, (N, K_, P_)).astype(np.int32)
+        gy0[1:] //= 2                      # the other jobs' stencils span less
+        gy0, gx0 = torch.as_tensor(gy0), torch.as_tensor(gx0)
+        raw = K.window_sum_ref(q, gy0, gx0, torch.full((N,), n_live, dtype=torch.int32),
+                               ny, nx, stride)
+        call, what = smoke.window_conv(q, gy0, gx0, n_live, ny, nx, stride, raw)
+        assert torch.equal(call()[0].view(N, K_, ny, nx).round().to(torch.int32), raw)
+        assert "F.conv2d" in what and f"{N} group" in what
+        # distinct cells read, by brute force
+        cells = {(n, int(gy0[n, k, p]) + stride * j, int(gx0[n, k, p]) + stride * i)
+                 for n in range(N) for k in range(K_) for p in range(n_live)
+                 for j in range(ny) for i in range(nx)}
+        inside = sum(0 <= y < S and 0 <= x < S for _, y, x in cells)
+        want = inside + 8 * N * K_ * n_live + 4 * N + 4 * N * K_ * ny * nx
+        assert smoke.window_bytes(q, gy0, gx0, n_live, ny, nx, stride) == want

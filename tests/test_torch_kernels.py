@@ -181,34 +181,68 @@ def test_quantized_smear_grid_is_smear_quantize(h):
     assert q[0, :, S - 7:].max() == 0 and q[1].max() == 100
 
 
-# -- the {0,1} identity of the quantizing smear kernel ----------------------------
+# -- the {0,1} identity of the smear kernels -------------------------------------
 #
-# On the card smear_quantize does no float arithmetic per cell: with occ in
+# On the card neither smear does float arithmetic per cell: with occ in
 # {0, 1} and taps non-increasing away from the centre, pass 1's value is the
-# tap at the row distance d to the nearest occupied cell, and the quantized
-# output is max over dy of Q[|dy|][d(row + dy)], Q = floor(100 * tap * tap)
-# in float32 (csrc/grid_build.cu).  These tests hold that design to the
-# plain version bit for bit on the CPU.
+# tap at the row distance d to the nearest occupied cell, and the output is
+# max over dy of F[|dy|][d(row + dy)], F = tap * tap in float32.
+# smear_quantize max-updates Q = floor(100 * F) and masks at lim;
+# smear_grid max-updates F's rank among the (h+1)^2 products and maps it
+# back to F (csrc/grid_build.cu).  These tests hold both designs to the
+# plain versions bit for bit on the CPU.
+
+def _tap_by_distance(taps, h):
+    """tap(k) = taps[h - k] for k = 0 .. h, and tap(h + 1) = 0."""
+    return torch.cat([taps[:h + 1].flip(0), torch.zeros(1, dtype=torch.float32)])
+
+
+def _f_table(taps, h):
+    """(h+1, h+2) float32 F[dy][d] = tap(dy) * tap(d)."""
+    tap = _tap_by_distance(taps, h)
+    return tap[:h + 1, None] * tap[None, :]
+
 
 def _q_table(taps, h):
     """(h+1, h+2) uint8 Q[dy][d] = floor(100 * (tap(dy) * tap(d))) in
     float32, tap(k) = taps[h - k], tap(h + 1) = 0."""
-    tap = torch.cat([taps[:h + 1].flip(0), torch.zeros(1, dtype=torch.float32)])
-    return torch.floor((tap[:h + 1, None] * tap[None, :]) * 100.0).to(torch.uint8)
+    return torch.floor(_f_table(taps, h) * 100.0).to(torch.uint8)
 
 
-def _smear_quantize_by_table(occ, lim, taps, S, h):
-    """The kernel's design in plain torch: row distance, Q table, integer
-    max over the window, mask at lim."""
+def _rank_table(taps, h):
+    """RankTable::make: the rank of F[dy][d] (dy, d <= h) is 1 + the
+    number of the (h+1)^2 entries below it, 0 stands for value 0 (d = h+1:
+    nothing in reach).  Returns ((h+1, h+2) uint8 ranks, (256,) float32
+    rank -> value)."""
+    f = _f_table(taps, h)[:, :h + 1].reshape(-1)
+    rank = 1 + (f[None, :] < f[:, None]).sum(dim=1)
+    assert int(rank.max()) <= 255
+    val = torch.full((256,), float("nan"), dtype=torch.float32)
+    val[0] = 0.0
+    val[rank] = f
+    codes = torch.zeros((h + 1, h + 2), dtype=torch.uint8)
+    codes[:, :h + 1] = rank.reshape(h + 1, h + 1).to(torch.uint8)
+    return codes, val
+
+
+def _smear_by_table(occ, table, S, h):
+    """max over the window of table[|dy|][d(row + dy)], d the row distance
+    to the nearest occupied cell within h (h + 1: none)."""
     N, R, _ = occ.shape
     x = occ.bool()
     d = torch.full((N, R, S), h + 1, dtype=torch.int64)
     for k in range(h, -1, -1):          # nearer distances overwrite
         d = torch.where(x[:, :, h - k:h - k + S] | x[:, :, h + k:h + k + S], k, d)
-    q = _q_table(taps, h).to(torch.int64)
-    out = torch.zeros((N, S, S), dtype=torch.int64)
+    out = torch.zeros((N, S, S), dtype=table.dtype)
     for b in range(2 * h + 1):
-        out = torch.maximum(out, q[abs(b - h)][d[:, b:b + S, :]])
+        out = torch.maximum(out, table[abs(b - h)][d[:, b:b + S, :]])
+    return out
+
+
+def _smear_quantize_by_table(occ, lim, taps, S, h):
+    """smear_quantize's design in plain torch: row distance, Q table,
+    integer max over the window, mask at lim."""
+    out = _smear_by_table(occ, _q_table(taps, h).to(torch.int64), S, h)
     ar = torch.arange(S)
     keep = (ar[None, :, None] < lim[:, 0, None, None]) & (ar[None, None, :] < lim[:, 1, None, None])
     return torch.where(keep, out, 0).to(torch.uint8)
@@ -239,19 +273,53 @@ def test_smear_quantize_table_identity(h, density):
     assert want[0].max() == 100 and (want[1, :, S - 40:] == 0).all()
 
 
-def _emulate_smear_quantize_kernel(occ, lim, taps, S, h):
-    """smear_quantize_kernel's integer steps, block by block, in Python:
+class _QuantizeStage:
+    """QuantizeTable: the code is Q itself, masked at lim, stored as bytes."""
+
+    def __init__(self, lim, taps, h):
+        self.lim, self.codes = lim.numpy(), _q_table(taps, h).numpy()
+        self.unwritten = np.uint8(255)
+
+    def rows(self, n, S):
+        return min(S, self.lim[n, 0])
+
+    def cols(self, n, S):
+        return min(S, self.lim[n, 1])
+
+    def store(self, tile):
+        return tile
+
+
+class _RankStage:
+    """RankTable: the code is F's rank, no mask, stored as its float32."""
+
+    def __init__(self, taps, h):
+        self.codes, self.val = (t.numpy() for t in _rank_table(taps, h))
+        self.unwritten = np.float32(-1.0)
+
+    def rows(self, n, S):
+        return S
+
+    cols = rows
+
+    def store(self, tile):
+        return self.val[tile]
+
+
+def _emulate_smear_identity_kernel(occ, stage, S, h):
+    """smear_identity_kernel's integer steps, block by block, in Python:
     ballot-packed 32-bit row words and the rows holding any bit, four
     threads per column each owning a quarter of the output rows, the
     64-bit funnel-shifted window, ffs / clz distances, the scatter-max of
-    Q into the output tile (masked at lim), the tile written out."""
-    occ, lim, taps = occ.numpy(), lim.numpy(), taps.numpy()
+    the stage's codes into the tile (up to its row and column limits), the
+    tile written out through the stage's store."""
+    occ = occ.numpy()
     N, R, _ = occ.shape
     cols, staged, words = 256, 128, (256 + 63) // 32 + 1
     rows_out = staged - 2 * h
-    q = _q_table(torch.as_tensor(taps), h).numpy()
+    code = stage.codes
     win, low = (1 << (2 * h + 1)) - 1, (1 << (h + 1)) - 1
-    out = np.full((N, S, S), 255, dtype=np.uint8)     # every cell must be written
+    out = np.full((N, S, S), stage.unwritten)     # every cell must be written
     for n in range(N):
         for r0 in range(0, S, rows_out):
             for c0 in range(0, S, cols):
@@ -267,11 +335,11 @@ def _emulate_smear_quantize_kernel(occ, lim, taps, S, h):
                     if bits[i].any():
                         row_words[i >> 5] |= 1 << (i & 31)
                 tile = np.zeros((staged, cols), dtype=np.uint8)
-                rows_hi = int(min(rows_out, min(S, lim[n, 0]) - r0))
+                rows_hi = int(min(rows_out, stage.rows(n, S) - r0))
                 per = -(-rows_out // 4)
                 for part, c in itertools.product(range(4), range(cols)):
                     p_lo, p_hi = part * per, min(rows_hi, part * per + per)
-                    if c0 + c >= S or c0 + c >= lim[n, 1] or p_lo >= p_hi:
+                    if c0 + c >= stage.cols(n, S) or p_lo >= p_hi:
                         continue
                     i_hi = min(p_hi - 1 + 2 * h, staged - 1)
                     marked = []
@@ -297,9 +365,9 @@ def _emulate_smear_quantize_kernel(occ, lim, taps, S, h):
                         if left:
                             d = min(d, h - (left.bit_length() - 1))  # 63 - __clzll
                         for r in range(max(p_lo, i - 2 * h), min(p_hi, i + 1)):
-                            tile[r, c] = max(tile[r, c], q[abs(i - r - h), d])
+                            tile[r, c] = max(tile[r, c], code[abs(i - r - h), d])
                 rows, cs = min(rows_out, S - r0), min(cols, S - c0)
-                out[n, r0:r0 + rows, c0:c0 + cs] = tile[:rows, :cs]
+                out[n, r0:r0 + rows, c0:c0 + cs] = stage.store(tile[:rows, :cs])
     return torch.as_tensor(out)
 
 
@@ -314,9 +382,129 @@ def test_smear_quantize_kernel_steps_emulated(h, density):
     occ, taps = _t(occ), _t(_smear_taps(h))
     lim = _t(np.array([[S - 3, S - 11]], dtype=np.int32))
     want = K.smear_quantize_ref(occ, lim, taps, S, h)
-    np.testing.assert_array_equal(
-        _emulate_smear_quantize_kernel(occ, lim, taps, S, h).numpy(), want.numpy())
+    got = _emulate_smear_identity_kernel(occ, _QuantizeStage(lim, taps, h), S, h)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert want.max() == 100
+
+
+@pytest.mark.parametrize("density", [0.001, 0.01, 0.1, 0.5])
+@pytest.mark.parametrize("h", [0, 1, 2, 10, 14])
+def test_smear_grid_table_identity(h, density):
+    """Row distance + F table + max, and the same max taken on F's ranks
+    and mapped back, == smear_grid_ref, on N = 3 seeded {0,1} grids at
+    S = 301 (no multiple of the 256 x (128 - 2h) tile, nor of 4)."""
+    rng = np.random.default_rng(2000 * h + int(1000 * density))
+    S = 301
+    occ = _t(_binary_grid(rng, 3, S, h, density))
+    taps = _t(_smear_taps(h))
+    want = K.smear_grid_ref(occ, taps, S, h)
+    np.testing.assert_array_equal(_smear_by_table(occ, _f_table(taps, h), S, h).numpy(),
+                                  want.numpy())
+    codes, val = _rank_table(taps, h)
+    ranks = _smear_by_table(occ, codes.to(torch.int64), S, h)
+    np.testing.assert_array_equal(val[ranks].numpy(), want.numpy())
+    assert want.max() == 1.0 and want.dtype == torch.float32
+
+
+@pytest.mark.parametrize("h,density", [(0, 0.05), (2, 0.5), (10, 0.01), (14, 0.002)])
+def test_smear_grid_kernel_steps_emulated(h, density):
+    """The identity kernel with the rank table and the float32 store,
+    emulated over two column tiles and three row tiles, equals
+    smear_grid_ref bit for bit; quantized and masked it is smear_quantize."""
+    rng = np.random.default_rng(17 + h)
+    S, N = 270, 1
+    occ = _binary_grid(rng, N, S, h, density)
+    occ[0, h + 99:h + 102, 250:262] = 1     # across the row and column tile seams
+    occ[0, h + 2 * (128 - 2 * h) - 1, 3] = 1   # the last output row of a row tile
+    occ, taps = _t(occ), _t(_smear_taps(h))
+    want = K.smear_grid_ref(occ, taps, S, h)
+    got = _emulate_smear_identity_kernel(occ, _RankStage(taps, h), S, h)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    lim = _t(np.array([[S - 3, S - 11]], dtype=np.int32))
+    np.testing.assert_array_equal(K.quantize_mask(got, lim).numpy(),
+                                  K.smear_quantize_ref(occ, lim, taps, S, h).numpy())
+    assert want.max() == 1.0
+
+
+def test_rank_table_orders_as_the_products():
+    """Ranks fit a byte up to h = 14, equal products share a rank, and the
+    rank order is the value order."""
+    for h in (0, 1, 2, 10, 14):
+        codes, val = _rank_table(_t(_smear_taps(h)), h)
+        f = _f_table(_t(_smear_taps(h)), h)
+        assert int(codes.max()) <= (h + 1) ** 2 <= 225
+        assert (codes[:, h + 1] == 0).all() and (codes[:, :h + 1] > 0).all()
+        flat_c, flat_f = codes[:, :h + 1].reshape(-1), f[:, :h + 1].reshape(-1)
+        assert torch.equal(val[flat_c.long()], flat_f)
+        less = flat_f[:, None] < flat_f[None, :]
+        assert torch.equal(less, flat_c[:, None] < flat_c[None, :])
+
+
+# -- scatter_cells: fill and scatter in one launch --------------------------------
+
+def _band_rows(N, R, sms):
+    """yag_scatter_cells' band height: about two blocks per SM, every job at
+    least one band."""
+    return min(R, max(1, -(-N * R // (2 * sms))))
+
+
+def _emulate_scatter_cells_kernel(sy, sx, R, sms=132, base=0, threads=512):
+    """yag_scatter_cells' bands and scatter_cells_kernel's steps in numpy,
+    on a grid of non-zero garbage at an address that is `base` mod 16:
+    each block zeroes its band's bytes as a head up to 16-byte alignment,
+    the aligned body and a tail, then stores the ones of the lanes whose
+    row is in its band.  Checks that the bands cover every byte once."""
+    sy, sx = sy.numpy(), sx.numpy()
+    N, M = sy.shape
+    band_rows = _band_rows(N, R, sms)
+    bands = -(-R // band_rows)
+    occ = np.random.default_rng(R).integers(1, 256, N * R * R).astype(np.uint8)
+    zeroed = np.zeros(N * R * R, dtype=np.int64)
+    for blk in range(N * bands):
+        n = blk // bands
+        r_lo = (blk - n * bands) * band_rows
+        r_hi = min(R, r_lo + band_rows)
+        a, b = (n * R + r_lo) * R, (n * R + r_hi) * R
+        a16 = a + min(b - a, (16 - (base + a) % 16) % 16)
+        b16 = a16 + ((b - a16) & ~15)
+        assert a16 - a < min(16, threads) and b - b16 < min(16, threads)
+        assert (b16 - a16) % 16 == 0 and (a16 == b16 or (base + a16) % 16 == 0)
+        for lo, hi in ((a, a16), (a16, b16), (b16, b)):
+            occ[lo:hi] = 0
+            zeroed[lo:hi] += 1
+        ys, xs = sy[n], sx[n]
+        mine = (ys >= r_lo) & (ys < r_hi)
+        mine &= (xs >= 0) & (xs < R)
+        occ[(n * R + ys[mine].astype(np.int64)) * R + xs[mine]] = 1
+    assert (zeroed == 1).all()
+    return torch.as_tensor(occ.reshape(N, R, R)), N * bands
+
+
+@pytest.mark.parametrize("N,R,M,sms,base", [
+    (1, 3092, 4096, 132, 0),   # sequential main path, largest grid: bands of 12 rows
+    (1, 1812, 4096, 132, 0),   # its most common grid: bands of 7 rows
+    (4, 772, 4096, 132, 0),    # loop main path: 65 bands per job
+    (1, 3092, 4096, 132, 5),   # ragged heads and tails at every band
+    (2, 37, 8, 132, 11),       # one 37-byte row per band
+    (3, 3, 2, 132, 15),        # 3-byte bands: no aligned body
+    (1, 300, 4096, 1, 3),      # one band for the whole grid
+])
+def test_scatter_cells_banded_fill_emulated(N, R, M, sms, base):
+    rng = np.random.default_rng(N * R + base)
+    sy = rng.integers(-3, R + 3, (N, M)).astype(np.int32)   # rows off the grid
+    sx = rng.integers(-3, R + 3, (N, M)).astype(np.int32)   # columns off the grid
+    sy[rng.uniform(size=(N, M)) < 0.3] = -1                  # empty lanes
+    band = _band_rows(N, R, sms)
+    edges = np.arange(0, R, band)
+    k = min(len(edges), M // 2)
+    sy[:, :k] = edges[:k]                                    # first row of a band
+    sy[:, k:2 * k] = np.minimum(edges[:k] + band - 1, R - 1)  # last row of a band
+    sx[:, :2 * k] = rng.integers(0, R, (N, 2 * k))
+    sy, sx = _t(sy), _t(sx)
+    want = K.scatter_cells_ref(sy, sx, R)
+    got, blocks = _emulate_scatter_cells_kernel(sy, sx, R, sms=sms, base=base)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert want.sum() > 0 and N <= blocks <= 2 * sms + N   # about two per SM
 
 
 @pytest.mark.parametrize("res,smear,h", [

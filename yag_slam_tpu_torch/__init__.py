@@ -2,7 +2,7 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port beside the JAX package, which stays the reference.  The layout
-mirrors ``yag_slam_tpu``: ``matching`` (correlative scan matcher; its three
+mirrors ``yag_slam_tpu``: ``matching`` (correlative scan matcher; its four
 device kernels live in ``matching/kernels.py`` and ``csrc/``), ``graphopt``
 (pose graph, host sparse SPA), ``slam`` (GraphSlam, checkpoints),
 ``mapping`` (occupancy grids), ``splicing`` (lifelong mapping), ``apps``
@@ -18,3 +18,24 @@ compiled with nvcc at first use.
 """
 
 __version__ = "0.1.0"
+
+from yag_slam_tpu_torch.core.config import (
+    ScanMatcherConfig,
+    default_config,
+    default_config_loop,
+    make_config,
+)
+from yag_slam_tpu_torch.core.scan import LaserScanConfig, LocalizedRangeScan
+from yag_slam_tpu_torch.core.transform import Pose2, Transform
+
+__all__ = [
+    "Transform",
+    "Pose2",
+    "LocalizedRangeScan",
+    "LaserScanConfig",
+    "ScanMatcherConfig",
+    "default_config",
+    "default_config_loop",
+    "make_config",
+    "__version__",
+]

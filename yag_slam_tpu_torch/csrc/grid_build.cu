@@ -11,8 +11,9 @@
 //
 // Layout contract (the wrappers in matching/kernels.py check it):
 //   occ  (N, R, R) uint8, R = S + 2h, every value 0 or 1 (scatter_cells
-//        stores only 1 into zeros): cell (row, col) of the subgrid lives at
-//        occ[n, row + h, col + h]; the h-wide border is the smear halo.
+//        writes the whole grid: zeros, and ones at the cells): cell (row,
+//        col) of the subgrid lives at occ[n, row + h, col + h]; the h-wide
+//        border is the smear halo.
 //   sy, sx (N, M) int32 scatter cells in that layout; sy < 0 marks a lane
 //        with no cell.  Cells outside [0, R) are dropped.
 //   lim  (N, 2) int32 = (G - soy, G - sox): subgrid rows/cols at or past
@@ -29,53 +30,108 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "device.cuh"
 
 namespace {
 
-// One thread per (job, lane).  Concurrent stores of the same value to one
-// cell are benign, so the TPU path's dedup sort is not needed here.  Bound
-// by the zero fill of the (N, R, R) grid the wrapper allocates; the
-// scatter itself touches N * M bytes.
-__global__ void scatter_cells_kernel(const int32_t* __restrict__ sy,
-                                     const int32_t* __restrict__ sx,
-                                     uint8_t* __restrict__ occ,
-                                     long long total, int M, int R) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  int y = sy[t];
-  int x = sx[t];
-  if (y < 0 || y >= R || x < 0 || x >= R) return;
-  long long n = t / M;
-  occ[(n * R + y) * R + x] = 1;
+// ---------------------------------------------------------------------------
+// scatter_cells: the zeroed grid and its ones in one launch.
+//
+// Each block owns a band of consecutive rows of one job's (R, R) grid, whose
+// bytes are contiguous: it zeroes them with 16-byte stores (byte stores at
+// the ragged ends: R need not be a multiple of 16), waits at a barrier, then
+// walks the job's M lanes, reading sy coalesced and sx only for lanes whose
+// row falls in its band, and stores 1.  No other block writes the band, so
+// there are no races and no atomics, and the barrier orders the block's
+// zeros before its ones.  Bound by the fill's N R^2 bytes.  Every block also
+// reads its job's 4M bytes of sy through L2, and the rows of its first lanes
+// load before the fill, so their latency hides behind it.  On the H100 two
+// blocks per SM measured faster than one, than 1024 threads per block, and
+// than fewer blocks that re-read less: at 4096 lanes 264 blocks re-read
+// 4.3 MB, more than a 1812^2 grid's 3.3 MB fill, and still win there.
+constexpr int kScatterThreads = 512;
+constexpr int kScatterBlocksPerSm = 2;
+constexpr int kScatterAhead = 8;   // lanes per thread whose rows load first
+
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_cells_kernel(const int32_t* __restrict__ sy,
+                     const int32_t* __restrict__ sx,
+                     uint8_t* __restrict__ occ, int M, int R, int band_rows,
+                     int bands) {
+  const int n = blockIdx.x / bands;
+  const int r_lo = (blockIdx.x - n * bands) * band_rows;
+  const int r_hi = min(R, r_lo + band_rows);
+  const int tid = threadIdx.x;
+  uint8_t* grid = occ + (size_t)n * R * R;
+  const int32_t* ys = sy + (size_t)n * M;
+  const int32_t* xs = sx + (size_t)n * M;
+
+  int y_ahead[kScatterAhead];
+#pragma unroll
+  for (int i = 0; i < kScatterAhead; ++i) {
+    const int t = tid + i * kScatterThreads;
+    y_ahead[i] = t < M ? __ldg(ys + t) : -1;
+  }
+
+  // 1. zero the band's bytes [a, b): a head up to 16-byte alignment, the
+  // aligned body, the tail (each end < 16 bytes, one store per thread)
+  uint8_t* a = grid + (size_t)r_lo * R;
+  uint8_t* b = grid + (size_t)r_hi * R;
+  const size_t head = (16 - ((uintptr_t)a & 15)) & 15;
+  uint8_t* a16 = (size_t)(b - a) < head ? b : a + head;
+  uint8_t* b16 = a16 + ((size_t)(b - a16) & ~(size_t)15);
+  if (tid < a16 - a) a[tid] = 0;
+  if (tid < b - b16) b16[tid] = 0;
+  uint4* body = reinterpret_cast<uint4*>(a16);
+  const size_t n16 = (size_t)(b16 - a16) / 16;
+  for (size_t t = tid; t < n16; t += kScatterThreads) body[t] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  // 2. the ones of the lanes whose row is in the band (sy < 0: no cell)
+  auto mark = [&](int t, int y) {
+    const int x = __ldg(xs + t);
+    if (x >= 0 && x < R) grid[(size_t)y * R + x] = 1;
+  };
+#pragma unroll
+  for (int i = 0; i < kScatterAhead; ++i)
+    if (y_ahead[i] >= r_lo && y_ahead[i] < r_hi) mark(tid + i * kScatterThreads, y_ahead[i]);
+#pragma unroll 4
+  for (int t = tid + kScatterAhead * kScatterThreads; t < M; t += kScatterThreads) {
+    const int y = __ldg(ys + t);
+    if (y >= r_lo && y < r_hi) mark(t, y);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// smear_quantize: the {0,1} identity.
+// The {0,1} identity of the smear, shared by smear_quantize and smear_grid.
 //
 // With x in {0, 1}, t * 1 = t exactly and t * 0 = 0, and the taps fall off
 // away from the centre, so pass 1's value at a cell is exactly tap(d), d the
 // column distance to the nearest occupied cell within h (tap(h + 1) = 0:
-// none).  Pass 2's value is max over dy of tap(|dy|) * tap(d(row + dy)), and
-// x -> floor(100 x) in float32 is monotone, so the quantized output is an
-// integer max over the lookups Q[|dy|][d(row + dy)] in the (h+1) x (h+2)
-// table Q[dy][d] = floor(100 * (tap(dy) * tap(d))), made in float32 as the
-// plain version computes each product.  No float arithmetic runs per cell,
-// and a staged row with no occupied cell adds nothing to any output.
+// none).  Pass 2's value is max over dy of F[|dy|][d(row + dy)], F[dy][d] =
+// fl32(tap(dy) * tap(d)), the product the plain version makes, and every
+// store stage is monotone in it.  So the kernel keeps, per output, a small
+// integer code that orders as the output does, and max-updates it from a
+// table over (|dy|, d): the Table stage says what the code is and how a
+// finished tile is stored.  No float arithmetic runs per cell, and a staged
+// row with no occupied cell adds nothing to any output.
 //
 // One block of 1024 threads per (job, 128 staged rows x 256 output columns):
 //  1. each warp stages rows as bits, a 32-bit ballot of 32 coalesced byte
 //     loads per word (2 rows' loads in flight before the first ballot, no
 //     per-element divide), and marks the rows that hold any occupied bit;
-//     the block zeroes its 128 x 256 byte output tile in shared memory;
+//     the block zeroes its 128 x 256 byte code tile in shared memory and
+//     makes its table;
 //  2. four threads take output column c, each a quarter of the output rows,
 //     and visit only the marked rows that reach their quarter: the
 //     (2h + 1)-bit window around the column's centre is one 64-bit funnel
 //     shift of the row's words, __ffsll / __clzll give d, and each row with
 //     d <= h max-updates the output rows of the quarter it reaches with
-//     Q[|dy|][d] (the full-grid mask at lim is applied here: masked outputs
-//     stay 0);
-//  3. the block writes the tile out, 16 bytes per store where S allows.
+//     table[|dy|][d] (outputs past the Table's row and column limits stay
+//     code 0);
+//  3. the Table stage writes the tile out.
 // The main path's grids are sparse (a few scans' points in millions of
 // cells) but not uniform: a wall along a column marks every row of its
 // tile, and the block that holds it sets the kernel's time; splitting each
@@ -94,14 +150,116 @@ constexpr int kQWords = (kQCols + 63) / 32 + 1;
 constexpr int kQBatch = 2;                   // staged rows a warp loads at once
 static_assert(kQStaged % (kQThreads / 32 * kQBatch) == 0, "rows per warp batch");
 
+typedef uint8_t CodeTable[kQMaxHalf + 1][kQMaxHalf + 2];
+typedef uint8_t CodeTile[kQStaged][kQCols];
+
+// smear_quantize: the code is the output, Q[dy][d] = floor(100 * F[dy][d])
+// (floor is monotone), masked at lim, written as bytes, 16 per store where
+// S allows.
+struct QuantizeTable {
+  static constexpr int kMaxHalf = kQMaxHalf;
+  struct Shared {};
+  const int32_t* lim;
+  uint8_t* out;
+
+  __device__ int rows(int n, int S) const { return min(S, lim[2 * n]); }
+  __device__ int cols(int n, int S) const { return min(S, lim[2 * n + 1]); }
+
+  __device__ void make(const float* taps, int h, CodeTable& tab, Shared&) const {
+    for (int t = threadIdx.x; t < (h + 1) * (h + 2); t += kQThreads) {
+      const int dy = t / (h + 2);
+      const int d = t - dy * (h + 2);
+      const float tap_d = d <= h ? taps[h - d] : 0.0f;
+      tab[dy][d] = (uint8_t)floorf(__fmul_rn(__fmul_rn(taps[h - dy], tap_d), 100.0f));
+    }
+  }
+
+  __device__ void write(int n, int S, int r0, int c0, int rows, int cols,
+                        const CodeTile& tile, const Shared&) const {
+    const int tid = threadIdx.x;
+    uint8_t* dst = out + (size_t)n * S * S + (size_t)r0 * S + c0;
+    if ((S & 15) == 0) {   // then cols is a multiple of 16 and rows are aligned
+      for (int t = tid; t < rows * (kQCols / 16); t += kQThreads) {
+        const int r = t / (kQCols / 16);
+        const int q16 = t - r * (kQCols / 16);
+        if (q16 * 16 < cols)
+          *reinterpret_cast<uint4*>(dst + (size_t)r * S + q16 * 16) =
+              *reinterpret_cast<const uint4*>(&tile[r][q16 * 16]);
+      }
+    } else {
+      const int part = tid / kQCols;
+      const int c = tid - part * kQCols;
+      if (c < cols)
+        for (int r = part; r < rows; r += kQParts) dst[(size_t)r * S + c] = tile[r][c];
+    }
+  }
+};
+
+// smear_grid: the code is F's rank, 1 + the number of entries of the
+// (h + 1)^2 table below it (0: no occupied cell in reach, value 0), which
+// fits a byte for h <= 14; the write-out maps each rank back to its float32
+// value, 16 bytes per store where S allows.  No mask.
+struct RankTable {
+  static constexpr int kMaxHalf = 14;   // (h + 1)^2 <= 255 ranks
+  struct Shared {
+    float f[(kMaxHalf + 1) * (kMaxHalf + 1)];
+    float val[256];   // rank -> value
+  };
+  float* out;
+
+  __device__ int rows(int, int S) const { return S; }
+  __device__ int cols(int, int S) const { return S; }
+
+  __device__ void make(const float* taps, int h, CodeTable& tab, Shared& sh) const {
+    const int w = h + 1;
+    for (int t = threadIdx.x; t < w * w; t += kQThreads) {
+      const int dy = t / w;
+      sh.f[t] = __fmul_rn(taps[h - dy], taps[h - (t - dy * w)]);
+    }
+    if (threadIdx.x == 0) sh.val[0] = 0.0f;
+    __syncthreads();
+    // equal values get equal ranks, so concurrent stores to val agree
+    for (int t = threadIdx.x; t < w * w; t += kQThreads) {
+      const float v = sh.f[t];
+      int rank = 1;
+      for (int e = 0; e < w * w; ++e) rank += sh.f[e] < v;
+      tab[t / w][t % w] = (uint8_t)rank;
+      sh.val[rank] = v;
+    }
+  }
+
+  __device__ void write(int n, int S, int r0, int c0, int rows, int cols,
+                        const CodeTile& tile, const Shared& sh) const {
+    const int tid = threadIdx.x;
+    float* dst = out + (size_t)n * S * S + (size_t)r0 * S + c0;
+    if ((S & 3) == 0) {   // then cols is a multiple of 4 and rows are aligned
+      for (int t = tid; t < rows * (kQCols / 4); t += kQThreads) {
+        const int r = t / (kQCols / 4);
+        const int c4 = (t - r * (kQCols / 4)) * 4;
+        if (c4 < cols) {
+          const uchar4 k = *reinterpret_cast<const uchar4*>(&tile[r][c4]);
+          *reinterpret_cast<float4*>(dst + (size_t)r * S + c4) =
+              make_float4(sh.val[k.x], sh.val[k.y], sh.val[k.z], sh.val[k.w]);
+        }
+      }
+    } else {
+      for (int t = tid; t < rows * kQCols; t += kQThreads) {
+        const int r = t / kQCols;
+        const int c = t - r * kQCols;
+        if (c < cols) dst[(size_t)r * S + c] = sh.val[tile[r][c]];
+      }
+    }
+  }
+};
+
+template <class Table>
 __global__ void __launch_bounds__(kQThreads)
-smear_quantize_kernel(const uint8_t* __restrict__ occ,
-                      const int32_t* __restrict__ lim,
-                      const float* __restrict__ taps,
-                      uint8_t* __restrict__ out, int S, int h) {
+smear_identity_kernel(const uint8_t* __restrict__ occ,
+                      const float* __restrict__ taps, Table table, int S, int h) {
   __shared__ uint32_t s_bits[kQStaged][kQWords];
-  __shared__ __align__(16) uint8_t s_out[kQStaged][kQCols];
-  __shared__ uint8_t s_q[kQMaxHalf + 1][kQMaxHalf + 2];
+  __shared__ __align__(16) CodeTile s_out;
+  __shared__ CodeTable s_tab;
+  __shared__ typename Table::Shared s_table;
   __shared__ uint32_t s_rows[kQStaged / 32];   // staged rows with any bit
 
   const int R = S + 2 * h;
@@ -113,12 +271,7 @@ smear_quantize_kernel(const uint8_t* __restrict__ occ,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
 
-  for (int t = tid; t < (h + 1) * (h + 2); t += kQThreads) {
-    const int dy = t / (h + 2);
-    const int d = t - dy * (h + 2);
-    const float tap_d = d <= h ? taps[h - d] : 0.0f;
-    s_q[dy][d] = (uint8_t)floorf(__fmul_rn(__fmul_rn(taps[h - dy], tap_d), 100.0f));
-  }
+  table.make(taps, h, s_tab, s_table);
   if (tid < kQStaged / 32) s_rows[tid] = 0;
   for (int t = tid; t < kQStaged * kQCols / 16; t += kQThreads)
     reinterpret_cast<uint4*>(&s_out[0][0])[t] = make_uint4(0, 0, 0, 0);
@@ -161,11 +314,11 @@ smear_quantize_kernel(const uint8_t* __restrict__ occ,
   const int off = c & 31;
   const unsigned long long win = (1ull << (2 * h + 1)) - 1;
   const unsigned long long low = (1ull << (h + 1)) - 1;
-  const int rows_hi = min(rows_out, min(S, lim[2 * n]) - r0);   // unmasked output rows
+  const int rows_hi = min(rows_out, table.rows(n, S) - r0);   // unmasked output rows
   const int per = (rows_out + kQParts - 1) / kQParts;
   const int p_lo = part * per;                       // this thread's output rows
   const int p_hi = min(rows_hi, p_lo + per);
-  if (gj < S && gj < lim[2 * n + 1] && p_lo < p_hi) {
+  if (gj < table.cols(n, S) && p_lo < p_hi) {
     const int i_hi = min(p_hi - 1 + 2 * h, kQStaged - 1);   // staged rows p_lo .. i_hi
     for (int k = p_lo >> 5; k <= i_hi >> 5; ++k) {
       uint32_t rows = s_rows[k];
@@ -189,7 +342,7 @@ smear_quantize_kernel(const uint8_t* __restrict__ occ,
         const int r_end = min(p_hi, i + 1);
         for (int r = max(p_lo, i - 2 * h); r < r_end; ++r) {
           const int dy = i - r - h;
-          const uint8_t qv = s_q[dy < 0 ? -dy : dy][d];
+          const uint8_t qv = s_tab[dy < 0 ? -dy : dy][d];
           if (qv > s_out[r][c]) s_out[r][c] = qv;
         }
       }
@@ -198,25 +351,30 @@ smear_quantize_kernel(const uint8_t* __restrict__ occ,
   __syncthreads();
 
   // 3. the tile out
-  const int rows = min(rows_out, S - r0);
-  const int cols = min(kQCols, S - c0);
-  uint8_t* dst = out + (size_t)n * S * S + (size_t)r0 * S + c0;
-  if ((S & 15) == 0) {   // then cols is a multiple of 16 and rows are aligned
-    for (int t = tid; t < rows * (kQCols / 16); t += kQThreads) {
-      const int r = t / (kQCols / 16);
-      const int q16 = t - r * (kQCols / 16);
-      if (q16 * 16 < cols)
-        *reinterpret_cast<uint4*>(dst + (size_t)r * S + q16 * 16) =
-            *reinterpret_cast<const uint4*>(&s_out[r][q16 * 16]);
-    }
-  } else if (c < cols) {
-    for (int r = part; r < rows; r += kQParts) dst[(size_t)r * S + c] = s_out[r][c];
-  }
+  table.write(n, S, r0, c0, min(rows_out, S - r0), min(kQCols, S - c0), s_out, s_table);
+}
+
+// Blocks of the identity kernel's grid; 0 where h is past its table.
+long long identity_blocks(int N, int S, int h, int max_half) {
+  const int rows_out = kQStaged - 2 * h;
+  return h <= max_half
+      ? (long long)N * ((S + kQCols - 1) / kQCols) * ((S + rows_out - 1) / rows_out)
+      : 0;
+}
+
+template <class Table>
+int launch_identity(const void* occ, const void* taps, Table table, int N, int S,
+                    int h, void* stream) {
+  const int rows_out = kQStaged - 2 * h;
+  dim3 grid((S + kQCols - 1) / kQCols, (S + rows_out - 1) / rows_out, N);
+  smear_identity_kernel<Table><<<grid, kQThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)occ, (const float*)taps, table, S, h);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// The float32 tap chain: smear_grid, and smear_quantize on grids too small
-// for the identity kernel's tiles to fill the card.
+// The float32 tap chain: both smears on grids too small for the identity
+// kernel's tiles to fill the card, and at h past its table.  Any input.
 constexpr int kTileRows = 32;   // output rows per block
 constexpr int kTileCols = 64;   // output cols per block
 constexpr int kSmearThreads = 256;
@@ -333,36 +491,37 @@ extern "C" int yag_smear_smem_bytes(int h) { return smear_smem_bytes(h); }
 
 extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
                                  int N, int M, int R, void* stream) {
-  long long total = (long long)N * M;
-  int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  scatter_cells_kernel<<<(unsigned)blocks, threads, 0,
+  // about kScatterBlocksPerSm blocks per SM, every job at least one band
+  const long long rows_total = (long long)N * R;
+  const long long blocks = (long long)kScatterBlocksPerSm * sm_count();
+  const int band_rows = (int)std::min<long long>(
+      R, std::max<long long>(1, (rows_total + blocks - 1) / blocks));
+  const int bands = (R + band_rows - 1) / band_rows;
+  scatter_cells_kernel<<<(unsigned)((long long)N * bands), kScatterThreads, 0,
                          (cudaStream_t)stream>>>(
-      (const int32_t*)sy, (const int32_t*)sx, (uint8_t*)occ, total, M, R);
+      (const int32_t*)sy, (const int32_t*)sx, (uint8_t*)occ, M, R, band_rows, bands);
   return (int)cudaGetLastError();
 }
 
+// The identity kernel's 128-row x 256-column tiles hold a long chain per
+// block; the chain kernel's small tiles spread any grid over the card and
+// take any h.  smear_quantize takes the identity kernel once it has a block
+// for every SM (1 x 3072^2); smear_grid once it has one for half of them,
+// where it measured 2.7x faster than the chain at 1 x 1792^2, h 10 (119
+// blocks), even at 4 x 768^2, h 2 (84), and slower at 2 x 1024^2, h 0 (64).
 extern "C" int yag_smear_quantize(const void* occ, const void* lim,
                                   const void* taps, void* out, int N, int S,
                                   int h, void* stream) {
-  // the identity kernel's 128-row x 256-column tiles hold a long chain per
-  // block: they win once there is a block for every SM (1 x 3072^2), the
-  // chain kernel's small tiles win below that (4 x 768^2, 2 x 1024^2)
-  const int rows_out = kQStaged - 2 * h;
-  const long long blocks = h <= kQMaxHalf
-      ? (long long)N * ((S + kQCols - 1) / kQCols) * ((S + rows_out - 1) / rows_out)
-      : 0;
-  QuantizeMaskStore store{(const int32_t*)lim, (uint8_t*)out};
-  if (blocks < sm_count()) return launch_chain(occ, taps, store, N, S, h, stream);
-  dim3 grid((S + kQCols - 1) / kQCols, (S + rows_out - 1) / rows_out, N);
-  smear_quantize_kernel<<<grid, kQThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)occ, (const int32_t*)lim, (const float*)taps,
-      (uint8_t*)out, S, h);
-  return (int)cudaGetLastError();
+  if (identity_blocks(N, S, h, QuantizeTable::kMaxHalf) < sm_count())
+    return launch_chain(occ, taps, QuantizeMaskStore{(const int32_t*)lim, (uint8_t*)out},
+                        N, S, h, stream);
+  return launch_identity(occ, taps, QuantizeTable{(const int32_t*)lim, (uint8_t*)out},
+                         N, S, h, stream);
 }
 
 extern "C" int yag_smear_grid(const void* occ, const void* taps, void* out,
                               int N, int S, int h, void* stream) {
-  FloatStore store{(float*)out};
-  return launch_chain(occ, taps, store, N, S, h, stream);
+  if (2 * identity_blocks(N, S, h, RankTable::kMaxHalf) < sm_count())
+    return launch_chain(occ, taps, FloatStore{(float*)out}, N, S, h, stream);
+  return launch_identity(occ, taps, RankTable{(float*)out}, N, S, h, stream);
 }

@@ -4,4 +4,16 @@ from yag_slam_tpu_torch.matching.matcher import (
     ScanMatcherResult,
 )
 
-__all__ = ["CorrelativeScanMatcher", "Scan2DMatcher", "ScanMatcherResult"]
+# Drop-in aliases for the reference's two matcher classes (yag_slam's
+# scan_matching.Scan2DMatcherCpp and Scan2DMatcherPy): both map onto the
+# one implementation here.
+Scan2DMatcherCpp = CorrelativeScanMatcher
+Scan2DMatcherPy = CorrelativeScanMatcher
+
+__all__ = [
+    "CorrelativeScanMatcher",
+    "Scan2DMatcher",
+    "Scan2DMatcherCpp",
+    "Scan2DMatcherPy",
+    "ScanMatcherResult",
+]

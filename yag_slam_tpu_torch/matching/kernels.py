@@ -30,11 +30,11 @@ KERNELS = {
     "smear_quantize": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
         replaces=[f"{_TPU}:333", f"{_TPU}:1058"],
-        symbols=("smear_quantize_kernel", "QuantizeMaskStore")),
+        symbols=("QuantizeTable", "QuantizeMaskStore")),
     "smear_grid": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
         replaces=[f"{_TPU}:203"],
-        symbols=("FloatStore",)),
+        symbols=("RankTable", "FloatStore")),
     "window_sum": dict(
         source="yag_slam_tpu_torch/csrc/window_sum.cu",
         replaces=[f"{_TPU}:578", f"{_TPU}:823", f"{_TPU}:687"],
@@ -93,24 +93,27 @@ def scatter_cells_ref(sy, sx, rows: int):
 
 
 def scatter_cells(sy, sx, rows: int):
-    """Store 1 into a zeroed (N, rows, rows) uint8 grid at (sy, sx).
+    """The (N, rows, rows) uint8 grid that is 1 at (sy, sx) and 0 elsewhere.
 
     sy, sx: (N, M) int32 cells; lanes with sy < 0, and cells outside the
     grid, store nothing.
 
     Replaces pallas_kernels.py:scatter_occupancy_pallas and the scatter
     half of build_grid_fused (their serialized per-point read-modify-write
-    loop over deduplicated cells).  On the H100 it is one thread per lane;
-    equal-value races are benign, so no dedup sort.  Bound by the zero
-    fill of the grid (N * rows^2 bytes), not the N * M scattered bytes.
+    loop over deduplicated cells).  On the H100 one launch writes the whole
+    grid into an uninitialised allocation: each block zeroes a band of one
+    job's rows with 16-byte stores, then stores the ones of the lanes whose
+    row is in its band (csrc/grid_build.cu).  Equal-value stores need no
+    dedup sort and no atomics.  Bound by the grid's N * rows^2 bytes, not
+    the N * M scattered bytes.
     """
     if not _on_cuda(sy, sx):
         return scatter_cells_ref(sy, sx, rows)
     N, M = sy.shape
     _require(sy, torch.int32, (N, M), "sy")
     _require(sx, torch.int32, (N, M), "sx")
-    occ = torch.zeros((N, rows, rows), dtype=torch.uint8, device=sy.device)
-    if N * M == 0:
+    occ = torch.empty((N, rows, rows), dtype=torch.uint8, device=sy.device)
+    if occ.numel() == 0:
         return occ
     lib = _build.library()
     err = lib.yag_scatter_cells(sy.data_ptr(), sx.data_ptr(), occ.data_ptr(),
@@ -178,8 +181,8 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
     then floor(100 x) in float32, then zero every cell at or past
     lim = (G - soy, G - sox).  h = 0 (one tap) is a plain copy scaled by it.
 
-    Contract on the card: every occ value is 0 or 1 (scatter_cells stores
-    only 1 into zeros), and the taps are symmetric, positive and
+    Contract on the card: every occ value is 0 or 1 (scatter_cells writes
+    only zeros and ones), and the taps are symmetric, positive and
     non-increasing away from the centre (correlation.check_smear_taps,
     where the taps are made; not checked here, which would sync).  The
     plain version takes any input.
@@ -194,7 +197,7 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
     path's sparse grids it is bound by the grid's bytes.  Its 128 x 256
     tiles pay off once they give every SM a block (the sequential
     matcher's 3072^2 grid); smaller grids (the loop matcher's 4 x 768^2),
-    and h > 31, run smear_grid's float32 chain with a quantizing store.
+    and h > 31, run the float32 tap chain with a quantizing store.
     """
     if not _on_cuda(occ, lim, taps):
         return smear_quantize_ref(occ, lim, taps, S, h)
@@ -216,14 +219,24 @@ def smear_grid(occ, taps, S: int, h: int):
     """(N, S+2h, S+2h) uint8 occupancy -> (N, S, S) float32 smeared grid:
     :func:`smear_quantize` without the quantize and the mask.
 
+    Contract on the card, as for :func:`smear_quantize`: every occ value is
+    0 or 1 (every caller's grid comes from scatter_cells), and the taps are
+    symmetric, positive and non-increasing away from the centre
+    (correlation.check_smear_taps, where the taps are made).  The plain
+    version takes any input.
+
     Replaces pallas_kernels.py:smear_grid_pallas (the staged build's
     smear, whose output the matcher hands out as its meta grid, and the
-    conversion of a saved map).  The float32 tap chain of the plain
-    version, both passes in a 32 x 64 output tile plus its h-cell halo in
-    shared memory, so floor(100 x) of its output masked at lim is
-    smear_quantize's output bit for bit.  Any S (the TPU kernel's
-    S <= 1024 came from its VMEM output block); bound by the 2 x (h + 1)
-    max/multiply chain per cell, not bytes.
+    conversion of a saved map).  On the H100 it uses smear_quantize's {0,1}
+    identity kernel with another table and store: the output is max over
+    dy of F[|dy|][d], F = tap * tap in float32, so the shared tile holds
+    each output's rank among the (h+1)^2 values of F and the write-out
+    maps ranks back to floats, 16 bytes per store (csrc/grid_build.cu).
+    Bound by the 4 * S^2 bytes of the float32 output.  Grids whose tiles
+    do not give half the SMs a block (a saved map's), and h > 14, run the
+    float32 tap chain of the plain version in 32 x 64 output tiles.
+    Either way floor(100 x) of its output masked at lim is smear_quantize's
+    output bit for bit.
     """
     if not _on_cuda(occ, taps):
         return smear_grid_ref(occ, taps, S, h)
