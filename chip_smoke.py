@@ -51,7 +51,18 @@ Phases, one line each; any failure raises (non-zero exit):
      (segmentation and raytracing on the card, held to the host's plain
      run), fed the tour's first 20 scans from their pose in the map; the
      splice bootstrap links the first, the graph grows by 20, and the poses
-     come back within 0.3 m of phase 4's.
+     come back within 0.3 m of phase 4's;
+ 12. SPA on the card (TF32 off): the noisy square-loop graph at 100-4000
+     nodes through SPA2d with the host, dense and cg solvers in mixed and
+     float64 precision (compute(100, 1e-4, True, 1e-9, 200), one warm call,
+     best of 3, or the warm call alone where it takes over 5 s), each device
+     solver held to host (cost within 1e-3 relative, poses within 2e-3) at
+     the sizes where the JAX package's same solver meets those bars on the
+     CPU, elsewhere ending finite below its initial cost; ms, LM iterations
+     and host reads per cell; then the tour again with SPA2d(solver="dense") on the card, held
+     to phase 4's host-SPA run (the same counts and poses within 1e-4 after
+     300 scans, closures within +-1, ATE below odometry's), SPA ms per
+     solve beside phase 4's.
 Each path's kernel launches are counted from 0 just before it runs.  The
 last lines are a JSON line of per-kernel results (ms is the bare kernel's
 device time at its main-path case; launches_per_scan is phase 4's count
@@ -145,6 +156,23 @@ LIFELONG_SCANS, LIFELONG_TOL = 20, 0.3
 # end one step apart (float32 cos/sin last bits at .5 sample positions)
 LABEL_FLIPS, RAY_TOL, RAY_STEP_SHARE = 1e-3, 1e-3, 1e-3
 LIFELONG_RAY_CENTROIDS = 8
+# phase 12: the SPA crossover (noisy square loops, as profile_spa.py
+# builds them) and the bars of tests/test_spa.py for device against host
+SPA_SIZES = (100, 500, 1000, 2000, 4000)
+SPA_COLUMNS = (("host", "f64"), ("dense", "mixed"), ("dense", "f64"), ("cg", "mixed"),
+               ("cg", "f64"))
+SPA_ARGS = (100, 1e-4, True, 1e-9, 200)
+SPA_REPS = 3
+# a cell whose warm call takes longer is timed by that call alone
+SPA_SLOW_MS = 5000.0
+SPA_COST_RTOL, SPA_POSE_TOL = 1e-3, 2e-3
+# the sizes at which each device solver is held to host: those at which
+# the JAX package's same solver reaches host's optimum within the bars on
+# the CPU.  Its float32 factorization (dense:mixed) parts from 1000 nodes
+# on, its 200 CG iterations per LM step (cg) from 300 on (PERF.md); there
+# a cell must end finite and below its initial cost.
+SPA_HELD = {"dense:f64": SPA_SIZES, "dense:mixed": (100, 500), "cg:mixed": (100,),
+            "cg:f64": (100,)}
 
 
 def log(msg):
@@ -627,6 +655,7 @@ def run_slam(tmp, gpu, dev):
         f"|dth| {dth:.2e} rad, response {a.response:.6f} vs {b.response:.6f}")
 
     slam = GraphSlam.default(device=dev, dtype=torch.float32)
+    spa_ms = solve_times(slam)
     main, rest = scans[:-HOLD_BACK], scans[-HOLD_BACK:]
     torch.cuda.synchronize()
     K.reset_launches()
@@ -657,6 +686,7 @@ def run_slam(tmp, gpu, dev):
         loop_closures=st["loop_closures"], loop_chains_tried=st["loop_chains_tried"],
         spa_runs=st["opt_runs"],
         spa_ms_mean=1e3 * st["opt_time_total"] / max(st["opt_runs"], 1),
+        spa_ms_median=statistics.median(spa_ms) if spa_ms else None, spa_ms=spa_ms,
         seq_match_s=st["match_time_total"], spa_s=st["opt_time_total"],
         ate_slam_m=ate_slam, ate_odom_m=ate_odom, launches=launches,
         gpu=gpu,
@@ -732,6 +762,8 @@ def run_slam(tmp, gpu, dev):
     summary["stream"] = stream(tour, card_at[STREAM_PREFIX], summary, dev, gpu)
     summary["entry_points"] = entry_points(tour, tmp, dev, gpu)
     summary["lifelong"] = lifelong(tour, slam, dev, gpu)
+    summary["spa"] = dict(crossover=spa_crossover(dev, gpu),
+                          tour=spa_tour(tour, card_at[STREAM_PREFIX], summary, dev, gpu))
     return summary
 
 
@@ -1245,6 +1277,146 @@ def lifelong(tour, slam, dev, gpu):
     return out
 
 
+# -- phase 12 ----------------------------------------------------------------------
+
+def solve_times(slam):
+    """Host milliseconds of each of slam's SPA solves from here on (each
+    ends with the poses copied back to the host)."""
+    times, compute = [], slam.opt.compute
+
+    def timed_compute(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = compute(*args, **kwargs)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    slam.opt.compute = timed_compute
+    return times
+
+
+def spa_crossover(dev, gpu):
+    """Phase 12 (a): host, dense and cg SPA at profile_spa.py's sizes."""
+    import re
+
+    from yag_slam_tpu_torch.graphopt import spa as S
+    from yag_slam_tpu_torch.io.benchmark import noisy_loop_pose_graph, populate_spa
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the mixed SPA steps need true float32")
+    rows, bad = [], []
+    for n in SPA_SIZES:
+        graph = noisy_loop_pose_graph(n)
+        guesses, edges, info = graph
+        cost0 = S._np_cost(np.asarray(guesses), np.array([e[0] for e in edges]),
+                           np.array([e[1] for e in edges]),
+                           np.broadcast_to(np.asarray(info), (len(edges), 3, 3)))
+        host = None
+        for solver, precision in SPA_COLUMNS:
+            name = solver if solver == "host" else f"{solver}:{precision}"
+
+            def solve():
+                spa = populate_spa(S.SPA2d(solver=solver, precision=precision, device=dev),
+                                   *graph)
+                torch.cuda.synchronize()
+                S.reset_host_reads()
+                t0 = time.perf_counter()
+                cost, lines = quiet(lambda: spa.compute(*SPA_ARGS, verbose=True))
+                ms = 1e3 * (time.perf_counter() - t0)
+                iters = int(re.search(r"after (\d+) iters", lines[-1]).group(1))
+                return dict(cost=cost, ms=ms, iters=iters, reads=dict(S.HOST_READS),
+                            poses=np.asarray(spa._solver.poses))
+
+            warm = solve()      # the card's libraries load on a first call
+            runs = [solve() for _ in range(SPA_REPS)] if warm["ms"] < SPA_SLOW_MS else [warm]
+            best = min(runs, key=lambda r: r["ms"])
+            row = dict(nodes=len(guesses), edges=len(edges), solver=name,
+                       ms=best["ms"], ms_runs=[r["ms"] for r in runs], iters=best["iters"],
+                       host_reads=best["reads"], cost=best["cost"], initial_cost=cost0)
+            if host is None:
+                host = best
+            else:
+                dxy, dth = pose_gap(best["poses"], host["poses"])
+                row.update(cost_rel_vs_host=abs(best["cost"] - host["cost"]) / host["cost"],
+                           dxy_vs_host_m=dxy, dth_vs_host_rad=dth)
+            rows.append(row)
+            gap = ("" if "dxy_vs_host_m" not in row else
+                   f"; vs host: cost {row['cost_rel_vs_host']:.2e} rel, |dxy| "
+                   f"{row['dxy_vs_host_m']:.2e} m, |dth| {row['dth_vs_host_rad']:.2e} rad")
+            log(f"phase 12: SPA {row['nodes']} nodes {name}: {row['ms']:.3f} ms (best of "
+                f"{len(runs)}), {row['iters']} LM iterations, host reads {row['host_reads']}, "
+                f"chi2 {row['cost']:.6g}{gap} ({gpu})")
+            if solver == "host":
+                continue
+            if n in SPA_HELD[name]:
+                row["held_to_host"] = True
+                if not (row["cost_rel_vs_host"] <= SPA_COST_RTOL
+                        and max(row["dxy_vs_host_m"], row["dth_vs_host_rad"]) <= SPA_POSE_TOL):
+                    bad.append(f"{name} at {n} nodes parted from host")
+            elif not (np.isfinite(row["cost"]) and row["cost"] <= cost0):
+                bad.append(f"{name} at {n} nodes ended at cost {row['cost']} (from {cost0})")
+    if bad:
+        raise AssertionError(f"SPA on the card: {bad}")
+    return rows
+
+
+def spa_tour(tour, card_prefix, phase4, dev, gpu):
+    """Phase 12 (b): the tour with SPA2d(solver="dense") on the card, held
+    to phase 4's run (host SPA)."""
+    from yag_slam_tpu_torch.graphopt import spa as S
+    from yag_slam_tpu_torch.graphopt.spa import SPA2d
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
+
+    nm, gt = tour["n_main"], tour["gt"]
+    scans = tour["scans_of"](tour["carmen"][:nm])
+    slam = GraphSlam.default(device=dev, dtype=torch.float32,
+                             opt=SPA2d(solver="dense", device=dev))
+    spa_ms = solve_times(slam)
+
+    def run():
+        S.reset_host_reads()
+        t0 = time.perf_counter()
+        for s in scans[:STREAM_PREFIX]:
+            slam.process_scan(s)
+        at = graph_state(slam)
+        for s in scans[STREAM_PREFIX:]:
+            slam.process_scan(s)
+        torch.cuda.synchronize()
+        return at, time.perf_counter() - t0, dict(S.HOST_READS)
+
+    ((poses, counts), wall, reads), launches = counted(K, run)
+    if not spa_ms or reads["lm"] <= 0:
+        raise AssertionError("the dense-SPA tour never solved on the card")
+    dxy, dth = pose_gap(poses, card_prefix[0])
+    est = np.array([xyt(v.obj.corrected_pose)[:2] for v in slam.graph.vertices])
+    st = slam.stats
+    out = dict(scans=nm, seconds=wall, scans_per_s=nm / wall, prefix=STREAM_PREFIX,
+               prefix_counts=counts, host_spa_counts=card_prefix[1], prefix_dxy_m=dxy,
+               prefix_dth_rad=dth, loop_closures=st["loop_closures"],
+               host_spa_loop_closures=phase4["loop_closures"],
+               ate_slam_m=ate(est, gt[:nm, :2]), ate_odom_m=phase4["ate_odom_m"],
+               spa_runs=len(spa_ms), spa_ms=spa_ms, spa_ms_mean=statistics.mean(spa_ms),
+               spa_ms_median=statistics.median(spa_ms), host_reads=reads,
+               host_spa_ms_mean=phase4["spa_ms_mean"],
+               host_spa_ms_median=phase4["spa_ms_median"], launches=launches)
+    log(f"phase 12: tour with SPA2d(solver='dense') on the card: {nm} scans at "
+        f"{out['scans_per_s']:.3f} scans/s; SPA {out['spa_ms_mean']:.3f} ms mean, "
+        f"{out['spa_ms_median']:.3f} ms median x {len(spa_ms)} (phase 4's host SPA "
+        f"{phase4['spa_ms_mean']:.3f} mean, {phase4['spa_ms_median']:.3f} median x "
+        f"{phase4['spa_runs']}), host reads {reads}; first {STREAM_PREFIX}: (vertices, "
+        f"edges, closures) {counts} vs {card_prefix[1]}, max |dxy| {dxy:.3e} m, |dth| "
+        f"{dth:.3e} rad; tour: {st['loop_closures']} closures vs "
+        f"{phase4['loop_closures']}, ATE {out['ate_slam_m']:.4f} m vs odometry "
+        f"{out['ate_odom_m']:.4f} m; launches {launches} ({gpu})")
+    if counts != card_prefix[1] or dxy > STREAM_TOL or dth > STREAM_TOL:
+        raise AssertionError("the dense-SPA tour parted from the host-SPA tour")
+    if abs(st["loop_closures"] - phase4["loop_closures"]) > 1:
+        raise AssertionError("dense-SPA closures differ from the host-SPA run's by > 1")
+    if not out["ate_slam_m"] < out["ate_odom_m"]:
+        raise AssertionError("dense-SPA ATE not below odometry's")
+    return out
+
+
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
     smear of phase 8) and the launches of every driven path."""
@@ -1253,11 +1425,12 @@ def kernel_lines(K, checks, slam):
                  localize=slam["localize"]["launches"],
                  stream=slam["stream"]["launches"],
                  **slam["entry_points"]["launches"],
-                 lifelong=slam["lifelong"]["launches"])
+                 lifelong=slam["lifelong"]["launches"],
+                 spa_tour=slam["spa"]["tour"]["launches"])
     for path in ("meta", "scan_sets", "localize"):
         if paths[path]["smear_grid"] <= 0:
             raise AssertionError(f"smear_grid never launched on the {path} path")
-    for path in ("stream", "cli", "threaded", "lifelong"):
+    for path in ("stream", "cli", "threaded", "lifelong", "spa_tour"):
         for k in SLAM_KERNELS:
             if paths[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")

@@ -67,7 +67,7 @@ def test_pose_gap_wraps_heading():
 
 
 
-NEW_PATHS = ("stream", "cli", "threaded", "lifelong")
+NEW_PATHS = ("stream", "cli", "threaded", "lifelong", "spa_tour")
 
 
 def _run_summary(zero=None):
@@ -94,6 +94,7 @@ def _run_summary(zero=None):
         entry_points=dict(launches=dict(cli=n("cli", smear_grid=0),
                                         threaded=n("threaded", smear_grid=0))),
         lifelong=dict(launches=n("lifelong", smear_grid=0)),
+        spa=dict(tour=dict(launches=n("spa_tour", smear_grid=0))),
     )
     return checks, slam
 
@@ -125,6 +126,20 @@ def test_kernel_lines_fail_when_a_path_skips_a_kernel(path):
     checks, slam = _run_summary(zero=(path, "smear_quantize"))
     with pytest.raises(AssertionError, match=f"smear_quantize never launched on the {path}"):
         smoke.kernel_lines(K, checks, slam)
+
+
+def test_solve_times_times_each_solve():
+    """Phase 12's per-solve timer wraps the optimizer's compute and keeps
+    its result."""
+    from yag_slam_tpu_torch.graphopt.spa import SPA2d
+    from yag_slam_tpu_torch.io.benchmark import noisy_loop_pose_graph, populate_spa
+
+    class Slam:
+        opt = populate_spa(SPA2d(device="cpu"), *noisy_loop_pose_graph(8))
+
+    times = smoke.solve_times(Slam)
+    assert Slam.opt.compute() > 0.0 and Slam.opt.compute() >= 0.0
+    assert len(times) == 2 and all(t > 0 for t in times)
 
 
 def test_quiet_captures_standard_output():

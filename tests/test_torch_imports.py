@@ -115,7 +115,9 @@ def _checkpoint(tmp_path):
 def _entry_point_calls(tmp_path):
     """Every public entry point of the port, called without `device`."""
     from yag_slam_tpu_torch.apps.online import OnlineMapper, ThreadedOnlineMapper
+    from yag_slam_tpu_torch.graphopt.spa import SPA2d
     from yag_slam_tpu_torch.interop import graph_slam_from_state
+    from yag_slam_tpu_torch.io.benchmark import noisy_loop_pose_graph, populate_spa
     from yag_slam_tpu_torch.io.simulator import SimWorld, simulate_scan
     from yag_slam_tpu_torch.mapping import (
         create_occupancy_grid, occupancy_grid_map_to_correlation_grid,
@@ -142,6 +144,10 @@ def _entry_point_calls(tmp_path):
         "spatial_segments": lambda: spatial_segments(im == 255, 2),
         "segment_map": lambda: segment_map(im),
         "map_to_graph": lambda: map_to_graph(im, 0.05, (0.0, 0.0)),
+        "SPA2d.dense": lambda: populate_spa(
+            SPA2d(solver="dense"), *noisy_loop_pose_graph(8)).compute(),
+        "SPA2d.cg": lambda: populate_spa(
+            SPA2d(solver="cg"), *noisy_loop_pose_graph(8)).compute(),
     }
 
 
@@ -151,6 +157,7 @@ ENTRY_POINTS = (
     "OnlineMapper", "ThreadedOnlineMapper", "create_occupancy_grid",
     "occupancy_grid_map_to_correlation_grid", "trace_rays",
     "run_raytracing_sweep", "spatial_segments", "segment_map", "map_to_graph",
+    "SPA2d.dense", "SPA2d.cg",
 )
 
 
@@ -206,12 +213,15 @@ def test_stage_timer_and_block_and_time():
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     from yag_slam_tpu_torch.utils.profiling import device_trace
 
-    path = tmp_path / "trace" / "t.json"
-    with device_trace(str(path)):
+    log_dir = tmp_path / "trace"
+    with device_trace(log_dir=str(log_dir)) as got:
         torch.ones(64).cumsum(0)
+    assert got == str(log_dir)
     import json
 
-    events = json.loads(path.read_text())["traceEvents"]
+    from yag_slam_tpu_torch.utils.profiling import TRACE_FILE
+
+    events = json.loads((log_dir / TRACE_FILE).read_text())["traceEvents"]
     assert any("cumsum" in e.get("name", "") for e in events)
 
 

@@ -6,7 +6,7 @@ from yag_slam_tpu_torch.graphopt.graph import (
     Vertex,
     do_breadth_first_traversal,
 )
-from yag_slam_tpu_torch.graphopt.spa import SPA2d
+from yag_slam_tpu_torch.graphopt.spa import PoseGraphSolver, SPA2d
 
 __all__ = [
     "Edge",
@@ -16,4 +16,5 @@ __all__ = [
     "Vertex",
     "do_breadth_first_traversal",
     "SPA2d",
+    "PoseGraphSolver",
 ]

@@ -1,16 +1,17 @@
-"""Benchmark-log generation: the port's own copy of the CARMEN-log half of
-``yag_slam_tpu/io/benchmark.py``.
+"""Benchmark inputs: the port's own copy of ``yag_slam_tpu/io/benchmark.py``.
 
 A multi-room floor plan, a long tour that revisits the corridor (loop
 closures), drifted wheel odometry, and a writer of standard CARMEN
 `FLASER` (or `ROBOTLASER1`) lines, so a generated log goes through the
 same loader as a real Intel log: given the real `intel.clf`,
 ``yag-slam-tpu-torch-mapper --carmen intel.clf --gt ...`` runs it as it is.
+Also the noisy square-loop pose graph that SPA is timed on.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from yag_slam_tpu_torch.core.transform import se2_compose, se2_relative
 from yag_slam_tpu_torch.io.simulator import (
     SimWorld,
     drifted_odometry,
@@ -147,6 +148,43 @@ def write_carmen_log(path, world, gt_poses, odom_poses, n_beams=180,
     gt_path = str(path) + ".gt"
     np.savetxt(gt_path, np.asarray(gt_poses))
     return path, gt_path
+
+
+def noisy_loop_pose_graph(n_nodes, seed=0, noise=0.01,
+                          info_diag=(100.0, 100.0, 400.0)):
+    """The SPA benchmark graph: a noisy square loop of ~`n_nodes` nodes
+    with odometry-chained guesses and one exact closure edge, the same
+    graph as the JAX package's for the same arguments.
+
+    Returns (guesses, edges, info): guesses is a list of (3,) xyt
+    arrays; edges is a list of ((i, j), mean(3,)); info is the 3x3
+    information matrix as nested lists."""
+    rng = np.random.default_rng(seed)
+    side = max(n_nodes // 4, 1)
+    true = [np.array([0.0, 0.0, 0.0])]
+    for _ in range(4):
+        for _ in range(side):
+            true.append(se2_compose(true[-1], np.array([0.5, 0.0, 0.0])))
+        true.append(se2_compose(true[-1], np.array([0.0, 0.0, np.pi / 2])))
+    guesses = [true[0]]
+    edges = []
+    for i in range(len(true) - 1):
+        mean = se2_relative(true[i + 1], true[i]) + rng.normal(0, noise, 3)
+        guesses.append(se2_compose(guesses[-1], mean))
+        edges.append(((i, i + 1), mean))
+    edges.append(((len(true) - 1, 0), se2_relative(true[0], true[-1])))
+    info = np.diag(list(info_diag)).tolist()
+    return guesses, edges, info
+
+
+def populate_spa(spa, guesses, edges, info):
+    """Load a (guesses, edges, info) graph into any SPA2d-contract
+    solver; returns the solver."""
+    for i, g in enumerate(guesses):
+        spa.add_node(g[0], g[1], g[2], i)
+    for (i, j), mean in edges:
+        spa.add_constraint(i, j, mean[0], mean[1], mean[2], info)
+    return spa
 
 
 def generate_benchmark_log(path, step=0.4, laps=2, n_beams=180, seed=0,

@@ -44,7 +44,7 @@ class OccupancyGrid:
 
 
 def _render_counts(origin_x, origin_y, end_x, end_y, is_hit, ox, oy, res, *,
-                   width, height, max_steps):
+                   width, height, max_steps, min_pass_through):
     """Pass/hit counts of all beams -> (height, width) uint8 image."""
     dev = origin_x.device
     size = width * height
@@ -83,7 +83,7 @@ def _render_counts(origin_x, origin_y, end_x, end_y, is_hit, ox, oy, res, *,
 
     passes = passes.view(height, width)
     hits = hits.view(height, width)
-    visited = passes > MIN_PASS_THROUGH
+    visited = passes > min_pass_through
     occupied = visited & (
         hits.to(torch.float32) >= OCCUPANCY_THRESHOLD * passes.to(torch.float32)
     ) & (hits > 0)
@@ -93,10 +93,11 @@ def _render_counts(origin_x, origin_y, end_x, end_y, is_hit, ox, oy, res, *,
     return image
 
 
-def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0, *,
-                          device=DEFAULT_DEVICE):
+def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0,
+                          min_pass_through=MIN_PASS_THROUGH, *, device=DEFAULT_DEVICE):
     """Render all scans into an occupancy image on `device`; returns an
-    OccupancyGrid with the image on the host."""
+    OccupancyGrid with the image on the host.  A cell is visited (free or
+    occupied) when more than `min_pass_through` beams pass it."""
     device = resolve_device(device)
     if not scans:
         raise ValueError("create_occupancy_grid needs at least one scan")
@@ -143,6 +144,7 @@ def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0, *,
         f32(origins[:, 0]), f32(origins[:, 1]), f32(ends[:, 0]), f32(ends[:, 1]),
         torch.as_tensor(hits, device=device), scalar(ox), scalar(oy),
         scalar(resolution), width=width, height=height, max_steps=max_steps,
+        min_pass_through=min_pass_through,
     )
     return OccupancyGrid(
         image=image.cpu().numpy(),

@@ -44,6 +44,12 @@ def gaussian_kernel_1d(res: float, smear_deviation: float) -> np.ndarray:
     return np.exp(-0.5 * offs**2 / smear_deviation**2)
 
 
+def gaussian_kernel_2d(res: float, smear_deviation: float) -> np.ndarray:
+    """The 2-D smear kernel, the outer product of the 1-D factor."""
+    k1 = gaussian_kernel_1d(res, smear_deviation)
+    return np.outer(k1, k1)
+
+
 def check_smear_taps(taps: np.ndarray) -> np.ndarray:
     """`taps` (2h+1,) host array, returned as it is once checked to be
     symmetric, positive and non-increasing away from the centre: the shape

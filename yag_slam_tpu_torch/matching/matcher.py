@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
-from yag_slam_tpu_torch.core.config import make_config
+from yag_slam_tpu_torch.core.config import ScanMatcherConfig, make_config
 from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching import correlation as C
 
@@ -125,9 +125,10 @@ class DeviceScanLibrary:
     identity of the scan's shared points cache, so ``LocalizedRangeScan.copy``
     (the loop-closure temp scans) aliases the original's slot."""
 
-    def __init__(self, dtype, device):
+    def __init__(self, dtype, initial_cap=None, *, device=DEFAULT_DEVICE):
         self.dtype = dtype
-        self.device = device
+        self.initial_cap = initial_cap   # None: _LIBRARY_INITIAL_CAP
+        self.device = resolve_device(device)
         self._fields = None
         self.P = 0
         self.K_cap = 0
@@ -172,7 +173,7 @@ class DeviceScanLibrary:
         returns the slots aligned with `scans`."""
         if self._fields is None:
             self.P = P
-            self.K_cap = _LIBRARY_INITIAL_CAP
+            self.K_cap = self.initial_cap or _LIBRARY_INITIAL_CAP
             self._fields = self._field_zeros(self.K_cap, P)
         elif P > self.P:
             # wider scans: re-queue every stored scan at the new width
@@ -284,14 +285,14 @@ class CorrelativeScanMatcher:
     decides."""
 
     def __init__(self, config_dict=None, loop: bool = False, *,
-                 device=DEFAULT_DEVICE,
+                 config: ScanMatcherConfig | None = None, device=DEFAULT_DEVICE,
                  dtype=torch.float32, point_capacity: int | None = None,
                  base_capacity: int | None = None, return_meta: bool = False,
                  sanitize_covariance: bool = True):
         self.device = resolve_device(device)
         if dtype not in _NP_DTYPES:
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
-        self.config = make_config(config_dict, loop)
+        self.config = config if config is not None else make_config(config_dict, loop)
         cfg = self.config
         self.grid_size = int(
             cfg.search_size / cfg.resolution
@@ -310,7 +311,7 @@ class CorrelativeScanMatcher:
         # the shape the smear_quantize kernel relies on
         self._taps = torch.as_tensor(
             C.check_smear_taps(self._k1.astype(np.float32)), device=self.device)
-        self.library = DeviceScanLibrary(dtype, self.device)
+        self.library = DeviceScanLibrary(dtype, device=self.device)
 
     # -- capacity management ------------------------------------------------
     def _ensure_point_cap(self, scans) -> int:
@@ -718,7 +719,7 @@ class CorrelativeScanMatcher:
         meta = None
         if grid is not None:
             meta = {"grid": grid.to(self.dtype).cpu().numpy(),
-                    "kernel": np.outer(self._k1, self._k1)}
+                    "kernel": C.gaussian_kernel_2d(cfg.resolution, cfg.smear_deviation)}
         return ScanMatcherResult(
             response, covar, Transform.from_position_euler(x, y, 0, 0, 0, t), meta
         )

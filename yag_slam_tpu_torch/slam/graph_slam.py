@@ -84,8 +84,9 @@ class GraphSlam:
         self.near_scan_visitor = make_near_scan_visitor(loop_search_dist)
         self.running_scans = []
         # any solver with SPA2d's add_node / add_constraint / compute /
-        # nodes contract drops in
-        self.opt = opt if opt is not None else SPA2d()
+        # nodes contract drops in; the default solves on the host ("auto"
+        # below its node limit) and on the matchers' device above it
+        self.opt = opt if opt is not None else SPA2d(device=seq_matcher.device)
         self.search = RadiusHashSearch([], res=self.loop_search_dist)
         self.min_response_coarse = min_response_coarse
         self.min_response_fine = min_response_fine
@@ -192,6 +193,9 @@ class GraphSlam:
 
         obj.running_scans = [vs[i].obj for i in d["running_scans"]]
         return obj
+
+    def link_to_near_chains(self):
+        raise NotImplementedError("might be needed for a more cohesive graph")
 
     # -- graph construction --------------------------------------------------
     def add_vertex(self, scan):

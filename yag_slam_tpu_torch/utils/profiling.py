@@ -53,15 +53,20 @@ class StageTimer:
             )
 
 
+# the Chrome trace's file name inside device_trace's log_dir
+TRACE_FILE = "trace.json"
+
+
 def _synchronize():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 
 @contextlib.contextmanager
-def device_trace(path="yag_slam_tpu_torch_trace.json"):
+def device_trace(log_dir="yag_slam_tpu_torch_trace"):
     """Trace the block with torch.profiler (CUDA activity too when a card
-    is there) and write a Chrome trace to `path`; yields the profiler."""
+    is there) and write it as a Chrome trace, ``TRACE_FILE`` in the
+    directory `log_dir`; yields `log_dir`."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -70,12 +75,11 @@ def device_trace(path="yag_slam_tpu_torch_trace.json"):
     _synchronize()
     with profile(activities=activities) as prof:
         try:
-            yield prof
+            yield log_dir
         finally:
             _synchronize()
-    parent = os.path.dirname(os.path.abspath(path))
-    os.makedirs(parent, exist_ok=True)
-    prof.export_chrome_trace(path)
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 def block_and_time(fn, *args, repeats=10, **kwargs):
