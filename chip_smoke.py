@@ -54,7 +54,8 @@ Phases, one line each; any failure raises (non-zero exit):
      come back within 0.3 m of phase 4's;
  12. SPA on the card (TF32 off): the noisy square-loop graph at 100-4000
      nodes through SPA2d with the host, dense and cg solvers in mixed and
-     float64 precision (compute(100, 1e-4, True, 1e-9, 200), one warm call,
+     float64 precision, cg at 100, 1000 and 4000 nodes only
+     (compute(100, 1e-4, True, 1e-9, 200), one warm call,
      best of 3, or the warm call alone where it takes over 5 s), each device
      solver held to host (cost within 1e-3 relative, poses within 2e-3) at
      the sizes where the JAX package's same solver meets those bars on the
@@ -63,6 +64,19 @@ Phases, one line each; any failure raises (non-zero exit):
      to phase 4's host-SPA run (the same counts and poses within 1e-4 after
      300 scans, closures within +-1, ATE below odometry's), SPA ms per
      solve beside phase 4's.
+ 13. the last modules, on a one-rank NCCL mesh (default_mesh): the tour
+     with ShardedLoopMatcher as the loop matcher, then its loop-closure
+     batches again through a fresh ShardedLoopMatcher, bit-equal to the
+     plain match_many on every job with a positive response;
+     DistributedSPA (cg mixed and float64, dense) at 105, 505 and 1005
+     nodes beside host SPA, its cg equal to
+     SPA2d(solver="cg") at one rank, and the 4,096-node serpentine graph
+     held to host (cost 1e-5 relative, poses 1e-5); GraphSlam with both
+     sharded over the 2-lap square loop (closures, ATE < 0.15 m);
+     RefBaselineScanMatcher on the host CPU over the first 100 tour
+     matches beside the card's; ab_compare --synthetic --device cuda
+     (vertices equal, closures within 1, both ATEs below odometry's); and
+     save_slam_figure of phase 4's map where matplotlib is installed.
 Each path's kernel launches are counted from 0 just before it runs.  The
 last lines are a JSON line of per-kernel results (ms is the bare kernel's
 device time at its main-path case; launches_per_scan is phase 4's count
@@ -162,6 +176,9 @@ SPA_SIZES = (100, 500, 1000, 2000, 4000)
 SPA_COLUMNS = (("host", "f64"), ("dense", "mixed"), ("dense", "f64"), ("cg", "mixed"),
                ("cg", "f64"))
 SPA_ARGS = (100, 1e-4, True, 1e-9, 200)
+# the cg columns run to the LM cap from 500 nodes (15-75 s a cell): timed at
+# these sizes only, to keep the script within half its time limit
+SPA_CG_SIZES = (100, 1000, 4000)
 SPA_REPS = 3
 # a cell whose warm call takes longer is timed by that call alone
 SPA_SLOW_MS = 5000.0
@@ -173,6 +190,22 @@ SPA_COST_RTOL, SPA_POSE_TOL = 1e-3, 2e-3
 # a cell must end finite and below its initial cost.
 SPA_HELD = {"dense:f64": SPA_SIZES, "dense:mixed": (100, 500), "cg:mixed": (100,),
             "cg:f64": (100,)}
+# phase 13: DistributedSPA at these noisy_loop_pose_graph sizes with
+# GraphSlam's solve arguments (50 CG iterations per LM step), each cell
+# once; the serpentine graph of tests/test_parallel.py with its arguments
+DSPA_SIZES = (100, 500, 1000)
+DSPA_COLUMNS = (("cg", True), ("cg", False), ("dense", False))
+DSPA_ARGS = (100, 1e-4, True, 1e-9, 50)
+SERPENTINE, SERPENTINE_ARGS, SERPENTINE_TOL = (64, 64), (60, 1e-4, True, 1e-8, 600), 1e-5
+# one rank's all-reduce is a copy: DistributedSPA cg equals SPA2d's cg
+DSPA_EQUAL_TOL = 1e-9
+# the 2-lap square loop of tests/test_parallel.py's fully sharded stack
+SQUARE_SEQ = {"range_threshold": 5.0, "resolution": 0.02, "search_size": 0.5,
+              "smear_deviation": 0.05}
+SQUARE_LOOP = {"range_threshold": 5.0, "resolution": 0.05, "search_size": 2.0,
+               "smear_deviation": 0.05}
+SQUARE_ATE = 0.15
+REF_MATCHES = 100      # the tour's first sequential matches, on the host CPU
 
 
 def log(msg):
@@ -764,6 +797,7 @@ def run_slam(tmp, gpu, dev):
     summary["lifelong"] = lifelong(tour, slam, dev, gpu)
     summary["spa"] = dict(crossover=spa_crossover(dev, gpu),
                           tour=spa_tour(tour, card_at[STREAM_PREFIX], summary, dev, gpu))
+    summary["last_modules"] = last_modules(tour, slam, summary, tmp, dev, gpu)
     return summary
 
 
@@ -1313,6 +1347,8 @@ def spa_crossover(dev, gpu):
         host = None
         for solver, precision in SPA_COLUMNS:
             name = solver if solver == "host" else f"{solver}:{precision}"
+            if solver == "cg" and n not in SPA_CG_SIZES:
+                continue
 
             def solve():
                 spa = populate_spa(S.SPA2d(solver=solver, precision=precision, device=dev),
@@ -1417,6 +1453,364 @@ def spa_tour(tour, card_prefix, phase4, dev, gpu):
     return out
 
 
+# -- phase 13 ----------------------------------------------------------------------
+
+def cpu_model():
+    """The host CPU's model name from lscpu; where it reads "unknown" (a
+    virtual machine may hide it), the vendor, family and model numbers."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    fields = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
+    fields = {k.strip().lower(): v.strip() for k, v in fields.items()}
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        model = (f"{fields.get('vendor id', 'unknown vendor')} family "
+                 f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}")
+    return f"{model}, {os.cpu_count()} CPUs"
+
+
+def serpentine_graph(spa, rows, cols, seed=5):
+    """tests/test_parallel.py's rows x cols serpentine lattice (odometry
+    chain plus vertical revisit closures, all noisy) on the port's SE(2)
+    helpers; returns the node count."""
+    from yag_slam_tpu_torch.core.transform import se2_compose, se2_relative
+
+    rng = np.random.default_rng(seed)
+    true = []
+    for r in range(rows):
+        for c in (range(cols) if r % 2 == 0 else range(cols - 1, -1, -1)):
+            true.append(np.array([float(c), float(r), 0.0]))
+    n = len(true)
+    info = np.diag([50.0, 50.0, 100.0])
+    info_lc = np.diag([200.0, 200.0, 400.0])
+    guesses = [true[0]]
+    for i in range(n - 1):
+        mean = se2_relative(true[i + 1], true[i]) + rng.normal(0, 0.01, 3)
+        guesses.append(se2_compose(guesses[-1], mean))
+    for i, g in enumerate(guesses):
+        spa.add_node(g[0], g[1], g[2], i)
+    for i in range(n - 1):
+        mean = se2_relative(true[i + 1], true[i]) + rng.normal(0, 0.01, 3)
+        spa.add_constraint(i, i + 1, *mean, info.tolist())
+
+    def node_id(r, c):
+        return r * cols + (c if r % 2 == 0 else cols - 1 - c)
+
+    for r in range(rows - 1):
+        for c in range(0, cols, 4):
+            a, b = node_id(r, c), node_id(r + 1, c)
+            mean = se2_relative(true[b], true[a]) + rng.normal(0, 0.005, 3)
+            spa.add_constraint(a, b, *mean, info_lc.tolist())
+    return n
+
+
+def square_loop_scans():
+    """tests/test_parallel.py's 2-lap square loop in the office world:
+    (ground truth, scans)."""
+    from yag_slam_tpu_torch.io.simulator import (
+        SimWorld, drifted_odometry, simulate_scan, square_loop_trajectory)
+
+    gt = square_loop_trajectory(side=5.0, step=0.5, laps=2, start=(-2.5, -2.5))
+    odom = drifted_odometry(gt, yaw_bias=0.0025, seed=1)
+    rng = np.random.default_rng(101)
+    return gt, [simulate_scan(SimWorld.office(), gt[i], n_beams=250, range_threshold=5.0,
+                              noise=0.004, rng=rng, odom_pose_xyt=odom[i])
+                for i in range(len(gt))]
+
+
+def solve_row(spa, *args, **kwargs):
+    """One timed compute of an SPA2d-shaped solver: cost, ms, LM
+    iterations (its verbose line), host reads (LM, and CG chunks of 10
+    iterations) and poses."""
+    import re
+
+    from yag_slam_tpu_torch.graphopt import spa as S
+
+    torch.cuda.synchronize()
+    S.reset_host_reads()
+    t0 = time.perf_counter()
+    cost, lines = quiet(lambda: spa.compute(*args, verbose=True, **kwargs))
+    ms = 1e3 * (time.perf_counter() - t0)
+    return dict(cost=cost, ms=ms, lm_iters=int(re.search(r"(\d+) iters", lines[-1]).group(1)),
+                host_reads=dict(S.HOST_READS), poses=np.asarray([[v.x, v.y, v.yaw]
+                                                                  for v in spa.nodes]))
+
+
+def sharded_matching(tour, phase4, mesh, dev, gpu):
+    """Phase 13 (a): the tour with ShardedLoopMatcher as the loop matcher,
+    recording each loop-closure batch; then every batch again through a
+    fresh ShardedLoopMatcher (the launches counted) and the plain
+    matcher's match_many."""
+    from yag_slam_tpu_torch.core.config import default_config_loop
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+    from yag_slam_tpu_torch.parallel import ShardedLoopMatcher
+    from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
+
+    def loop_matcher():
+        return M(default_config_loop, loop=True, device=dev, dtype=torch.float32)
+
+    slam = GraphSlam.default(device=dev, dtype=torch.float32)
+    slam.loop_matcher = ShardedLoopMatcher(slam.loop_matcher, mesh)
+    match_many, batches = slam.loop_matcher.match_many, []
+
+    def recording(jobs, penalty=False, do_fine=False):
+        res = match_many(jobs, penalty, do_fine)
+        if jobs:
+            batches.append(([(q.copy(), [b.copy() for b in bs]) for q, bs in jobs], res))
+        return res
+
+    slam.loop_matcher.match_many = recording
+    scans = tour["scans_of"](tour["carmen"][:tour["n_main"]])
+    _, tour_ms = timed(lambda: [slam.process_scan(s) for s in scans])
+    st = slam.stats
+
+    sharded, plain = ShardedLoopMatcher(loop_matcher(), mesh), loop_matcher()
+    (again, sharded_ms), launches = counted(K, lambda: timed(
+        lambda: [sharded.match_many(jobs, False, False) for jobs, _ in batches]))
+    want, plain_ms = timed(lambda: [plain.match_many(jobs, False, False) for jobs, _ in batches])
+    jobs = positive = 0
+    for (_, first), second, ref in zip(batches, again, want):
+        for a, b, c in zip(first, second, ref):
+            jobs += 1
+            if not same_result(a, b):
+                raise AssertionError(f"a sharded batch changed on its replay: {a} vs {b}")
+            if c.response > 0.0:
+                positive += 1
+                if not same_result(b, c):
+                    raise AssertionError(f"sharded match differs from the plain one: {b} vs {c}")
+    out = dict(batches=len(batches), jobs=jobs, positive=positive, tour_ms=tour_ms,
+               tour_loop_closures=st["loop_closures"],
+               tour_loop_chains_tried=st["loop_chains_tried"],
+               phase4_loop_closures=phase4["loop_closures"],
+               phase4_loop_chains_tried=phase4["loop_chains_tried"],
+               sharded_ms=sharded_ms, plain_ms=plain_ms, launches=launches)
+    log(f"phase 13: tour with ShardedLoopMatcher on the one-rank mesh: {len(scans)} scans in "
+        f"{tour_ms:.3f} ms, {st['loop_closures']} closures, {st['loop_chains_tried']} chains "
+        f"tried (phase 4: {phase4['loop_closures']}, {phase4['loop_chains_tried']}); its "
+        f"{len(batches)} loop-closure batches ({jobs} jobs, {positive} with a positive "
+        f"response) again: {sharded_ms:.3f} ms sharded vs {plain_ms:.3f} ms plain, every "
+        f"positive job bit-equal; launches {launches} ({gpu})")
+    if positive == 0:
+        raise AssertionError("no loop-closure job with a positive response")
+    return out
+
+
+def distributed_spa(mesh, dev, gpu):
+    """Phase 13 (b): DistributedSPA beside host SPA and SPA2d's cg."""
+    from yag_slam_tpu_torch.graphopt.spa import SPA2d
+    from yag_slam_tpu_torch.io.benchmark import noisy_loop_pose_graph, populate_spa
+    from yag_slam_tpu_torch.parallel import DistributedSPA
+
+    rows = []
+    for n in DSPA_SIZES:
+        graph = noisy_loop_pose_graph(n)
+        host = solve_row(populate_spa(SPA2d(solver="host", device=dev), *graph), *DSPA_ARGS)
+        for solver, mixed in DSPA_COLUMNS:
+            r = solve_row(populate_spa(DistributedSPA(mesh, solver=solver, mixed=mixed),
+                                       *graph), *DSPA_ARGS)
+            dxy, dth = pose_gap(r.pop("poses"), host["poses"])
+            row = dict(nodes=len(graph[0]), solver=f"{solver}:{'mixed' if mixed else 'f64'}",
+                       host_ms=host["ms"], host_cost=host["cost"],
+                       cost_rel_vs_host=abs(r["cost"] - host["cost"]) / host["cost"],
+                       dxy_vs_host_m=dxy, dth_vs_host_rad=dth, **r)
+            rows.append(row)
+            log(f"phase 13: DistributedSPA {row['nodes']} nodes {row['solver']}: "
+                f"{row['ms']:.3f} ms, {row['lm_iters']} LM iterations, host reads "
+                f"{row['host_reads']}, chi2 {row['cost']:.6g}; host {host['ms']:.3f} ms, chi2 "
+                f"{host['cost']:.6g}: cost {row['cost_rel_vs_host']:.2e} rel, |dxy| "
+                f"{dxy:.2e} m, |dth| {dth:.2e} rad ({gpu})")
+            if not np.isfinite(row["cost"]):
+                raise AssertionError(f"DistributedSPA {row['solver']} at {n} ended non-finite")
+
+    equal = []
+    graph = noisy_loop_pose_graph(DSPA_SIZES[0])
+    for mixed in (True, False):
+        a = solve_row(populate_spa(DistributedSPA(mesh, solver="cg", mixed=mixed), *graph),
+                      *DSPA_ARGS)
+        b = solve_row(populate_spa(SPA2d(solver="cg", precision="mixed" if mixed else "f64",
+                                         device=dev), *graph), *DSPA_ARGS)
+        gap = dict(precision="mixed" if mixed else "f64",
+                   cost_rel=abs(a["cost"] - b["cost"]) / b["cost"],
+                   pose_max=float(np.abs(a["poses"] - b["poses"]).max()))
+        equal.append(gap)
+        log(f"phase 13: DistributedSPA cg vs SPA2d(solver='cg') {gap['precision']} at "
+            f"{len(graph[0])} nodes, one rank: cost {gap['cost_rel']:.3e} rel, poses "
+            f"{gap['pose_max']:.3e}")
+        if gap["cost_rel"] > DSPA_EQUAL_TOL or gap["pose_max"] > DSPA_EQUAL_TOL:
+            raise AssertionError("one-rank DistributedSPA cg differs from SPA2d's cg")
+
+    host = SPA2d(solver="host", device=dev)
+    n = serpentine_graph(host, *SERPENTINE)
+    h = solve_row(host, 100, 1e-4, True, 1e-9, 50, conv_tol=1e-12)
+    d = solve_row(_serp(DistributedSPA(mesh, solver="cg")), *SERPENTINE_ARGS, conv_tol=1e-12)
+    serp = dict(nodes=n, ms=d["ms"], lm_iters=d["lm_iters"], host_reads=d["host_reads"],
+                cost=d["cost"], host_cost=h["cost"], host_ms=h["ms"],
+                cost_rel_vs_host=abs(d["cost"] - h["cost"]) / h["cost"],
+                pose_max_vs_host=float(np.abs(d["poses"] - h["poses"]).max()))
+    log(f"phase 13: serpentine {n} nodes, DistributedSPA cg (mixed, {SERPENTINE_ARGS}): "
+        f"{serp['ms']:.3f} ms, {serp['lm_iters']} LM iterations, host reads "
+        f"{serp['host_reads']}; host {serp['host_ms']:.3f} ms; cost "
+        f"{serp['cost_rel_vs_host']:.2e} rel, poses {serp['pose_max_vs_host']:.2e} ({gpu})")
+    if serp["cost_rel_vs_host"] > SERPENTINE_TOL or serp["pose_max_vs_host"] > SERPENTINE_TOL:
+        raise AssertionError("the distributed cg parted from host on the serpentine graph")
+    return dict(cells=rows, equal_to_spa2d=equal, serpentine=serp)
+
+
+def _serp(spa):
+    serpentine_graph(spa, *SERPENTINE)
+    return spa
+
+
+def sharded_slam(mesh, dev, gpu):
+    """Phase 13 (c): GraphSlam with ShardedLoopMatcher and DistributedSPA
+    over the 2-lap square loop."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+    from yag_slam_tpu_torch.parallel import DistributedSPA, ShardedLoopMatcher
+    from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
+    from yag_slam_tpu_torch.utils.metrics import ate_rmse, trajectory_from_slam
+
+    gt, scans = square_loop_scans()
+    slam = GraphSlam(M(SQUARE_SEQ, device=dev, dtype=torch.float32),
+                     ShardedLoopMatcher(M(SQUARE_LOOP, loop=True, device=dev,
+                                          dtype=torch.float32), mesh),
+                     loop_search_dist=2.0, loop_search_min_chain_size=5,
+                     opt=DistributedSPA(mesh))
+    (_, secs), launches = counted(K, lambda: timed(lambda: [slam.process_scan(s)
+                                                           for s in scans]))
+    secs /= 1e3
+    err = ate_rmse(trajectory_from_slam(slam), gt[:, :2], align=False)
+    st = slam.stats
+    out = dict(scans=len(scans), seconds=secs, scans_per_s=len(scans) / secs,
+               loop_closures=st["loop_closures"], spa_runs=st["opt_runs"],
+               spa_s=st["opt_time_total"], ate_m=err, launches=launches)
+    log(f"phase 13: fully sharded GraphSlam, 2-lap square loop: {len(scans)} scans in "
+        f"{secs:.3f} s = {out['scans_per_s']:.3f} scans/s, {st['loop_closures']} closures, "
+        f"{st['opt_runs']} DistributedSPA solves in {st['opt_time_total']:.3f} s, ATE "
+        f"{err:.4f} m; launches {launches} ({gpu})")
+    if st["loop_closures"] < 1 or not err < SQUARE_ATE:
+        raise AssertionError(f"fully sharded stack: {st['loop_closures']} closures, ATE {err}")
+    return out
+
+
+def ref_baseline(tour, dev, gpu):
+    """Phase 13 (d): the reference matcher on the host CPU over the tour's
+    first sequential matches (recorded from a card run), beside the card
+    matcher's results on the same matches."""
+    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch.core.config import default_config
+    from yag_slam_tpu_torch.matching.refmatcher import RefBaselineScanMatcher
+    from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
+
+    slam = GraphSlam.default(device=dev, dtype=torch.float32)
+    match, jobs = slam.seq_matcher.match_scan, []
+
+    def recording(query, base, penalty=True, do_fine=True):
+        res = match(query, base, penalty, do_fine)
+        jobs.append(((query.copy(), [b.copy() for b in base]), res))
+        return res
+
+    slam.seq_matcher.match_scan = recording
+    for s in tour["scans_of"](tour["carmen"][:REF_MATCHES + 1]):
+        slam.process_scan(s)
+    t0 = time.perf_counter()
+    ref = RefBaselineScanMatcher(default_config)
+    build_s = _build.native_build_seconds
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = [ref.match_scan(q, b) for (q, b), _ in jobs]
+    secs = time.perf_counter() - t0
+    gaps = np.array([np.hypot(r.best_pose.x - c.best_pose.x, r.best_pose.y - c.best_pose.y)
+                     for r, (_, c) in zip(results, jobs)])
+    card_s = slam.stats["match_time_total"]
+    out = dict(matches=len(jobs), seconds=secs, matches_per_s=len(jobs) / secs,
+               n_threads=os.cpu_count(), cpu=cpu_model(), build_s=build_s, init_s=init_s,
+               dxy_median_m=float(np.median(gaps)), dxy_max_m=float(gaps.max()),
+               card_match_s=card_s, card_matches_per_s=len(jobs) / card_s)
+    log(f"phase 13: RefBaselineScanMatcher, {len(jobs)} tour matches on the host CPU "
+        f"({out['cpu']}, n_threads {out['n_threads']}): {out['matches_per_s']:.3f} "
+        f"matches/s; the card matcher {out['card_matches_per_s']:.3f} matches/s on the same "
+        f"matches ({gpu}); |dxy| to the card's median {out['dxy_median_m']:.3e} m, max "
+        f"{out['dxy_max_m']:.3e} m; built by the host compiler in "
+        f"{build_s if build_s is not None else 'cached'} s")
+    if len(jobs) != REF_MATCHES:
+        raise AssertionError(f"recorded {len(jobs)} matches, expected {REF_MATCHES}")
+    return out
+
+
+def ab_harness(dev, gpu):
+    """Phase 13 (e): ab_compare on the generated tour, port side on the
+    card."""
+    from yag_slam_tpu_torch.apps import ab_compare
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    (res, lines), launches = counted(
+        K, lambda: quiet(lambda: ab_compare.main(["--synthetic", "--device", dev.type])))
+    for line in lines:
+        log(f"phase 13: ab_compare: {line}")
+    ref, port = res["ref"], res["port"]
+    log(f"phase 13: ab_compare --synthetic --device {dev.type}: vertices {port['vertices']} vs "
+        f"{ref['vertices']}, closures {port['loop_closures']} vs {ref['loop_closures']}, "
+        f"ATE {port['ate_rmse']:.4f} vs {ref['ate_rmse']:.4f} m (odometry "
+        f"{ref['ate_odom']:.4f}), ate_ratio_port_over_ref {res['ate_ratio_port_over_ref']}; "
+        f"launches {launches} ({gpu})")
+    if port["vertices"] != ref["vertices"] or abs(port["loop_closures"]
+                                                  - ref["loop_closures"]) > 1:
+        raise AssertionError("ab_compare: the port and the reference parted")
+    for side in (ref, port):
+        if not side["ate_rmse"] < side["ate_odom"]:
+            raise AssertionError(f"ab_compare: {side['matcher']} ATE not below odometry's")
+    return dict(result=res, launches=launches)
+
+
+def figure(slam, tmp):
+    """Phase 13 (f): save_slam_figure of phase 4's map (Agg), where
+    matplotlib is installed."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        log("phase 13: figure: matplotlib is not installed here, save_slam_figure not run "
+            "(tests/test_torch_viz_ros1.py runs it on the CPU)")
+        return dict(written=False, reason="matplotlib not installed")
+    from yag_slam_tpu_torch.utils import save_slam_figure
+
+    path = save_slam_figure(slam, os.path.join(tmp, "map.png"))
+    size = os.path.getsize(path)
+    log(f"phase 13: save_slam_figure wrote {size} bytes")
+    if size == 0:
+        raise AssertionError("save_slam_figure wrote an empty file")
+    return dict(written=True, bytes=size)
+
+
+def last_modules(tour, slam, phase4, tmp, dev, gpu):
+    """Phase 13: the parallel paths on a one-rank NCCL mesh, the reference
+    baseline, the A/B harness and the figure, each timed."""
+    import torch.distributed as dist
+
+    from yag_slam_tpu_torch.parallel import default_mesh
+
+    out, secs = {}, {}
+    mesh = default_mesh(device=dev)
+    try:
+        for name, fn in (("sharded", lambda: sharded_matching(tour, phase4, mesh, dev, gpu)),
+                         ("dist_spa", lambda: distributed_spa(mesh, dev, gpu)),
+                         ("sharded_slam", lambda: sharded_slam(mesh, dev, gpu))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            secs[name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    for name, fn in (("refbaseline", lambda: ref_baseline(tour, dev, gpu)),
+                     ("ab_compare", lambda: ab_harness(dev, gpu)),
+                     ("figure", lambda: figure(slam, tmp))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    out["seconds"] = secs
+    log(f"phase 13: seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}")
+    return out
+
+
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
     smear of phase 8) and the launches of every driven path."""
@@ -1426,11 +1820,15 @@ def kernel_lines(K, checks, slam):
                  stream=slam["stream"]["launches"],
                  **slam["entry_points"]["launches"],
                  lifelong=slam["lifelong"]["launches"],
-                 spa_tour=slam["spa"]["tour"]["launches"])
+                 spa_tour=slam["spa"]["tour"]["launches"],
+                 sharded=slam["last_modules"]["sharded"]["launches"],
+                 sharded_slam=slam["last_modules"]["sharded_slam"]["launches"],
+                 ab_compare=slam["last_modules"]["ab_compare"]["launches"])
     for path in ("meta", "scan_sets", "localize"):
         if paths[path]["smear_grid"] <= 0:
             raise AssertionError(f"smear_grid never launched on the {path} path")
-    for path in ("stream", "cli", "threaded", "lifelong", "spa_tour"):
+    for path in ("stream", "cli", "threaded", "lifelong", "spa_tour", "sharded",
+                 "sharded_slam", "ab_compare"):
         for k in SLAM_KERNELS:
             if paths[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")

@@ -67,7 +67,8 @@ def test_pose_gap_wraps_heading():
 
 
 
-NEW_PATHS = ("stream", "cli", "threaded", "lifelong", "spa_tour")
+NEW_PATHS = ("stream", "cli", "threaded", "lifelong", "spa_tour", "sharded",
+             "sharded_slam", "ab_compare")
 
 
 def _run_summary(zero=None):
@@ -95,6 +96,9 @@ def _run_summary(zero=None):
                                         threaded=n("threaded", smear_grid=0))),
         lifelong=dict(launches=n("lifelong", smear_grid=0)),
         spa=dict(tour=dict(launches=n("spa_tour", smear_grid=0))),
+        last_modules=dict(sharded=dict(launches=n("sharded", smear_grid=0)),
+                          sharded_slam=dict(launches=n("sharded_slam", smear_grid=0)),
+                          ab_compare=dict(launches=n("ab_compare", smear_grid=0))),
     )
     return checks, slam
 
@@ -187,3 +191,33 @@ def test_window_conv_yardstick_equals_the_window_sum(stride, nx, ny):
         inside = sum(0 <= y < S and 0 <= x < S for _, y, x in cells)
         want = inside + 8 * N * K_ * n_live + 4 * N + 4 * N * K_ * ny * nx
         assert smoke.window_bytes(q, gy0, gx0, n_live, ny, nx, stride) == want
+
+
+def test_phase_13_builds_the_jax_tests_inputs():
+    """chip_smoke's serpentine graph and 2-lap square loop are
+    tests/test_parallel.py's, built on the port's own helpers."""
+    from test_parallel import _serpentine_grid_graph
+    from yag_slam_tpu.io import simulator as jsim
+    from yag_slam_tpu_torch.graphopt.spa import SPA2d
+
+    a, b = SPA2d(device="cpu"), SPA2d(device="cpu")
+    assert smoke.serpentine_graph(a, 8, 12) == _serpentine_grid_graph(b, 8, 12) == 96
+    for k in ("poses", "edge_idx", "edge_means"):
+        assert getattr(a._solver, k) == getattr(b._solver, k)
+    gt, scans = smoke.square_loop_scans()
+    jgt = jsim.square_loop_trajectory(side=5.0, step=0.5, laps=2, start=(-2.5, -2.5))
+    odom = jsim.drifted_odometry(jgt, yaw_bias=0.0025, seed=1)
+    rng = np.random.default_rng(101)
+    want = [jsim.simulate_scan(jsim.SimWorld.office(), jgt[i], n_beams=250,
+                               range_threshold=5.0, noise=0.004, rng=rng,
+                               odom_pose_xyt=odom[i]) for i in range(len(jgt))]
+    np.testing.assert_array_equal(gt, jgt)
+    assert len(scans) == len(want) == 88
+    for a, b in zip(scans, want):
+        np.testing.assert_array_equal(a.ranges, b.ranges)
+        assert (a.odom_pose.x, a.odom_pose.y) == (b.odom_pose.x, b.odom_pose.y)
+
+
+def test_cpu_model_names_the_host():
+    model = smoke.cpu_model()
+    assert model.endswith(" CPUs") and len(model) > len(" CPUs")

@@ -4,9 +4,12 @@ hand-written CUDA kernels for NVIDIA Hopper.
 A port beside the JAX package, which stays the reference.  The layout
 mirrors ``yag_slam_tpu``: ``matching`` (correlative scan matcher; its four
 device kernels live in ``matching/kernels.py`` and ``csrc/``), ``graphopt``
-(pose graph, host sparse SPA), ``slam`` (GraphSlam, checkpoints),
-``mapping`` (occupancy grids), ``splicing`` (lifelong mapping), ``apps``
-(online mappers, offline CLI), the host modules ``core`` (poses, scans,
+(pose graph; host sparse, dense and matrix-free SPA), ``slam`` (GraphSlam,
+checkpoints), ``mapping`` (occupancy grids), ``splicing`` (lifelong
+mapping), ``parallel`` (sharded loop matching and SPA on
+``torch.distributed``), ``native`` (the reference matcher as host C++),
+``apps`` (online mappers, offline CLI, the A/B harness against the
+reference matcher, the ROS1 node), the host modules ``core`` (poses, scans,
 configs), ``io`` (CARMEN logs, synthetic worlds) and ``utils``, and
 ``interop`` (carry a JAX-package state over).  It imports neither JAX nor
 any module of the JAX package: the host modules are the port's own copies.

@@ -1,18 +1,28 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native libraries.
 
-At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``), one ``nvcc`` per source, all started together, and the
-objects are linked into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  The library lands in ``build/`` next to
-this file, named by a hash of the sources and flags, so an unchanged tree
-reuses it and an edited one rebuilds.  Any failure to find nvcc, compile or load
-raises: there is no fallback.
+Two libraries, each built at first use into ``build/`` next to this file,
+named by a hash of its sources and flags (an unchanged tree reuses it, an
+edited one rebuilds), compiled in a temporary directory and moved into
+place with ``os.replace`` (so concurrent processes never load a half-written
+file), and loaded with ``ctypes`` through a plain C interface:
+
+- the CUDA kernels: every ``csrc/*.cu`` file compiled by ``nvcc`` for
+  Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+  the objects linked into one shared library (:func:`library`);
+- the host reference matcher ``native/refbaseline.cpp``, compiled by the
+  host C++ compiler (``$CXX``, else ``c++``) with ``CXX_FLAGS``
+  (:func:`native_library`); its hash also covers the compiler and the
+  host, since ``-march=native`` ties the binary to the machine.
+
+Any failure to find a compiler, compile or load raises: there is no
+fallback.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -23,6 +33,7 @@ from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
+NATIVE_SOURCE = _PKG_DIR / "native" / "refbaseline.cpp"
 BUILD_DIR = _PKG_DIR / "build"
 
 NVCC_FLAGS = (
@@ -30,8 +41,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
+# the host build: -march=native on purpose (the baseline is measured on the
+# host that builds it), plus what a shared library needs
+CXX_FLAGS = ("-O3", "-std=c++17", "-march=native", "-fPIC", "-shared", "-pthread")
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
+_D = ctypes.c_double
 # C entry point -> argtypes; every entry point returns a cudaError_t as int
 _SIGNATURES = {
     "yag_scatter_cells": (_P, _P, _P, _I, _I, _I, _P),
@@ -41,11 +58,18 @@ _SIGNATURES = {
     "yag_window_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
+# C entry point of the host library -> argtypes; it returns an error code
+_NATIVE_SIGNATURES = {
+    "yag_refbaseline_match_scan": (_P, _P, _P, _L, _P, _P, _L, *(_D,) * 9, _I, _I, _I, _P),
+}
+
 CUDA_ROOTS = ("/usr/local/cuda",)
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of the compile this process ran, if any
+_native = None
+build_seconds = None  # wall time of the nvcc build this process ran, if any
+native_build_seconds = None  # the same for the host library
 
 
 def find_nvcc() -> str:
@@ -68,53 +92,101 @@ def _sources():
     return srcs, sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def _library_path(srcs, headers) -> Path:
+def find_cxx() -> str:
+    """The host C++ compiler: $CXX, else c++ on $PATH."""
+    found = os.environ.get("CXX") or shutil.which("c++")
+    if not found:
+        raise RuntimeError("no host C++ compiler ($CXX or c++): the native "
+                           "library cannot be built")
+    return found
+
+
+def _hashed_path(prefix, files, flags) -> Path:
     h = hashlib.sha256()
-    for f in srcs + headers:
+    for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libyag_kernels_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{prefix}_{h.hexdigest()[:16]}.so"
+
+
+def _library_path(srcs, headers) -> Path:
+    return _hashed_path("libyag_kernels", srcs + headers, NVCC_FLAGS)
+
+
+def _native_path(cxx) -> Path:
+    # -march=native ties the binary to the host that built it: a checkout
+    # copied to another machine, or built by another compiler, rebuilds
+    host = (cxx, platform.node(), platform.machine())
+    return _hashed_path("libyag_native", [NATIVE_SOURCE], (*CXX_FLAGS, *host))
 
 
 def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{Path(cmd[0]).name} failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
 
 
-def _compile(srcs, target: Path):
-    global build_seconds
+def _build_into(target: Path, build) -> float:
+    """build(tmp dir, file name) compiles the library there; it is then
+    moved to `target` in one step.  Returns the build's wall seconds."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / f"{src.stem}.o") for src in srcs]
+        so = Path(tmp) / target.name
+        build(Path(tmp), so)
+        os.replace(so, target)
+    return time.perf_counter() - t0
+
+
+def _nvcc_build(srcs):
+    nvcc = find_nvcc()
+
+    def build(tmp, so):
+        objs = [str(tmp / f"{src.stem}.o") for src in srcs]
         with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
             list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                                  for src, obj in zip(srcs, objs)]))
-        so = str(Path(tmp) / target.name)
-        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs])
-        os.replace(so, target)
-    build_seconds = time.perf_counter() - t0
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *objs])
+
+    return build
+
+
+def _load(path, signatures):
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def library():
     """The loaded kernel library, compiled first if needed."""
-    global _lib
+    global _lib, build_seconds
     with _lock:
         if _lib is None:
             srcs, headers = _sources()
             path = _library_path(srcs, headers)
             if not path.exists():
-                _compile(srcs, path)
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
+                build_seconds = _build_into(path, _nvcc_build(srcs))
+            _lib = _load(path, _SIGNATURES)
         return _lib
+
+
+def native_library():
+    """The loaded host reference-matcher library, compiled first if
+    needed."""
+    global _native, native_build_seconds
+    with _lock:
+        if _native is None:
+            cxx = find_cxx()
+            path = _native_path(cxx)
+            if not path.exists():
+                native_build_seconds = _build_into(path, lambda tmp, so: _run(
+                    [cxx, *CXX_FLAGS, "-o", str(so), str(NATIVE_SOURCE)]))
+            _native = _load(path, _NATIVE_SIGNATURES)
+        return _native

@@ -493,11 +493,31 @@ class CorrelativeScanMatcher:
             fine = coarse
         return torch.stack([coarse, fine], dim=1), grid0
 
+    def batched_core(self, P, B, penalty, do_fine, S, coarse_offset=None):
+        """The batch match function, for composition (the sharded loop
+        matcher, parallel/loop_search.py): ``core(idx, mask, pose, q_idx,
+        center, vp, sub)`` runs the grid build and the coarse (+ fine)
+        passes on the given slice of job arrays (as ``_assemble_jobs``
+        makes them at point cap P and base bucket B) and returns the packed
+        (N_local, 2, 8) device tensor, with no host copy and no response
+        expansion."""
+        if coarse_offset is None:
+            coarse_offset = self.config.coarse_search_angle_offset
+
+        def core(*args):
+            if len(args) != 7 or args[0].shape[1] != B:
+                raise ValueError(f"core takes the 7 job arrays at base bucket {B}")
+            return self._run(args, P, bool(penalty), bool(do_fine), coarse_offset, S)[0]
+
+        return core
+
     # -- job assembly -----------------------------------------------------------
-    def _assemble_jobs(self, jobs, P, B):
+    def _assemble_jobs(self, jobs, P, B, n_pad=None):
         """Host-side per-job metadata: library slots, poses, search
-        centers, viewpoints (the centers' xy) and subgrids."""
-        N = len(jobs)
+        centers, viewpoints (the centers' xy) and subgrids.  With `n_pad`,
+        the arrays have n_pad rows; the rows past the jobs are zero with
+        `mask` False."""
+        N = n_pad or len(jobs)
         idx = np.zeros((N, B), dtype=np.int64)
         mask = np.zeros((N, B), dtype=bool)
         pose = np.zeros((N, B, 3), dtype=self.np_dtype)
@@ -520,13 +540,13 @@ class CorrelativeScanMatcher:
             S = max(S, S_j)
         return (idx, mask, pose, q_idx, center, center[:, :2], sub), S
 
-    def _prepare(self, jobs):
+    def _prepare(self, jobs, n_pad=None):
         if any(not bs for _, bs in jobs):
             raise ValueError("every job needs at least one base scan")
         all_scans = [q for q, _ in jobs] + [s for _, bs in jobs for s in bs]
         P = self._ensure_point_cap(all_scans)
         B = self._base_bucket(max(len(bs) for _, bs in jobs))
-        args, S = self._assemble_jobs(jobs, P, B)
+        args, S = self._assemble_jobs(jobs, P, B, n_pad)
         return args, P, S
 
     # -- public API -----------------------------------------------------------
