@@ -16,6 +16,13 @@ Phases, one line each; any failure raises (non-zero exit):
      scans; then both smears on {0,1} grids at three densities and
      window_sum at other point counts, bit-equal (--kernels-only stops
      here);
+ 4a. the host ops (native/hostops.cpp) built on this machine's CPU (timed):
+     the tour log parsed natively and by the Python parser, the same scans
+     bit for bit; every scan's matcher view (beam compaction, validation
+     runs) at the matchers' point capacity natively and by the numpy /
+     Python twins, counts and runs bit-equal, points within 1e-14 m (the
+     entries not bit-equal counted); both timed on the host CPU; phases 4
+     and 10 then require every op called (native.CALLS);
   4. run the building-tour CARMEN log through the port's GraphSlam at the
      default matcher configs in float32 on the card: require a loop
      closure, ATE below odometry's and every kernel launched; then hold
@@ -68,8 +75,8 @@ Phases, one line each; any failure raises (non-zero exit):
      with ShardedLoopMatcher as the loop matcher, then its loop-closure
      batches again through a fresh ShardedLoopMatcher, bit-equal to the
      plain match_many on every job with a positive response;
-     DistributedSPA (cg mixed and float64, dense) at 105, 505 and 1005
-     nodes beside host SPA, its cg equal to
+     DistributedSPA (cg mixed and float64 at 105 and 505 nodes, dense at
+     105, 505 and 1005) beside host SPA, its cg equal to
      SPA2d(solver="cg") at one rank, and the 4,096-node serpentine graph
      held to host (cost 1e-5 relative, poses 1e-5); GraphSlam with both
      sharded over the 2-lap square loop (closures, ATE < 0.15 m);
@@ -78,14 +85,16 @@ Phases, one line each; any failure raises (non-zero exit):
      (vertices equal, closures within 1, both ATEs below odometry's); and
      save_slam_figure of phase 4's map where matplotlib is installed.
 Each path's kernel launches are counted from 0 just before it runs.  The
-last lines are a JSON line of per-kernel results (ms is the bare kernel's
-device time at its main-path case; launches_per_scan is phase 4's count
-over its scans), the nvidia-smi line and {"ok": true, "device": {...}}.
+last lines are a JSON line of the host ops' results ({"hostops": ...}), a
+JSON line of per-kernel results (ms is the bare kernel's device time at
+its main-path case; launches_per_scan is phase 4's count over its scans),
+the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import itertools
 import json
@@ -195,6 +204,9 @@ SPA_HELD = {"dense:f64": SPA_SIZES, "dense:mixed": (100, 500), "cg:mixed": (100,
 # once; the serpentine graph of tests/test_parallel.py with its arguments
 DSPA_SIZES = (100, 500, 1000)
 DSPA_COLUMNS = (("cg", True), ("cg", False), ("dense", False))
+# the cg columns run to the LM cap from 500 nodes (9-33 s a cell): timed at
+# these sizes only, to keep the script within half its time limit
+DSPA_CG_SIZES = (100, 500)
 DSPA_ARGS = (100, 1e-4, True, 1e-9, 50)
 SERPENTINE, SERPENTINE_ARGS, SERPENTINE_TOL = (64, 64), (60, 1e-4, True, 1e-8, 600), 1e-5
 # one rank's all-reduce is a copy: DistributedSPA cg equals SPA2d's cg
@@ -206,6 +218,10 @@ SQUARE_LOOP = {"range_threshold": 5.0, "resolution": 0.05, "search_size": 2.0,
                "smear_deviation": 0.05}
 SQUARE_ATE = 0.15
 REF_MATCHES = 100      # the tour's first sequential matches, on the host CPU
+# phase 4a: native beam endpoints against numpy's, in metres (glibc's and
+# numpy's cos / sin may round apart in the last bit), and the timed passes
+HOSTOPS_TOL = 1e-14
+HOSTOPS_PASSES = 5
 
 
 def log(msg):
@@ -651,7 +667,78 @@ def device_timeline(events, symbols):
                 parts={k: dict(ms=v[0], count=v[1]) for k, v in parts.items()})
 
 
+def host_ops(log_path):
+    """Phase 4a: the host-ops library built here, then the tour log's parse
+    and every scan's matcher view, native against the numpy / Python twins
+    (bit-equal; points within HOSTOPS_TOL), each timed on the host CPU
+    (median over HOSTOPS_PASSES passes; views per scan)."""
+    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch.core import scan as S
+    from yag_slam_tpu_torch.io import carmen as CL
+    from yag_slam_tpu_torch.matching import correlation as C
+    from yag_slam_tpu_torch.matching.matcher import _next_bucket
+
+    t0 = time.perf_counter()
+    _build.hostops_library()
+    load_s = time.perf_counter() - t0
+
+    def median_ms(fn):
+        times = []
+        for _ in range(HOSTOPS_PASSES):
+            t = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t))
+        return out, statistics.median(times)
+
+    recs, parse_ms = median_ms(lambda: CL.load_carmen_log(log_path))
+    refs, parse_ref_ms = median_ms(lambda: CL.load_carmen_log_ref(log_path))
+    if len(recs) != len(refs) or any(
+            not np.array_equal(a.ranges, np.asarray(b.ranges, dtype=np.float64))
+            or dataclasses.astuple(a)[1:] != dataclasses.astuple(b)[1:]
+            for a, b in zip(recs, refs)):
+        raise AssertionError("the native CARMEN parse differs from the Python parser's")
+
+    # both matchers take the point capacity that holds the tour's widest scan
+    scans = CL.carmen_to_localized_scans(recs, range_threshold=20.0)
+    cap = _next_bucket(max(s.num_valid_beams for s in scans))
+    ways = ((S.beam_points_padded, C.segment_validation_runs),
+            (S.beam_points_padded_ref, C.segment_validation_runs_ref))
+    us = ([], [])
+    views = ([], [])
+    for _ in range(HOSTOPS_PASSES):
+        for w, (compact, segment) in enumerate(ways):
+            views[w].clear()
+            for s in scans:
+                t = time.perf_counter()
+                lx, ly, n = compact(s.ranges, s.min_angle, s.angle_increment,
+                                    s.range_threshold, cap)
+                runs = segment(lx, ly, n)
+                us[w].append(1e6 * (time.perf_counter() - t))
+                views[w].append((lx, ly, n, runs))
+    err, not_bit_equal = 0.0, 0
+    for (lx, ly, n, runs), (rx, ry, rn, rruns) in zip(*views):
+        if n != rn or not all(np.array_equal(a, b) for a, b in zip(runs, rruns)):
+            raise AssertionError("a native view's count or runs differ from the twins'")
+        err = max(err, float(np.abs(lx - rx).max()), float(np.abs(ly - ry).max()))
+        not_bit_equal += int(np.count_nonzero(lx != rx) + np.count_nonzero(ly != ry))
+    out = dict(build_s=_build.hostops_build_seconds, load_s=load_s, cpu=cpu_model(),
+               scans=len(scans), cap=cap, parse_ms=parse_ms, parse_ref_ms=parse_ref_ms,
+               view_us=statistics.median(us[0]), view_ref_us=statistics.median(us[1]),
+               max_abs_err_m=err, not_bit_equal=not_bit_equal,
+               points=2 * sum(v[2] for v in views[0]))
+    log(f"phase 4a: host ops built in {out['build_s']} s (loaded in {load_s:.3f} s) on "
+        f"{out['cpu']}; parse of {len(recs)} scans {parse_ms:.3f} ms native vs "
+        f"{parse_ref_ms:.3f} ms Python, the same scans; view per scan at cap {cap} "
+        f"{out['view_us']:.2f} us native vs {out['view_ref_us']:.2f} us numpy/Python; "
+        f"counts and runs bit-equal, points max |err| {err:.3e} m, {not_bit_equal} of "
+        f"{out['points']} not bit-equal")
+    if not err <= HOSTOPS_TOL:
+        raise AssertionError(f"native beam endpoints {err} m from numpy's")
+    return out
+
+
 def run_slam(tmp, gpu, dev):
+    from yag_slam_tpu_torch import native
     from yag_slam_tpu_torch.io import (
         carmen_to_localized_scans, generate_benchmark_log, load_carmen_log)
     from yag_slam_tpu_torch.matching import kernels as K
@@ -664,6 +751,8 @@ def run_slam(tmp, gpu, dev):
     log_path, gt_path, n = generate_benchmark_log(
         os.path.join(tmp, "building.clf"), step=0.4, laps=1, n_beams=N_BEAMS,
         seed=0)
+    hostops = host_ops(log_path)
+    native.reset_calls()
     carmen = load_carmen_log(log_path)
     scans = scans_of(carmen)
     gt = np.loadtxt(gt_path)
@@ -705,6 +794,11 @@ def run_slam(tmp, gpu, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = dict(K.LAUNCHES)
+    hostops["calls"] = dict(slam=dict(native.CALLS))
+    caps = (slam.seq_matcher._point_cap, slam.loop_matcher._point_cap)
+    if caps != (hostops["cap"],) * 2:
+        raise AssertionError(f"the matchers took point capacities {caps}, phase 4a "
+                             f"checked {hostops['cap']}")
 
     est = np.array([[v.obj.corrected_pose.x, v.obj.corrected_pose.y]
                     for v in slam.graph.vertices])
@@ -737,6 +831,10 @@ def run_slam(tmp, gpu, dev):
     for k in SLAM_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
+    for op, calls in hostops["calls"]["slam"].items():
+        if calls <= 0:
+            raise AssertionError(f"host op {op} never called on the main path")
+    log(f"phase 4: host op calls {hostops['calls']['slam']}")
 
     # the tour's first scans again, on the host CPU (plain path): drift
     # that builds up across scans shows here
@@ -794,6 +892,8 @@ def run_slam(tmp, gpu, dev):
                 gt_path=gt_path, n_main=nm)
     summary["stream"] = stream(tour, card_at[STREAM_PREFIX], summary, dev, gpu)
     summary["entry_points"] = entry_points(tour, tmp, dev, gpu)
+    hostops["calls"]["cli"] = summary["entry_points"].pop("hostops_calls")
+    summary["hostops"] = hostops
     summary["lifelong"] = lifelong(tour, slam, dev, gpu)
     summary["spa"] = dict(crossover=spa_crossover(dev, gpu),
                           tour=spa_tour(tour, card_at[STREAM_PREFIX], summary, dev, gpu))
@@ -1168,6 +1268,7 @@ def tour_args(records):
 
 def entry_points(tour, tmp, dev, gpu):
     """Phase 10: the offline CLI in-process and the threaded mapper."""
+    from yag_slam_tpu_torch import native
     from yag_slam_tpu_torch.apps import offline_mapper
     from yag_slam_tpu_torch.apps.online import OnlineMapper, ThreadedOnlineMapper
     from yag_slam_tpu_torch.matching import kernels as K
@@ -1181,7 +1282,11 @@ def entry_points(tour, tmp, dev, gpu):
         b = offline_mapper.main(base + ["--out", os.path.join(tmp, "cli_s"), "--stream"])
         return a, b
 
+    native.reset_calls()
     ((a, b), lines), out["launches"]["cli"] = counted(K, lambda: quiet(cli))
+    out["hostops_calls"] = dict(native.CALLS)
+    if min(out["hostops_calls"].values()) <= 0:
+        raise AssertionError(f"the CLI skipped a host op: {out['hostops_calls']}")
     keys = ("vertices", "edges", "loop_closures", "integrated", "scans_per_s",
             "ate_rmse", "ate_rmse_odom")
     out["cli"] = {k: a[k] for k in keys}
@@ -1193,7 +1298,7 @@ def entry_points(tour, tmp, dev, gpu):
         f"{(a['vertices'], a['loop_closures'])} vs {(b['vertices'], b['loop_closures'])}; "
         f"ATE {a['ate_rmse']:.4f} / {b['ate_rmse']:.4f} m vs odometry "
         f"{a['ate_rmse_odom']:.4f} m; --stream pipeline {b['pipeline']}; launches "
-        f"{out['launches']['cli']} ({gpu})")
+        f"{out['launches']['cli']}, host op calls {out['hostops_calls']} ({gpu})")
     if (a["vertices"], a["loop_closures"]) != (b["vertices"], b["loop_closures"]):
         raise AssertionError("the CLI's --stream run differs from its per-scan run")
     for r in (a, b):
@@ -1606,6 +1711,8 @@ def distributed_spa(mesh, dev, gpu):
         graph = noisy_loop_pose_graph(n)
         host = solve_row(populate_spa(SPA2d(solver="host", device=dev), *graph), *DSPA_ARGS)
         for solver, mixed in DSPA_COLUMNS:
+            if solver == "cg" and n not in DSPA_CG_SIZES:
+                continue
             r = solve_row(populate_spa(DistributedSPA(mesh, solver=solver, mixed=mixed),
                                        *graph), *DSPA_ARGS)
             dxy, dth = pose_gap(r.pop("poses"), host["poses"])
@@ -1921,6 +2028,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
+    print(json.dumps({"hostops": slam["hostops"]}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -120,14 +120,9 @@ TPU_ONLY = {f"matching/correlation.py:{n}" for n in (
     "build_quantized_grid_fused", "build_quantized_grid_strip", "score_lattice_batched",
     "score_lattice_patch_batched", "vmem_score_layout", "score_lattice_vmem_batched",
     "mxu_score_layout", "score_lattice_mxu_batched")}
-# callables of ported modules that wait for queue A: the hostops half of
-# native/__init__.py (native/hostops.cpp), ported only if a profile asks
-HOSTOPS_REASON = ("ROADMAP A7: native/hostops.cpp's host ops; the port runs numpy "
-                  "versions of them (core/scan.py, matching/correlation.py, io/carmen.py)")
-SIGNATURE_WAITING = {
-    f"native/__init__.py:{name}": HOSTOPS_REASON
-    for name in ("available", "compact_beams", "segment_runs", "parse_carmen")
-}
+# callables of ported modules that wait for a module still to port, with
+# the reason: none is left, every callable of the JAX package is ported
+SIGNATURE_WAITING = {}
 
 
 def _public_signatures(path):

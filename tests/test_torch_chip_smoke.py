@@ -221,3 +221,19 @@ def test_phase_13_builds_the_jax_tests_inputs():
 def test_cpu_model_names_the_host():
     model = smoke.cpu_model()
     assert model.endswith(" CPUs") and len(model) > len(" CPUs")
+
+
+def test_host_ops_phase_holds_native_to_the_twins(tmp_path):
+    """Phase 4a on the CPU box over the whole tour log: the parse and the
+    413 views agree, and the line carries the times and the capacity."""
+    from yag_slam_tpu_torch.io.benchmark import generate_benchmark_log
+
+    log, _, n = generate_benchmark_log(str(tmp_path / "tour.clf"), step=0.4, laps=1,
+                                       n_beams=180, seed=0)
+    out = smoke.host_ops(log)
+    assert out["scans"] == n == 413 and out["cap"] == 256
+    assert out["max_abs_err_m"] <= smoke.HOSTOPS_TOL
+    assert 0 <= out["not_bit_equal"] <= out["points"]
+    for k in ("parse_ms", "parse_ref_ms", "view_us", "view_ref_us", "load_s"):
+        assert out[k] > 0.0
+    assert out["cpu"].endswith(" CPUs")

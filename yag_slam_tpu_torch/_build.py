@@ -1,6 +1,6 @@
 """Build and load the package's native libraries.
 
-Two libraries, each built at first use into ``build/`` next to this file,
+Three libraries, each built at first use into ``build/`` next to this file,
 named by a hash of its sources and flags (an unchanged tree reuses it, an
 edited one rebuilds), compiled in a temporary directory and moved into
 place with ``os.replace`` (so concurrent processes never load a half-written
@@ -12,7 +12,13 @@ file), and loaded with ``ctypes`` through a plain C interface:
 - the host reference matcher ``native/refbaseline.cpp``, compiled by the
   host C++ compiler (``$CXX``, else ``c++``) with ``CXX_FLAGS``
   (:func:`native_library`); its hash also covers the compiler and the
-  host, since ``-march=native`` ties the binary to the machine.
+  host, since ``-march=native`` ties the binary to the machine;
+- the host ops ``native/hostops.cpp`` (beam compaction, validation-run
+  segmentation, CARMEN parsing: the per-scan host path), compiled by the
+  same compiler with ``HOSTOPS_FLAGS`` (:func:`hostops_library`); no
+  ``-march=native``, and ``-ffp-contract=off`` so that no product and sum
+  is fused into an FMA, whatever the compiler's defaults: the ops then
+  round as their numpy twins do.
 
 Any failure to find a compiler, compile or load raises: there is no
 fallback.
@@ -34,6 +40,7 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 NATIVE_SOURCE = _PKG_DIR / "native" / "refbaseline.cpp"
+HOSTOPS_SOURCE = _PKG_DIR / "native" / "hostops.cpp"
 BUILD_DIR = _PKG_DIR / "build"
 
 NVCC_FLAGS = (
@@ -44,6 +51,9 @@ NVCC_FLAGS = (
 # the host build: -march=native on purpose (the baseline is measured on the
 # host that builds it), plus what a shared library needs
 CXX_FLAGS = ("-O3", "-std=c++17", "-march=native", "-fPIC", "-shared", "-pthread")
+# the host ops: setup.py's flags for the JAX package's hostops.cpp, no
+# contraction, plus what a shared library needs
+HOSTOPS_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,13 +73,25 @@ _NATIVE_SIGNATURES = {
     "yag_refbaseline_match_scan": (_P, _P, _P, _L, _P, _P, _L, *(_D,) * 9, _I, _I, _I, _P),
 }
 
+# C entry point of the host-ops library -> argtypes; each returns an error
+# code (an errno for yag_parse_carmen)
+_HOSTOPS_SIGNATURES = {
+    "yag_compact_beams": (_P, _L, _D, _D, _D, _L, _P, _P, _P),
+    "yag_segment_runs": (_P, _P, _L, _P, _P, _P),
+    "yag_parse_carmen": (ctypes.c_char_p, _L, _P, _P, _P),
+    "yag_carmen_copy": (_P, _P, _P, _P),
+    "yag_carmen_free": (_P,),
+}
+
 CUDA_ROOTS = ("/usr/local/cuda",)
 
 _lock = threading.Lock()
 _lib = None
 _native = None
+_hostops = None
 build_seconds = None  # wall time of the nvcc build this process ran, if any
 native_build_seconds = None  # the same for the host library
+hostops_build_seconds = None  # the same for the host-ops library
 
 
 def find_nvcc() -> str:
@@ -119,6 +141,10 @@ def _native_path(cxx) -> Path:
     # copied to another machine, or built by another compiler, rebuilds
     host = (cxx, platform.node(), platform.machine())
     return _hashed_path("libyag_native", [NATIVE_SOURCE], (*CXX_FLAGS, *host))
+
+
+def _hostops_path(cxx) -> Path:
+    return _hashed_path("libyag_hostops", [HOSTOPS_SOURCE], (*HOSTOPS_FLAGS, cxx))
 
 
 def _run(cmd):
@@ -190,3 +216,17 @@ def native_library():
                     [cxx, *CXX_FLAGS, "-o", str(so), str(NATIVE_SOURCE)]))
             _native = _load(path, _NATIVE_SIGNATURES)
         return _native
+
+
+def hostops_library():
+    """The loaded host-ops library, compiled first if needed."""
+    global _hostops, hostops_build_seconds
+    with _lock:
+        if _hostops is None:
+            cxx = find_cxx()
+            path = _hostops_path(cxx)
+            if not path.exists():
+                hostops_build_seconds = _build_into(path, lambda tmp, so: _run(
+                    [cxx, *HOSTOPS_FLAGS, "-o", str(so), str(HOSTOPS_SOURCE)]))
+            _hostops = _load(path, _HOSTOPS_SIGNATURES)
+        return _hostops

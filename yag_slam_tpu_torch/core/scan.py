@@ -8,7 +8,9 @@ Projection semantics follow the reference: a beam is kept iff its range is
 not NaN and not greater than `range_threshold` (zeros and negatives are
 kept), and the beam angle is ``pose_theta + min_angle + i *
 angle_increment`` (``max_angle`` is unused by the projection, a reference
-quirk kept as it is).
+quirk kept as it is).  The padded view that the matcher reads is
+compacted by the native host op (``native.compact_beams``);
+:func:`beam_points_padded_ref` is its numpy twin, for the tests.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from yag_slam_tpu_torch import native
 from yag_slam_tpu_torch.core.transform import Transform
 
 
@@ -52,8 +55,16 @@ def beam_points_padded(ranges, min_angle, angle_increment, range_threshold, cap)
     reference's filtered point lists, so the sequential validation-run
     segmentation sees the same sequence), followed by zeroed padding.
 
-    Returns (xs, ys, n_valid) with float64 arrays of shape (cap,).
+    Returns (xs, ys, n_valid) with float64 arrays of shape (cap,); raises
+    ValueError when more than `cap` beams are kept.  Runs the native host
+    op, which raises if its library cannot be built.
     """
+    return native.compact_beams(ranges, min_angle, angle_increment, range_threshold, cap)
+
+
+def beam_points_padded_ref(ranges, min_angle, angle_increment, range_threshold, cap):
+    """The numpy twin of :func:`beam_points_padded` (the JAX package's path
+    without its extension), for the tests."""
     r = np.asarray(ranges, dtype=np.float64)
     keep = ~(np.isnan(r) | (r > range_threshold))
     idx = np.nonzero(keep)[0]

@@ -1,11 +1,15 @@
 """CARMEN log-format loader (Intel Research Lab, MIT, ... sequences): the
-port's own copy of ``yag_slam_tpu/io/carmen.py``, with the pure-Python
-parser only, for classic `FLASER` lines and newer `ROBOTLASER1` lines.
+port's own copy of ``yag_slam_tpu/io/carmen.py``, for classic `FLASER`
+lines and newer `ROBOTLASER1` lines.  Logs are read by the native host op
+(``native.parse_carmen``); the pure-Python parser stays as
+:func:`load_carmen_log_ref` and :func:`parse_carmen_line`, for the tests.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+
+from yag_slam_tpu_torch import native
 
 
 @dataclass
@@ -65,7 +69,18 @@ def parse_carmen_line(line):
 
 
 def load_carmen_log(path, max_scans=None):
-    """Load the laser scans of a CARMEN log file."""
+    """Load the laser scans of a CARMEN log file (float64 ranges), at most
+    `max_scans` of them when it is given and not 0.  Lines that do not
+    parse are skipped, as the JAX package's native parser skips them.
+    Runs the native host op, which raises if its library cannot be
+    built."""
+    return native.parse_carmen(path, max_scans)
+
+
+def load_carmen_log_ref(path, max_scans=None):
+    """The pure-Python twin of :func:`load_carmen_log` (the JAX package's
+    path without its extension: list ranges, and a line that does not
+    parse raises), for the tests."""
     scans = []
     with open(path) as ff:
         for line in ff:

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from yag_slam_tpu_torch import native
 from yag_slam_tpu_torch.matching import kernels as K
 
 # |cell index| bound applied before the int32 cast; far above any grid
@@ -70,8 +71,15 @@ def segment_validation_runs(px, py, n):
     more than 0.2 m from the run's anchor.
 
     Returns (anchor_idx int32, term_idx int32, has_run bool), each (n,).
-    Point 0 and a trailing unflushed run have has_run=False.
+    Point 0 and a trailing unflushed run have has_run=False.  Runs the
+    native host op, which raises if its library cannot be built.
     """
+    return native.segment_runs(px, py, n)
+
+
+def segment_validation_runs_ref(px, py, n):
+    """The Python twin of :func:`segment_validation_runs` (the JAX
+    package's path without its extension), for the tests."""
     anchor = np.zeros(n, dtype=np.int32)
     term = np.zeros(n, dtype=np.int32)
     has = np.zeros(n, dtype=bool)

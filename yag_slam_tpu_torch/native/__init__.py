@@ -1,14 +1,22 @@
-"""The reference matcher as native host code.
+"""The port's native host code: the host ops and the reference matcher.
 
-Counterpart of the refbaseline half of ``yag_slam_tpu/native/__init__.py``:
-``refbaseline.cpp`` (the reference algorithm in multithreaded C++, held to
-the float64 oracle at 1e-12) behind one ``extern "C"`` function, built by
-the host C++ compiler at first use and loaded with ``ctypes``
-(``yag_slam_tpu_torch/_build.py``).  It runs on the host CPU whatever
-device the rest of the port uses: it is the baseline the card is measured
-against.  The JAX package's hostops half (``compact_beams``,
-``segment_runs``, ``parse_carmen``) has no counterpart here: the port runs
-numpy versions of those functions.
+Counterpart of ``yag_slam_tpu/native/__init__.py``, with two libraries
+built by the host C++ compiler at first use and loaded with ``ctypes``
+(``yag_slam_tpu_torch/_build.py``), each behind plain ``extern "C"``
+functions:
+
+- ``hostops.cpp``: :func:`compact_beams`, :func:`segment_runs` and
+  :func:`parse_carmen`, the per-scan host path (``core/scan.py``,
+  ``matching/correlation.py``) and the log reader (``io/carmen.py``).
+  Their numpy and Python twins stay in those modules as ``*_ref``, for
+  the tests.  ``CALLS`` counts the calls of each op (plain ints; callers
+  may reset them), so a run can show that it went through them.
+- ``refbaseline.cpp``: the reference algorithm in multithreaded C++,
+  held to the float64 oracle at 1e-12, the baseline the card is measured
+  against.
+
+Both run on the host CPU whatever device the rest of the port uses.  A
+missing compiler or a failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -22,6 +30,25 @@ from yag_slam_tpu_torch import _build
 # yag_refbaseline_match_scan's error codes (refbaseline.cpp)
 _ERRORS = {1: "bad argument (no query point, or base offsets not rising)",
            2: "out of memory"}
+# the host ops' error codes (hostops.cpp); yag_parse_carmen returns errno
+_CAPACITY, _BAD_ARGUMENT = 1, 2
+_CARMEN_META = 8   # min_angle max_angle inc max_range x y theta timestamp
+
+CALLS = {"compact_beams": 0, "segment_runs": 0, "parse_carmen": 0}
+
+
+def reset_calls():
+    for k in CALLS:
+        CALLS[k] = 0
+
+
+def available() -> bool:
+    """Whether the host-ops library could be built and loaded."""
+    try:
+        _build.hostops_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def refbaseline_available() -> bool:
@@ -34,11 +61,85 @@ def refbaseline_available() -> bool:
 
 
 def _ptr(a):
-    return a.ctypes.data_as(ctypes.c_void_p)
+    return a.ctypes.data
 
 
 def _f64(a):
     return np.ascontiguousarray(a, dtype=np.float64)
+
+
+def _hostops_failed(name, err):
+    raise RuntimeError(f"{name} failed: " + ("bad argument" if err == _BAD_ARGUMENT
+                                             else f"error {err}"))
+
+
+def compact_beams(ranges, min_angle, angle_increment, range_threshold, cap):
+    """Native twin of core.scan.beam_points_padded_ref: the beams kept by
+    the reference's rule, projected to the local frame and packed at the
+    front of zeroed (cap,) float64 arrays.  Returns (xs, ys, n); raises
+    ValueError when more than `cap` beams are kept."""
+    lib = _build.hostops_library()
+    r = _f64(ranges).ravel()
+    cap = int(cap)
+    xys = np.empty((2, cap))   # xs, ys: one buffer, one address to take
+    xs = _ptr(xys)
+    n = ctypes.c_int64()
+    err = lib.yag_compact_beams(_ptr(r), r.size, float(min_angle), float(angle_increment),
+                                float(range_threshold), cap, xs, xs + 8 * cap,
+                                ctypes.byref(n))
+    CALLS["compact_beams"] += 1
+    if err == _CAPACITY:
+        raise ValueError(f"scan has {n.value} valid beams > point capacity {cap}")
+    if err:
+        _hostops_failed("compact_beams", err)
+    return xys[0], xys[1], n.value
+
+
+def segment_runs(px, py, n):
+    """Native twin of matching.correlation.segment_validation_runs_ref over
+    the first `n` points: (anchor int32, term int32, has_run bool), each
+    (n,)."""
+    lib = _build.hostops_library()
+    n = int(n)
+    pxc, pyc = _f64(px[:n]), _f64(py[:n])
+    if pxc.shape != (n,) or pyc.shape != (n,):
+        raise ValueError(f"segment_runs needs {n} points, got {pxc.shape} and {pyc.shape}")
+    anchor = np.empty(n, dtype=np.int32)
+    term = np.empty(n, dtype=np.int32)
+    has = np.empty(n, dtype=np.uint8)
+    err = lib.yag_segment_runs(_ptr(pxc), _ptr(pyc), n, _ptr(anchor), _ptr(term), _ptr(has))
+    CALLS["segment_runs"] += 1
+    if err:
+        _hostops_failed("segment_runs", err)
+    return anchor, term, has.view(bool)
+
+
+def parse_carmen(path, max_scans=None):
+    """Native twin of io.carmen.load_carmen_log_ref: the laser scans of a
+    CARMEN log as CarmenScan records with float64 ranges.  Lines that do
+    not parse are skipped.  Raises OSError (FileNotFoundError for a
+    missing file) when the log cannot be opened."""
+    from yag_slam_tpu_torch.io.carmen import CarmenScan
+
+    lib = _build.hostops_library()
+    handle = ctypes.c_void_p()
+    n_scans, n_values = ctypes.c_int64(), ctypes.c_int64()
+    err = lib.yag_parse_carmen(os.fsencode(path), int(max_scans or -1), ctypes.byref(handle),
+                               ctypes.byref(n_scans), ctypes.byref(n_values))
+    CALLS["parse_carmen"] += 1
+    if err:
+        raise OSError(err, os.strerror(err), str(path))
+    try:
+        ranges = np.empty(n_values.value)
+        counts = np.empty(n_scans.value, dtype=np.int64)
+        meta = np.empty((n_scans.value, _CARMEN_META))
+        err = lib.yag_carmen_copy(handle, _ptr(ranges), _ptr(counts), _ptr(meta))
+        if err:
+            _hostops_failed("parse_carmen", err)
+    finally:
+        lib.yag_carmen_free(handle)
+    per_scan = np.split(ranges, np.cumsum(counts)[:-1]) if len(counts) else []
+    return [CarmenScan(r, *m) for r, m in zip(per_scan, meta.tolist())]
 
 
 def refbaseline_match_scan(query, base_scans, config, penalty=True,
