@@ -59,15 +59,16 @@ Phases, one line each; any failure raises (non-zero exit):
      run), fed the tour's first 20 scans from their pose in the map; the
      splice bootstrap links the first, the graph grows by 20, and the poses
      come back within 0.3 m of phase 4's;
- 12. SPA on the card (TF32 off): the noisy square-loop graph at 100-4000
-     nodes through SPA2d with the host, dense and cg solvers in mixed and
-     float64 precision, cg at 100, 1000 and 4000 nodes only
-     (compute(100, 1e-4, True, 1e-9, 200), one warm call,
-     best of 3, or the warm call alone where it takes over 5 s), each device
-     solver held to host (cost within 1e-3 relative, poses within 2e-3) at
-     the sizes where the JAX package's same solver meets those bars on the
-     CPU, elsewhere ending finite below its initial cost; ms, LM iterations
-     and host reads per cell; then the tour again with SPA2d(solver="dense") on the card, held
+ 12. SPA on the card (TF32 off), through profile_spa_torch.crossover: the
+     noisy square-loop graph at 100-4000 nodes through SPA2d with the host,
+     dense and cg solvers in mixed and float64 precision, cg at 100, 1000
+     and 4000 nodes only (compute(100, 1e-4, True, 1e-9, 200), one warm
+     call, best of 3, or the warm call alone where it takes over 5 s), each
+     device solver held to host (cost within 1e-3 relative, poses within
+     2e-3) at the sizes where the JAX package's same solver meets those bars
+     on the CPU, elsewhere ending finite below its initial cost; ms, LM
+     iterations and host reads per cell; then the tour again with
+     SPA2d(solver="dense") on the card, held
      to phase 4's host-SPA run (the same counts and poses within 1e-4 after
      300 scans, closures within +-1, ATE below odometry's), SPA ms per
      solve beside phase 4's.
@@ -84,11 +85,22 @@ Phases, one line each; any failure raises (non-zero exit):
      matches beside the card's; ab_compare --synthetic --device cuda
      (vertices equal, closures within 1, both ATEs below odometry's); and
      save_slam_figure of phase 4's map where matplotlib is installed.
+ 14. the benchmark's workload (bench_torch.py: 360-beam office scans at
+     the reference's default config, G = 4051): bench_torch.bench_device's
+     rows (the four OnlineMatchPipeline modes, the lockstep loop,
+     match_many_mega and one-deep match_many_async x16 and x64, each the
+     median of 3 repeats on fresh streams; the mega results equal to
+     match_many's on every job), the first 4 batched jobs held to the
+     host's plain path (float64 within 1e-9; float32 poses and covariances
+     as in phases 7-8, responses within one point's cell flip), then
+     profile_match_torch's stages of the match core at 16 jobs (one
+     composed pass counted, each stage timed beside its bound).
 Each path's kernel launches are counted from 0 just before it runs.  The
-last lines are a JSON line of the host ops' results ({"hostops": ...}), a
-JSON line of per-kernel results (ms is the bare kernel's device time at
-its main-path case; launches_per_scan is phase 4's count over its scans),
-the nvidia-smi line and {"ok": true, "device": {...}}.
+last lines are a JSON line of phase 14's results ({"bench": ...}), a JSON
+line of the host ops' results ({"hostops": ...}), a JSON line of
+per-kernel results (ms is the bare kernel's device time at its main-path
+case; launches_per_scan is phase 4's count over its scans), the
+nvidia-smi line and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -100,7 +112,6 @@ import itertools
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -108,6 +119,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+import bench_torch
+import profile_match_torch
+import profile_spa_torch
+from bench_torch import same_result
+from profile_spa_torch import pose_gap
+from yag_slam_tpu_torch.utils.profiling import (
+    bound, cpu_model, cuda_ms, device_ms, gpu_line, smear_bytes, smear_ops, window_bytes)
 
 # (G, S, h) of the default sequential and loop matchers at the building
 # tour, and the points per scan (P lanes, 180 beams used)
@@ -117,15 +136,6 @@ SEQ_G, SEQ_S, SEQ_H = 4051, 3072, 10
 SEQ_MODE_S = 1792
 LOOP_G, LOOP_S, LOOP_H = 881, 768, 2
 P, N_BEAMS = 256, 180
-TIMING_REPS = 20
-# Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM
-# bytes/s and float32 operations/s outside the tensor cores
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
-SPIN_CYCLES = 1_000_000      # the card's spin before each device_ms launch
-# the float32 chain of the smear: per pass-1 element (S x (S + 2h) of them)
-# and per output, one multiply for the centre and a max, a multiply and a
-# max per tap pair (3h + 1 ops)
-SMEAR_OPS = lambda N, S, h: (3 * h + 1) * N * (S * (S + 2 * h) + S * S)  # noqa: E731
 NO_LIBRARY_SMEAR = ("none: a weighted max-dilation is no single PyTorch op "
                     "(max_pool2d is unweighted)")
 SMEAR_DENSITIES = (0.001, 0.05, 0.5)
@@ -179,26 +189,11 @@ LIFELONG_SCANS, LIFELONG_TOL = 20, 0.3
 # end one step apart (float32 cos/sin last bits at .5 sample positions)
 LABEL_FLIPS, RAY_TOL, RAY_STEP_SHARE = 1e-3, 1e-3, 1e-3
 LIFELONG_RAY_CENTROIDS = 8
-# phase 12: the SPA crossover (noisy square loops, as profile_spa.py
-# builds them) and the bars of tests/test_spa.py for device against host
-SPA_SIZES = (100, 500, 1000, 2000, 4000)
-SPA_COLUMNS = (("host", "f64"), ("dense", "mixed"), ("dense", "f64"), ("cg", "mixed"),
-               ("cg", "f64"))
-SPA_ARGS = (100, 1e-4, True, 1e-9, 200)
-# the cg columns run to the LM cap from 500 nodes (15-75 s a cell): timed at
-# these sizes only, to keep the script within half its time limit
+# phase 12: the SPA crossover (profile_spa_torch.crossover at
+# profile_spa.py's sizes); the cg columns run to the LM cap from 500 nodes
+# (15-75 s a cell): timed at these sizes only, to keep the script within
+# half its time limit
 SPA_CG_SIZES = (100, 1000, 4000)
-SPA_REPS = 3
-# a cell whose warm call takes longer is timed by that call alone
-SPA_SLOW_MS = 5000.0
-SPA_COST_RTOL, SPA_POSE_TOL = 1e-3, 2e-3
-# the sizes at which each device solver is held to host: those at which
-# the JAX package's same solver reaches host's optimum within the bars on
-# the CPU.  Its float32 factorization (dense:mixed) parts from 1000 nodes
-# on, its 200 CG iterations per LM step (cg) from 300 on (PERF.md); there
-# a cell must end finite and below its initial cost.
-SPA_HELD = {"dense:f64": SPA_SIZES, "dense:mixed": (100, 500), "cg:mixed": (100,),
-            "cg:f64": (100,)}
 # phase 13: DistributedSPA at these noisy_loop_pose_graph sizes with
 # GraphSlam's solve arguments (50 CG iterations per LM step), each cell
 # once; the serpentine graph of tests/test_parallel.py with its arguments
@@ -222,34 +217,21 @@ REF_MATCHES = 100      # the tour's first sequential matches, on the host CPU
 # numpy's cos / sin may round apart in the last bit), and the timed passes
 HOSTOPS_TOL = 1e-14
 HOSTOPS_PASSES = 5
+# phase 14: bench_torch's first batched jobs, card against the host's
+# plain path.  In float64 within BENCH_F64_TOL (response, pose and
+# covariance, relative for the covariance).  In float32 the poses within
+# API_TOL and the covariances within COV_RTOL, as in phases 7-8, and the
+# responses within one point's cell flip (flip_counts): CUDA's and the
+# CPU's float32 cos / sin differ in the last bit, so at 360 points x 10
+# angles a point's cell can round apart at a half-cell (on an H100: 2
+# counts at the best candidate of one of the 4 jobs, 5.5e-5 of its
+# response; in float64 the gaps are ~1e-16).
+BENCH_HELD_JOBS = 4
+BENCH_F64_TOL = 1e-9
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def gpu_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def cuda_ms(fn, reps=TIMING_REPS, warmup=3):
-    """Median milliseconds of fn() on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def max_abs_err(x, y):
@@ -274,35 +256,6 @@ def grid_case(rng, dev, *, N, S, h, G, so, B=16):
             torch.as_tensor(lim, device=dev))
 
 
-def device_ms(fn, reps=TIMING_REPS, warmup=3):
-    """Median device milliseconds of fn(), by CUDA events around it with
-    the card kept busy (a spin) while the host queues the events and the
-    launches, so host launch time is not counted."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound(n_bytes, ops=0):
-    """The least time the card could take: each input byte read once and
-    each output byte written once at the HBM rate, or the float32
-    operations at the card's peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return dict(bytes=int(n_bytes), ops=int(ops), bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
 def timings(row, wrapper, plain, bare, library=None):
     """Wrapper and plain ms by events (as in earlier runs), kernel-only and
     library ms by device_ms, and the share of the bound."""
@@ -310,10 +263,6 @@ def timings(row, wrapper, plain, bare, library=None):
                library_ms=None if library is None else device_ms(library, reps=5, warmup=1))
     row["share"] = row["bound_ms"] / row["kernel_ms"]
     return row
-
-
-def smear_bytes(N, S, h, out_bytes):
-    return N * (S + 2 * h) ** 2 + out_bytes * N * S * S + 4 * (2 * h + 1)
 
 
 def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
@@ -418,7 +367,7 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
         results["smear_grid"].append(timings(
             dict(case=name, shape=[N, S, S], h=h, max_abs_err=max(err_g, err_gq),
                  quantized_vs_smear_quantize=err_gq, library=NO_LIBRARY_SMEAR,
-                 **bound(smear_bytes(N, S, h, 4), SMEAR_OPS(N, S, h))),
+                 **bound(smear_bytes(N, S, h, 4), smear_ops(N, S, h))),
             lambda: K.smear_grid(occ, taps, S, h), lambda: K.smear_grid_ref(occ, taps, S, h),
             lambda: ok(lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), g_pre.data_ptr(),
                                           N, S, h, stream()), "smear_grid")))
@@ -453,7 +402,7 @@ def check_kernels(K, taps_seq, taps_loop, taps_node, dev):
             dict(case=name, shape=[1, S, S], h=h, max_abs_err=max(err_g, err_gq),
                  quantized_vs_smear_quantize=err_gq, occupied=int(occ.sum()),
                  library=NO_LIBRARY_SMEAR,
-                 **bound(smear_bytes(1, S, h, 4), SMEAR_OPS(1, S, h))),
+                 **bound(smear_bytes(1, S, h, 4), smear_ops(1, S, h))),
             lambda: K.smear_grid(occ, taps, S, h), lambda: K.smear_grid_ref(occ, taps, S, h),
             lambda: ok(lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), g_pre.data_ptr(),
                                           1, S, h, stream()), "smear_grid")))
@@ -560,22 +509,6 @@ def tour_occupancy(dev, S, h, first=TOUR_GRID_SCANS[0], n=TOUR_GRID_SCANS[1]):
     return occ
 
 
-def window_bytes(q, gy0, gx0, n_pts, ny, nx, stride):
-    """What the lattice needs: the distinct in-grid bytes its windows read,
-    the live points' cells, the counts and the int32 output."""
-    N, S, _ = q.shape
-    K_ = gy0.shape[1]
-    dev = q.device
-    y = gy0[:, :, :n_pts, None].long() + stride * torch.arange(ny, device=dev)
-    x = gx0[:, :, :n_pts, None].long() + stride * torch.arange(nx, device=dev)
-    inside = ((y >= 0) & (y < S))[..., :, None] & ((x >= 0) & (x < S))[..., None, :]
-    lin = (torch.arange(N, device=dev)[:, None, None, None, None] * S * S
-           + y[..., :, None] * S + x[..., None, :])
-    touched = torch.zeros(N * S * S, dtype=torch.bool, device=dev)
-    touched[lin[inside]] = True
-    return int(touched.sum()) + 8 * N * K_ * n_pts + 4 * N + 4 * N * K_ * ny * nx
-
-
 def window_conv(q, gy0, gx0, n_pts, ny, nx, stride, raw):
     """One grouped F.conv2d with the same result as window_sum: the jobs
     are the groups, each job's angles' point-count stencils (built here,
@@ -621,14 +554,6 @@ def window_conv(q, gy0, gx0, n_pts, ny, nx, stride, raw):
 def ate(est_xy, gt_xy):
     err = np.asarray(est_xy) - np.asarray(gt_xy)
     return float(np.sqrt(np.mean(np.sum(err**2, axis=1))))
-
-
-def pose_gap(a, b):
-    """Largest position (m) and heading (rad) difference of two (n, 3)
-    [x, y, theta] pose arrays."""
-    dxy = np.hypot(a[:, 0] - b[:, 0], a[:, 1] - b[:, 1]).max()
-    dth = np.abs(np.angle(np.exp(1j * (a[:, 2] - b[:, 2])))).max()
-    return float(dxy), float(dth)
 
 
 def graph_state(slam):
@@ -898,6 +823,7 @@ def run_slam(tmp, gpu, dev):
     summary["spa"] = dict(crossover=spa_crossover(dev, gpu),
                           tour=spa_tour(tour, card_at[STREAM_PREFIX], summary, dev, gpu))
     summary["last_modules"] = last_modules(tour, slam, summary, tmp, dev, gpu)
+    summary["bench"] = bench_rows(dev, gpu)
     return summary
 
 
@@ -964,13 +890,6 @@ def hold(gap, what):
     if not (gap["response"] <= API_TOL and gap["dxy_m"] <= API_TOL
             and gap["dth_rad"] <= API_TOL and gap["cov_rel"] <= COV_RTOL):
         raise AssertionError(f"{what}: card vs host f32 {gap}")
-
-
-def same_result(a, b):
-    return (a.response == b.response
-            and a.best_pose.x == b.best_pose.x and a.best_pose.y == b.best_pose.y
-            and a.best_pose.euler[-1] == b.best_pose.euler[-1]
-            and np.array_equal(a.covariance, b.covariance))
 
 
 def counted(K, fn):
@@ -1118,7 +1037,7 @@ def localize(slam, scans, dev, gpu):
 
     case = timings(dict(case="tour_map", shape=[1, G, G], h=h, max_abs_err=err,
                         library=NO_LIBRARY_SMEAR,
-                        **bound(smear_bytes(1, G, h, 4), SMEAR_OPS(1, G, h))),
+                        **bound(smear_bytes(1, G, h, 4), smear_ops(1, G, h))),
                    lambda: K.smear_grid(occ, taps, G, h),
                    lambda: K.smear_grid_ref(occ, taps, G, h), bare)
     if err != 0:
@@ -1433,71 +1352,11 @@ def solve_times(slam):
     return times
 
 
-def spa_crossover(dev, gpu):
-    """Phase 12 (a): host, dense and cg SPA at profile_spa.py's sizes."""
-    import re
-
-    from yag_slam_tpu_torch.graphopt import spa as S
-    from yag_slam_tpu_torch.io.benchmark import noisy_loop_pose_graph, populate_spa
-
-    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
-        raise AssertionError("TF32 is on: the mixed SPA steps need true float32")
-    rows, bad = [], []
-    for n in SPA_SIZES:
-        graph = noisy_loop_pose_graph(n)
-        guesses, edges, info = graph
-        cost0 = S._np_cost(np.asarray(guesses), np.array([e[0] for e in edges]),
-                           np.array([e[1] for e in edges]),
-                           np.broadcast_to(np.asarray(info), (len(edges), 3, 3)))
-        host = None
-        for solver, precision in SPA_COLUMNS:
-            name = solver if solver == "host" else f"{solver}:{precision}"
-            if solver == "cg" and n not in SPA_CG_SIZES:
-                continue
-
-            def solve():
-                spa = populate_spa(S.SPA2d(solver=solver, precision=precision, device=dev),
-                                   *graph)
-                torch.cuda.synchronize()
-                S.reset_host_reads()
-                t0 = time.perf_counter()
-                cost, lines = quiet(lambda: spa.compute(*SPA_ARGS, verbose=True))
-                ms = 1e3 * (time.perf_counter() - t0)
-                iters = int(re.search(r"after (\d+) iters", lines[-1]).group(1))
-                return dict(cost=cost, ms=ms, iters=iters, reads=dict(S.HOST_READS),
-                            poses=np.asarray(spa._solver.poses))
-
-            warm = solve()      # the card's libraries load on a first call
-            runs = [solve() for _ in range(SPA_REPS)] if warm["ms"] < SPA_SLOW_MS else [warm]
-            best = min(runs, key=lambda r: r["ms"])
-            row = dict(nodes=len(guesses), edges=len(edges), solver=name,
-                       ms=best["ms"], ms_runs=[r["ms"] for r in runs], iters=best["iters"],
-                       host_reads=best["reads"], cost=best["cost"], initial_cost=cost0)
-            if host is None:
-                host = best
-            else:
-                dxy, dth = pose_gap(best["poses"], host["poses"])
-                row.update(cost_rel_vs_host=abs(best["cost"] - host["cost"]) / host["cost"],
-                           dxy_vs_host_m=dxy, dth_vs_host_rad=dth)
-            rows.append(row)
-            gap = ("" if "dxy_vs_host_m" not in row else
-                   f"; vs host: cost {row['cost_rel_vs_host']:.2e} rel, |dxy| "
-                   f"{row['dxy_vs_host_m']:.2e} m, |dth| {row['dth_vs_host_rad']:.2e} rad")
-            log(f"phase 12: SPA {row['nodes']} nodes {name}: {row['ms']:.3f} ms (best of "
-                f"{len(runs)}), {row['iters']} LM iterations, host reads {row['host_reads']}, "
-                f"chi2 {row['cost']:.6g}{gap} ({gpu})")
-            if solver == "host":
-                continue
-            if n in SPA_HELD[name]:
-                row["held_to_host"] = True
-                if not (row["cost_rel_vs_host"] <= SPA_COST_RTOL
-                        and max(row["dxy_vs_host_m"], row["dth_vs_host_rad"]) <= SPA_POSE_TOL):
-                    bad.append(f"{name} at {n} nodes parted from host")
-            elif not (np.isfinite(row["cost"]) and row["cost"] <= cost0):
-                bad.append(f"{name} at {n} nodes ended at cost {row['cost']} (from {cost0})")
-    if bad:
-        raise AssertionError(f"SPA on the card: {bad}")
-    return rows
+def spa_crossover(dev, gpu, sizes=profile_spa_torch.SIZES, cg_sizes=SPA_CG_SIZES):
+    """Phase 12 (a): host, dense and cg SPA at profile_spa.py's sizes,
+    through profile_spa_torch.crossover."""
+    return profile_spa_torch.crossover(dev, sizes, cg_sizes,
+                                       log=lambda line: log(f"phase 12: {line}"), label=gpu)
 
 
 def spa_tour(tour, card_prefix, phase4, dev, gpu):
@@ -1559,19 +1418,6 @@ def spa_tour(tour, card_prefix, phase4, dev, gpu):
 
 
 # -- phase 13 ----------------------------------------------------------------------
-
-def cpu_model():
-    """The host CPU's model name from lscpu; where it reads "unknown" (a
-    virtual machine may hide it), the vendor, family and model numbers."""
-    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
-    fields = dict(ln.split(":", 1) for ln in out.splitlines() if ":" in ln)
-    fields = {k.strip().lower(): v.strip() for k, v in fields.items()}
-    model = fields.get("model name", "unknown")
-    if model == "unknown":
-        model = (f"{fields.get('vendor id', 'unknown vendor')} family "
-                 f"{fields.get('cpu family', '?')} model {fields.get('model', '?')}")
-    return f"{model}, {os.cpu_count()} CPUs"
-
 
 def serpentine_graph(spa, rows, cols, seed=5):
     """tests/test_parallel.py's rows x cols serpentine lattice (odometry
@@ -1918,6 +1764,71 @@ def last_modules(tour, slam, phase4, tmp, dev, gpu):
     return out
 
 
+# -- phase 14 ----------------------------------------------------------------------
+
+def flip_counts(cfg):
+    """The most one query point's window sum can move when its cell
+    rounds one cell apart: the largest step between neighbouring cells of
+    the quantized smeared grid (100 x the largest step of the 1-D taps),
+    plus one for the floor."""
+    from yag_slam_tpu_torch.matching.correlation import gaussian_kernel_1d
+
+    taps = gaussian_kernel_1d(cfg["resolution"], cfg["smear_deviation"])
+    return int(np.ceil(100 * np.abs(np.diff(taps)).max())) + 1
+
+
+def bench_rows(dev, gpu):
+    """Phase 14: bench_torch's device rows at the benchmark's full
+    configuration (its mega results held to match_many on every job), its
+    first batched jobs held to the host's float32 plain path, and
+    profile_match_torch's stages, one composed pass counted."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+
+    t0 = time.perf_counter()
+    scans = bench_torch.build_stream()
+    rows, launches = counted(K, lambda: bench_torch.bench_device(scans, device=dev,
+                                                                 repeats=bench_torch.REPEATS))
+    jobs = bench_torch.batch_jobs(scans)[:BENCH_HELD_JOBS]
+    worst = {}
+    for dtype in (torch.float64, torch.float32):
+        card = M(bench_torch.CFG, device=dev, dtype=dtype).match_many(jobs)
+        host = M(bench_torch.CFG, device="cpu", dtype=dtype).match_many(jobs)
+        gaps = [result_gap(a, b) for a, b in zip(card, host)]
+        for g, (q, _) in zip(gaps, jobs):
+            # the response gap in window-sum counts (penalty <= 1)
+            g["counts"] = g["response"] * 100 * q.num_valid_beams
+            if dtype == torch.float64:
+                ok = max(g["response"], g["dxy_m"], g["dth_rad"], g["cov_rel"]) <= BENCH_F64_TOL
+            else:
+                ok = (g["counts"] <= flip_counts(bench_torch.CFG) and g["dxy_m"] <= API_TOL
+                      and g["dth_rad"] <= API_TOL and g["cov_rel"] <= COV_RTOL)
+            if not ok:
+                raise AssertionError(f"bench_torch's batched jobs: card vs host {dtype} {g}")
+        worst[str(dtype)] = {k: max(g[k] for g in gaps) for k in gaps[0]}
+    bench_s = time.perf_counter() - t0
+    for name, r in rows.items():
+        if name != "match_response":
+            log(f"phase 14: bench {name}: {r['median']:.3f} matches/s (median of "
+                f"{bench_torch.REPEATS}, {r['spread'][0]:.3f}-{r['spread'][1]:.3f}); launches "
+                f"per match {r['launches_per_match']} ({gpu})")
+    log(f"phase 14: mega == match_many on every job; first {len(jobs)} batched jobs card "
+        f"vs host worst {worst} (flip bar {flip_counts(bench_torch.CFG)} counts in float32); "
+        f"launches {launches}; {bench_s:.1f} s")
+
+    t0 = time.perf_counter()
+    ctx = profile_match_torch.setup(device=dev)
+    _, prof_launches = counted(K, lambda: profile_match_torch.compose(ctx))
+    prof = profile_match_torch.profile(ctx)
+    for line in quiet(lambda: profile_match_torch.report(prof, torch.cuda.get_device_name(0),
+                                                         gpu))[1]:
+        log(f"phase 14: {line}")
+    log(f"phase 14: one composed pass of the stages launches {prof_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(rows=rows, launches=launches, held_jobs=len(jobs), worst_gap=worst,
+                bench_s=bench_s, profile=dict(prof, launches=prof_launches))
+
+
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
     smear of phase 8) and the launches of every driven path."""
@@ -1930,12 +1841,14 @@ def kernel_lines(K, checks, slam):
                  spa_tour=slam["spa"]["tour"]["launches"],
                  sharded=slam["last_modules"]["sharded"]["launches"],
                  sharded_slam=slam["last_modules"]["sharded_slam"]["launches"],
-                 ab_compare=slam["last_modules"]["ab_compare"]["launches"])
-    for path in ("meta", "scan_sets", "localize"):
+                 ab_compare=slam["last_modules"]["ab_compare"]["launches"],
+                 bench=slam["bench"]["launches"],
+                 profile_match=slam["bench"]["profile"]["launches"])
+    for path in ("meta", "scan_sets", "localize", "profile_match"):
         if paths[path]["smear_grid"] <= 0:
             raise AssertionError(f"smear_grid never launched on the {path} path")
     for path in ("stream", "cli", "threaded", "lifelong", "spa_tour", "sharded",
-                 "sharded_slam", "ab_compare"):
+                 "sharded_slam", "ab_compare", "bench", "profile_match"):
         for k in SLAM_KERNELS:
             if paths[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
@@ -2028,6 +1941,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
+    print(json.dumps({"bench": slam["bench"]}))
     print(json.dumps({"hostops": slam["hostops"]}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -1,11 +1,15 @@
 """chip_smoke.py's host-side arithmetic: the trace reader and the pose gap."""
 import importlib.util
+import json
 import os
+import sys
 
 import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:      # chip_smoke imports the root-level *_torch.py harnesses
+    sys.path.insert(0, REPO)
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
 smoke = importlib.util.module_from_spec(_spec)
@@ -68,7 +72,7 @@ def test_pose_gap_wraps_heading():
 
 
 NEW_PATHS = ("stream", "cli", "threaded", "lifelong", "spa_tour", "sharded",
-             "sharded_slam", "ab_compare")
+             "sharded_slam", "ab_compare", "bench", "profile_match")
 
 
 def _run_summary(zero=None):
@@ -99,6 +103,8 @@ def _run_summary(zero=None):
         last_modules=dict(sharded=dict(launches=n("sharded", smear_grid=0)),
                           sharded_slam=dict(launches=n("sharded_slam", smear_grid=0)),
                           ab_compare=dict(launches=n("ab_compare", smear_grid=0))),
+        bench=dict(launches=n("bench", smear_grid=0),
+                   profile=dict(launches=n("profile_match"))),
     )
     return checks, slam
 
@@ -112,7 +118,8 @@ def test_kernel_lines_count_launches_by_path():
     for k in smoke.SLAM_KERNELS:
         assert set(NEW_PATHS) <= set(rows[k]["launches_by_path"])
         assert rows[k]["launches"] == sum(rows[k]["launches_by_path"].values())
-    assert not set(NEW_PATHS) & set(rows["smear_grid"]["launches_by_path"])
+    assert set(rows["smear_grid"]["launches_by_path"]) == {"meta", "scan_sets", "localize",
+                                                           "profile_match"}
     assert rows["window_sum"]["route"] == "cuda"
     for r in rows.values():
         # the keys the result line must carry for every kernel
@@ -130,6 +137,89 @@ def test_kernel_lines_fail_when_a_path_skips_a_kernel(path):
     checks, slam = _run_summary(zero=(path, "smear_quantize"))
     with pytest.raises(AssertionError, match=f"smear_quantize never launched on the {path}"):
         smoke.kernel_lines(K, checks, slam)
+
+
+def test_kernel_lines_fail_when_the_staged_stage_skips_smear_grid():
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    checks, slam = _run_summary(zero=("profile_match", "smear_grid"))
+    with pytest.raises(AssertionError, match="smear_grid never launched on the profile_match"):
+        smoke.kernel_lines(K, checks, slam)
+
+
+def test_phase_14_counts_from_zero_and_prints_its_line(monkeypatch, capsys):
+    """Phase 14's bookkeeping on the CPU: launches counted from 0 before
+    bench_torch's rows (a stale count of an earlier path is not carried)
+    and before one composed pass of profile_match_torch's stages (plain
+    path here: no launch); the first batched jobs held card against host
+    (both the plain path here); a line per row; a {"bench": ...} line
+    that JSON takes.  bench_device and the stage timing (CUDA events) are
+    stood in for; the stages run for real at 2 jobs."""
+    import bench_torch
+    import profile_match_torch
+    import torch
+
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    scans = bench_torch.build_stream(n_scans=16)
+    row = dict(median=12.5, spread=[11.0, 13.0],
+               launches_per_match={k: 1.0 for k in K.KERNELS})
+
+    def bench_device(stream, device, repeats):
+        assert stream is scans and device.type == "cpu" and repeats == bench_torch.REPEATS
+        for k in smoke.SLAM_KERNELS:
+            K.LAUNCHES[k] += 3
+        return {"stream": row, "lockstep": row, "match_response": 0.97}
+
+    real_setup = profile_match_torch.setup
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(bench_torch, "build_stream", lambda: scans)
+    monkeypatch.setattr(bench_torch, "bench_device", bench_device)
+    monkeypatch.setattr(profile_match_torch, "setup",
+                        lambda device: real_setup(2, device=device, scans=scans))
+    monkeypatch.setattr(profile_match_torch, "profile", lambda ctx: dict(shapes={"N": ctx["N"]}))
+    monkeypatch.setattr(profile_match_torch, "report", lambda r, name, gpu: print("table"))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
+    monkeypatch.setattr(K, "LAUNCHES", dict(K.LAUNCHES, scatter_cells=99))
+    out = smoke.bench_rows(torch.device("cpu"), "label")
+    assert out["launches"] == {"scatter_cells": 3, "smear_quantize": 3, "smear_grid": 0,
+                               "window_sum": 3}
+    assert out["profile"] == dict(shapes={"N": 2}, launches={k: 0 for k in K.KERNELS})
+    assert out["held_jobs"] == smoke.BENCH_HELD_JOBS == 4
+    # the CPU's plain path on both sides: no gap in either precision
+    assert out["worst_gap"] == {d: dict(response=0.0, dxy_m=0.0, dth_rad=0.0, cov_rel=0.0,
+                                        counts=0.0)
+                                for d in ("torch.float64", "torch.float32")}
+    assert set(out["rows"]) == {"stream", "lockstep", "match_response"}
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(ln.startswith("phase 14: bench ") for ln in lines) == 2
+    assert "phase 14: table" in lines
+    assert json.loads(json.dumps({"bench": out}))["bench"]["launches"]["window_sum"] == 3
+
+
+def test_flip_counts_is_the_largest_step_of_the_quantized_smear():
+    """One cell's move changes a lookup of the benchmark's smeared grid by
+    at most 13 counts: 100 x (exp(-0.5) - exp(-0.72)) = 11.97, rounded up,
+    plus one for the floor; at 0.05 m cells 100 x (exp(-0.5) - exp(-2))
+    = 47.12, so 49."""
+    import bench_torch
+
+    assert smoke.flip_counts(bench_torch.CFG) == 13
+    assert smoke.flip_counts(dict(bench_torch.CFG, resolution=0.05)) == 49
+
+
+def test_phase_12_prints_its_cells_through_profile_spa_torch(capsys):
+    """Phase 12 (a) is profile_spa_torch.crossover with phase 12's log
+    lines: one per cell, as before."""
+    import torch
+
+    rows = smoke.spa_crossover(torch.device("cpu"), "label", sizes=(100,), cg_sizes=())
+    assert [r["solver"] for r in rows] == ["host", "dense:mixed", "dense:f64"]
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 3 and all(ln.startswith("phase 12: SPA 105 nodes ") for ln in lines)
+    assert lines[2].startswith("phase 12: SPA 105 nodes dense:f64: ")
+    assert "LM iterations, host reads {'lm': " in lines[2] and lines[2].endswith("rad (label)")
+    assert smoke.SPA_CG_SIZES == (100, 1000, 4000)
 
 
 def test_solve_times_times_each_solve():
@@ -157,7 +247,7 @@ def test_bound_takes_the_larger_limit():
     b = smoke.bound(3.35e6, ops=67e9)
     assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == "operations"
     # the smear's float32 chain: 31 ops per element at h = 10, as counted
-    assert smoke.SMEAR_OPS(1, 3072, 10) == 31 * (3072 * 3092 + 3072 * 3072)
+    assert smoke.smear_ops(1, 3072, 10) == 31 * (3072 * 3092 + 3072 * 3072)
 
 
 @pytest.mark.parametrize("stride,nx,ny", [(1, 4, 4), (2, 5, 3), (3, 2, 6)])

@@ -65,15 +65,23 @@ PORT_MODULES = [
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the root-level scripts of the port: its harnesses and chip_smoke.py
+PORT_SCRIPTS = ("bench_torch.py", "profile_match_torch.py", "profile_spa_torch.py",
+                "scaling_bench_torch.py", "chip_smoke.py")
+# the JAX side's root-level scripts, which no port source may import
+JAX_SCRIPTS = ("bench", "profile_match", "profile_spa", "scaling_bench")
+
+
 def _modules_loaded_by_the_port(prefix):
     """Names under `prefix` in sys.modules of a fresh interpreter that
-    imported every port module and chip_smoke.py as a module."""
+    imported every port module and every port script as a module."""
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for f in {PORT_SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(f[:-3], f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"print(sorted(k for k in sys.modules if k == {prefix!r} "
         f"or k.startswith({prefix + '.'!r})))\n"
     )
@@ -93,16 +101,21 @@ def test_port_never_imports_the_jax_package():
     assert _modules_loaded_by_the_port("yag_slam_tpu") == "[]"
 
 
+@pytest.mark.parametrize("script", JAX_SCRIPTS)
+def test_port_never_imports_the_jax_side_scripts(script):
+    assert _modules_loaded_by_the_port(script) == "[]"
+
+
 def _port_sources():
     root = pathlib.Path(REPO)
-    return sorted((root / "yag_slam_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    return sorted((root / "yag_slam_tpu_torch").rglob("*.py")) + [root / f for f in PORT_SCRIPTS]
 
 
 def test_every_port_module_is_imported_and_scanned():
     """PORT_MODULES (imported by the sys.modules checks) and the AST scan
     both cover every module of the port."""
     root = pathlib.Path(REPO)
-    files = [p for p in _port_sources() if p.name != "chip_smoke.py"]
+    files = [p for p in _port_sources() if p.name not in PORT_SCRIPTS]
     names = {".".join(p.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
              for p in files}
     assert names == set(PORT_MODULES)
@@ -122,8 +135,9 @@ def test_no_port_source_names_the_jax_package_in_an_import():
                 continue
             bad += [f"{path.name}:{node.lineno} {n}" for n in names
                     if n == "yag_slam_tpu" or n.startswith("yag_slam_tpu.")
-                    or n.split(".")[0] == "jax"]
+                    or n.split(".")[0] in ("jax", *JAX_SCRIPTS)]
     assert len(_port_sources()) > 30 and not bad, bad
+    assert {p.name for p in _port_sources()} >= set(PORT_SCRIPTS)
 
 
 def _checkpoint(tmp_path):

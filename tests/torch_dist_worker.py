@@ -9,7 +9,9 @@ CPU and runs the tasks in float64, on one CPU thread:
          one whose coarse response is empty), penalty and fine pass off;
   spa:   DistributedSPA on ``build_loop_graph`` with cg (mixed and
          float64) and dense;
-  mp:    DistributedSPA cg on ``build_mp_graph`` (tests/mp_worker.py's).
+  mp:    DistributedSPA cg on ``build_mp_graph`` (tests/mp_worker.py's);
+  scaling: scaling_bench_torch.run on the CPU (its 32 jobs, one timed
+         repeat), its JSON lines and each world size's results.
 Prints one JSON line.  The case helpers below are shared with the test
 module; they use the port's types only, on the seeds of
 tests/test_parallel.py and tests/test_multiprocess.py.
@@ -154,6 +156,14 @@ def run(rank, world, port, tasks):
             build_mp_graph(spa)
             cost = spa.compute(50, 1.0e-4, True, 1.0e-10, 100, conv_tol=1e-10)
             out["mp"] = dict(cost=cost, poses=poses_of(spa))
+        if "scaling" in tasks:
+            import scaling_bench_torch
+
+            lines = []
+            res = scaling_bench_torch.run("cpu", repeats=1, emit=lines.append)
+            out["scaling"] = dict(lines=lines,
+                                  match={n: result_rows(r) for n, r in res["match"].items()},
+                                  spa=res["spa"])
     finally:
         dist.destroy_process_group()
     print(json.dumps(out), flush=True)

@@ -410,20 +410,17 @@ class CorrelativeScanMatcher:
         )
         return coarse, fine
 
-    @torch.no_grad()
-    def _run(self, args, P, penalty, do_fine, coarse_offset, S, queries=None):
-        """Grid build + coarse (+ fine) pass for a batch of jobs on the
-        device.  Query points come from the library (args' slots) or from
+    def _job_inputs(self, args, P, queries=None):
+        """The device half of a batch's job arrays, up to the grid build:
+        the base scans' world points (N, B, P) and their keep mask, the
+        full-grid origins, the subgrid origins, the query lanes (padded
+        lanes far away), their counts and the search centers, as a dict of
+        tensors.  Query points come from the library (args' slots) or from
         `queries` = (q_lx (N, P), q_ly, n_q (N,)) host arrays.  The args
         may be host arrays or tensors already on the device (the chained
-        pipeline passes device poses and centers).  Returns the
-        packed (N, 2, 8) device tensor [coarse, fine] x (response, x, y,
-        theta, XX, YY, XY, TH), and job 0's float32 grid before quantize
-        and mask when the matcher returns meta (else None)."""
-        cfg = self.config
+        pipeline passes device poses and centers)."""
         G = self.grid_size
-        res = cfg.resolution
-        h = self._half
+        res = self.config.resolution
         dev = self.device
         idx, mask, pose, q_idx, center, vp, sub = args
         lib = self.library.fields
@@ -443,9 +440,6 @@ class CorrelativeScanMatcher:
             qlx, qly, n_q = (torch.as_tensor(a, device=dev) for a in queries)
 
         cx, cy, ct = center_t[:, 0], center_t[:, 1], center_t[:, 2]
-        ox = cx - 0.5 * (G - 1) * res
-        oy = cy - 0.5 * (G - 1) * res
-
         pc = torch.cos(pose_t[..., 2:3])
         ps = torch.sin(pose_t[..., 2:3])
         wx = pose_t[..., 0:1] + pc * base_lx - ps * base_ly
@@ -455,40 +449,64 @@ class CorrelativeScanMatcher:
             lib["has_run"][idx_t], mask_t[..., None],
             vp_t[:, 0, None, None], vp_t[:, 1, None, None],
         )
-        sox, soy = sub_t[:, 0], sub_t[:, 1]
-        build = dict(G=G, S=S, h=h, res=res, taps=self._taps)
+        valid = torch.arange(P, device=dev)[None, :] < n_q[:, None]
+        return dict(
+            wx=wx, wy=wy, keep=keep,
+            ox=cx - 0.5 * (G - 1) * res, oy=cy - 0.5 * (G - 1) * res,
+            sox=sub_t[:, 0], soy=sub_t[:, 1],
+            qx=torch.where(valid, qlx, _FAR), qy=torch.where(valid, qly, _FAR),
+            n_pts=n_q.to(self.dtype), cx=cx, cy=cy, ct=ct,
+        )
+
+    def _score_pass(self, q2d, inp, center, fine, penalty, coarse_offset):
+        """Score one pass's candidate lattice around `center` = (cx, cy,
+        ct), each (N,): the coarse pass, or with `fine` the fine one.
+        `inp` is :meth:`_job_inputs`' dict.  Returns score_lattice's (out,
+        xvals, yvals, tvals)."""
+        cfg = self.config
+        res = cfg.resolution
+        coarse_spec, fine_spec = self._specs(coarse_offset)
+        if fine:
+            lattice = dict(spec=fine_spec, xy_size=res * 2, xy_res=res,
+                           ang_size=_FINE_ANGLE_SIZE,
+                           ang_res=cfg.fine_search_angle_resolution)
+        else:
+            lattice = dict(spec=coarse_spec, xy_size=cfg.search_size * 0.5,
+                           xy_res=res * 2, ang_size=coarse_offset * 0.5,
+                           ang_res=cfg.coarse_angle_resolution)
+        return C.score_lattice(
+            q2d, inp["qx"], inp["qy"], inp["n_pts"], *center, inp["ox"],
+            inp["oy"], inp["sox"], inp["soy"], grid_size=self.grid_size,
+            grid_res=res, penalize=penalty,
+            karto_penalties=cfg.karto_penalty_tuple(), **lattice,
+        )
+
+    @torch.no_grad()
+    def _run(self, args, P, penalty, do_fine, coarse_offset, S, queries=None):
+        """Grid build + coarse (+ fine) pass for a batch of jobs on the
+        device (args and queries as :meth:`_job_inputs` takes them).
+        Returns the packed (N, 2, 8) device tensor [coarse, fine] x
+        (response, x, y, theta, XX, YY, XY, TH), and job 0's float32 grid
+        before quantize and mask when the matcher returns meta (else
+        None)."""
+        inp = self._job_inputs(args, P, queries)
+        points = tuple(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox", "soy"))
+        build = dict(G=self.grid_size, S=S, h=self._half,
+                     res=self.config.resolution, taps=self._taps)
         grid0 = None
         if self.return_meta:
-            q2d, grid = C.build_grid_staged(wx, wy, keep, ox, oy, sox, soy, **build)
+            q2d, grid = C.build_grid_staged(*points, **build)
             grid0 = grid[0]
         else:
-            q2d = C.build_quantized_grid(wx, wy, keep, ox, oy, sox, soy, **build)
+            q2d = C.build_quantized_grid(*points, **build)
 
-        lane = torch.arange(P, device=dev)
-        valid = lane[None, :] < n_q[:, None]
-        qx = torch.where(valid, qlx, _FAR)
-        qy = torch.where(valid, qly, _FAR)
-        n_pts = n_q.to(self.dtype)
-
-        coarse_spec, fine_spec = self._specs(coarse_offset)
-        common = dict(grid_size=G, grid_res=res, penalize=penalty,
-                      karto_penalties=cfg.karto_penalty_tuple())
-        out, xv, yv, tv = C.score_lattice(
-            q2d, qx, qy, n_pts, cx, cy, ct, ox, oy, sox, soy,
-            spec=coarse_spec, xy_size=cfg.search_size * 0.5, xy_res=res * 2,
-            ang_size=coarse_offset * 0.5, ang_res=cfg.coarse_angle_resolution,
-            **common,
-        )
-        coarse = C.reduce_best_pose(out, xv, yv, tv)
+        coarse = C.reduce_best_pose(*self._score_pass(
+            q2d, inp, (inp["cx"], inp["cy"], inp["ct"]), False, penalty,
+            coarse_offset))
         if do_fine:
-            out, xv, yv, tv = C.score_lattice(
-                q2d, qx, qy, n_pts, coarse[:, 1], coarse[:, 2], coarse[:, 3],
-                ox, oy, sox, soy,
-                spec=fine_spec, xy_size=res * 2, xy_res=res,
-                ang_size=_FINE_ANGLE_SIZE,
-                ang_res=cfg.fine_search_angle_resolution, **common,
-            )
-            fine = C.reduce_best_pose(out, xv, yv, tv)
+            fine = C.reduce_best_pose(*self._score_pass(
+                q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True,
+                penalty, coarse_offset))
         else:
             fine = coarse
         return torch.stack([coarse, fine], dim=1), grid0
