@@ -25,7 +25,10 @@ Phases, one line each; any failure raises (non-zero exit):
      and 10 then require every op called (native.CALLS);
   4. run the building-tour CARMEN log through the port's GraphSlam at the
      default matcher configs in float32 on the card: require a loop
-     closure, ATE below odometry's and every kernel launched; then hold
+     closure, ATE below odometry's and every kernel launched (counted at
+     each replay of the matcher's CUDA graphs); report the graphs' keys,
+     eager runs, captures and replays, and record each key's first
+     arguments for phase 15; then hold
      the tour's first 300 scans against the plain path on the host CPU in
      float32, and its first 50 in float64, pose by pose;
   5. render the occupancy grid, round-trip a checkpoint file and continue
@@ -36,7 +39,9 @@ Phases, one line each; any failure raises (non-zero exit):
      poses: return_meta=True match_scan (results equal to the matcher
      without meta, meta grid bit-equal to the host's), match_scan_sets
      (3 query scans against the previous 10) and match_many_mega against
-     match_many, each held to the plain path on the host in float32;
+     match_many, each held to the plain path on the host in float32; mega
+     again with each of its 4 chunk replays (one key) held bit for bit to a
+     direct _compute on the same staged inputs;
   8. localize against the tour's map: convert the 0.05 m occupancy image
      on the card, offset 3 consecutive scans by (+0.08, -0.06) m and run
      match_scan_sets_with_map; poses back within 0.1 m of the SLAM poses
@@ -49,6 +54,8 @@ Phases, one line each; any failure raises (non-zero exit):
      first 100 scans through OnlineMatchPipeline in block mode, in
      streaming mode with one lagged group and through the blocking
      match_scan loop, all equal; scans/s of each and the pipeline stats;
+     block mode again with every step's replay held bit for bit to
+     _compute;
  10. entry points: the offline CLI in-process on the tour log (node
      defaults, --device cuda) per scan and with --stream, the same vertex
      and closure counts and ATE below odometry's; ThreadedOnlineMapper
@@ -95,6 +102,17 @@ Phases, one line each; any failure raises (non-zero exit):
      as in phases 7-8, responses within one point's cell flip), then
      profile_match_torch's stages of the match core at 16 jobs (one
      composed pass counted, each stage timed beside its bound).
+ 15. the matcher's CUDA graphs: every key phase 4's tour met (the
+     sequential S buckets, the loop coarse and fine batches, the
+     expansion offsets) run to a replay and held bit for bit to a direct
+     _compute on the same staged inputs; the office batch of 64 through
+     match_many_async with one batch in flight, every replay held and
+     every result equal to _compute's after the next batch ran;
+     match_scan_async (with and without meta), match_many_async, explicit
+     queries, the pipeline's block dispatch and match_many_mega, three
+     times each, under torch.cuda.set_sync_debug_mode("error") (nothing
+     waits for the card before the result); captures, ms per capture,
+     host us of a replayed dispatch against host ms of an eager _run.
 Each path's kernel launches are counted from 0 just before it runs.  The
 last lines are a JSON line of phase 14's results ({"bench": ...}), a JSON
 line of the host ops' results ({"hostops": ...}), a JSON line of
@@ -706,19 +724,22 @@ def run_slam(tmp, gpu, dev):
     main, rest = scans[:-HOLD_BACK], scans[-HOLD_BACK:]
     torch.cuda.synchronize()
     K.reset_launches()
+    graphs_before = graph_stats()
     match_ms, scan_ms, card_at = [], [], {}
     t_all = time.perf_counter()
-    for i, s in enumerate(main):
-        t0 = time.perf_counter()
-        m0 = slam.stats["match_time_total"]
-        slam.process_scan(s)
-        scan_ms.append(1e3 * (time.perf_counter() - t0))
-        match_ms.append(1e3 * (slam.stats["match_time_total"] - m0))
-        if i + 1 in SNAPSHOTS:
-            card_at[i + 1] = graph_state(slam)
+    with recorded_keys() as tour_keys:
+        for i, s in enumerate(main):
+            t0 = time.perf_counter()
+            m0 = slam.stats["match_time_total"]
+            slam.process_scan(s)
+            scan_ms.append(1e3 * (time.perf_counter() - t0))
+            match_ms.append(1e3 * (slam.stats["match_time_total"] - m0))
+            if i + 1 in SNAPSHOTS:
+                card_at[i + 1] = graph_state(slam)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = dict(K.LAUNCHES)
+    graphs = dict(stats_delta(graphs_before, graph_stats()), keys=len(tour_keys))
     hostops["calls"] = dict(slam=dict(native.CALLS))
     caps = (slam.seq_matcher._point_cap, slam.loop_matcher._point_cap)
     if caps != (hostops["cap"],) * 2:
@@ -741,7 +762,7 @@ def run_slam(tmp, gpu, dev):
         spa_ms_median=statistics.median(spa_ms) if spa_ms else None, spa_ms=spa_ms,
         seq_match_s=st["match_time_total"], spa_s=st["opt_time_total"],
         ate_slam_m=ate_slam, ate_odom_m=ate_odom, launches=launches,
-        gpu=gpu,
+        graphs=graphs, gpu=gpu,
     )
     log(f"phase 4: {nm} scans in {wall:.3f} s = {summary['scans_per_s']:.3f} scans/s; "
         f"median seq match {summary['median_match_ms']:.3f} ms; "
@@ -749,6 +770,9 @@ def run_slam(tmp, gpu, dev):
         f"{st['loop_closures']} closures ({gpu})")
     log(f"phase 4: ATE slam {ate_slam:.4f} m vs odometry {ate_odom:.4f} m; "
         f"launches {launches}")
+    log(f"phase 4: CUDA graphs: {graphs['keys']} keys met, {graphs['eager']} eager "
+        f"_runs, {graphs['captures']} captures ({graphs['ms_per_capture']:.3f} ms each), "
+        f"{graphs['replays']} replays")
     if st["loop_closures"] < 1:
         raise AssertionError("no loop closure on the building tour")
     if not ate_slam < ate_odom:
@@ -824,6 +848,7 @@ def run_slam(tmp, gpu, dev):
                           tour=spa_tour(tour, card_at[STREAM_PREFIX], summary, dev, gpu))
     summary["last_modules"] = last_modules(tour, slam, summary, tmp, dev, gpu)
     summary["bench"] = bench_rows(dev, gpu)
+    summary["graphs"]["phase15"] = graphs_phase(slam, tour_keys, tour, dev, gpu)
     return summary
 
 
@@ -958,16 +983,23 @@ def matcher_api(scans, dev, gpu):
         K, lambda: timed(lambda: card.match_many_mega(jobs, chunk=MEGA_CHUNK)))
     if not all(same_result(a, b) for a, b in zip(many, mega)):
         raise AssertionError("match_many_mega differs from match_many")
+    with held_replays() as tally:
+        held = card.match_many_mega(jobs, chunk=MEGA_CHUNK)
+    if max(tally["keys"].values(), default=0) < 3 or not all(
+            same_result(a, b) for a, b in zip(held, mega)):
+        raise AssertionError(f"match_many_mega: {tally['replays']} replays held")
     host = M(device="cpu").match_many(jobs)
     gaps = [result_gap(a, b) for a, b in zip(mega, host)]
     for g in gaps:
         hold(g, "match_many_mega")
     worst = {k: max(g[k] for g in gaps) for k in gaps[0]}
     out["mega"] = dict(jobs=len(jobs), chunk=MEGA_CHUNK, mega_ms=mega_ms,
-                       match_many_ms=many_ms, worst_gap=worst)
+                       match_many_ms=many_ms, worst_gap=worst,
+                       replays_held=tally["replays"])
     log(f"phase 7: match_many_mega {len(jobs)} jobs (chunk {MEGA_CHUNK}) == "
         f"match_many; {mega_ms:.3f} ms vs {many_ms:.3f} ms; card vs host "
-        f"worst {worst}; launches {out['launches']['mega']}")
+        f"worst {worst}; launches {out['launches']['mega']}; again with its "
+        f"{tally['replays']} chunk replays held to _compute bit for bit")
     return out
 
 
@@ -1169,6 +1201,16 @@ def pipeline_modes(tour, dev, gpu):
         if len(r["res"]) != PIPELINE_SCANS - 1 or max(dxy, dth) > STREAM_TOL \
                 or dresp > STREAM_TOL:
             raise AssertionError(f"pipeline {name} differs from block mode")
+    # block mode again, each step's replay held to _compute bit for bit
+    scans = tour["scans_of"](tour["carmen"][:PIPELINE_SCANS])
+    with held_replays() as tally:
+        res, _ = piped(scans, CorrelativeScanMatcher(device=dev), block_dispatch=True)
+    if tally["replays"] < PIPELINE_SCANS - 1 or not np.array_equal(
+            poses_of(scans[1:]), runs["block"]["poses"]):
+        raise AssertionError(f"block mode held: {tally['replays']} replays")
+    out["block"]["replays_held"] = tally["replays"]
+    log(f"phase 9: block mode again: its {tally['replays']} replays held to _compute "
+        f"bit for bit, the same poses")
     return out
 
 
@@ -1761,6 +1803,253 @@ def last_modules(tour, slam, phase4, tmp, dev, gpu):
         secs[name] = time.perf_counter() - t0
     out["seconds"] = secs
     log(f"phase 13: seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}")
+    return out
+
+
+# -- phase 15 ----------------------------------------------------------------------
+
+def bits(t):
+    """`t`'s bits as integers, so NaN payloads compare too."""
+    return t.contiguous().view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+@contextlib.contextmanager
+def recorded_keys():
+    """Within, the first arguments of each key the process's CUDA graphs
+    meet, by key: {key: (matcher, args, P, penalty, do_fine, offset, S,
+    queries)}."""
+    from yag_slam_tpu_torch.matching.graphs import GRAPHS as G
+
+    first = {}
+    run = G.run
+
+    def rec(m, args, P, penalty, do_fine, offset, S, queries=None):
+        key = G.key(m, args, P, penalty, do_fine, offset, S, queries)
+        if key not in first:
+            cp = lambda a: a.clone() if isinstance(a, torch.Tensor) else np.array(a)  # noqa: E731
+            first[key] = (m, tuple(map(cp, args)), P, penalty, do_fine, offset, S,
+                          None if queries is None else tuple(map(cp, queries)))
+        return run(m, args, P, penalty, do_fine, offset, S, queries)
+
+    G.run = rec
+    try:
+        yield first
+    finally:
+        G.run = run
+
+
+@contextlib.contextmanager
+def held_replays():
+    """Within, every replay of the process's CUDA graphs is held bit for
+    bit (packed result and meta grid) against a direct call of _compute on
+    the same staged inputs, launched right after it (those launches are not
+    counted) and compared when the block ends, so that nothing waits for
+    the card meanwhile.  Yields the tally {"replays": n, "keys": {key:
+    replays}}."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.graphs import GRAPHS as G
+
+    tally = dict(replays=0, keys={})
+    pairs = []
+    run = G.run
+
+    def held(m, args, P, penalty, do_fine, offset, S, queries=None):
+        out = run(m, args, P, penalty, do_fine, offset, S, queries)
+        key = G.key(m, args, P, penalty, do_fine, offset, S, queries)
+        e = G.entry(key)
+        if e.graph is not None:
+            with K.captured_launches():
+                pairs.append((key, out, m._compute(e.inputs, S, penalty, do_fine, offset)))
+            tally["replays"] += 1
+            tally["keys"][key] = tally["keys"].get(key, 0) + 1
+        return out
+
+    G.run = held
+    try:
+        yield tally
+    finally:
+        G.run = run
+    for key, out, want in pairs:
+        for a, b in zip(out, want):
+            if (a is None) != (b is None) or a is not None and not torch.equal(
+                    bits(a), bits(b)):
+                raise AssertionError(f"a replay differs from _compute at {key}")
+
+
+def key_kind(key, loop_matcher):
+    """The tour's kinds of _run: the loop matcher's coarse batches, the
+    sequential matcher's unpenalized fine batches, its scan matches."""
+    if key.config == loop_matcher.config:
+        return "loop_coarse"
+    return "sequential" if key.penalty else "loop_fine"
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Within, an operation that makes the host wait for the card raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def graph_stats():
+    from yag_slam_tpu_torch.matching.graphs import GRAPHS
+
+    return dict(GRAPHS.stats)
+
+
+def stats_delta(before, after):
+    d = {k: after[k] - before[k] for k in before}
+    d["ms_per_capture"] = 1e3 * d["capture_s"] / d["captures"] if d["captures"] else None
+    return d
+
+
+def host_times(m, rec, n=20):
+    """Host milliseconds of one dispatch of a captured key (staging,
+    replay, clone: no wait) and of one eager _run (staging and _compute)
+    at the same inputs, medians over n and n // 2, the card idle before
+    each."""
+    _, args, P, penalty, do_fine, offset, S, queries = rec
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        return ms
+
+    replay = [host_ms(lambda: m._run(args, P, penalty, do_fine, offset, S, queries))
+              for _ in range(n)]
+    eager = [host_ms(lambda: m._compute(m._stage(args, queries), S, penalty, do_fine,
+                                        offset)) for _ in range(n // 2)]
+    return statistics.median(replay), statistics.median(eager)
+
+
+def graphs_phase(slam, tour_keys, tour, dev, gpu):
+    """Phase 15: every key the tour met held bit for bit, replay against
+    _compute; the office batch of 64 with one batch in flight; one
+    dispatch of each kind under the sync debug mode's errors; capture and
+    dispatch costs."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching.graphs import CAPTURE_AT_USE, GRAPHS
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+    from yag_slam_tpu_torch.matching.pipeline import OnlineMatchPipeline
+
+    t0 = time.perf_counter()
+    out = dict(capture_at_use=CAPTURE_AT_USE)
+    before = graph_stats()
+    kinds = {}
+    with held_replays() as tally:
+        for key, rec in tour_keys.items():
+            m = rec[0]
+            while GRAPHS.entry(key).graph is None or key not in tally["keys"]:
+                m._run(*rec[1:])
+            kinds.setdefault(key_kind(key, slam.loop_matcher), []).append(
+                [key.N, key.B, key.S, key.coarse_offset])
+    if len(tally["keys"]) != len(tour_keys):
+        raise AssertionError("a key of the tour was not held")
+    out["tour_keys"] = {k: dict(keys=len(v), shapes=sorted(v)) for k, v in kinds.items()}
+    out["tour_keys_held"] = len(tally["keys"])
+    seq_S = sorted({s for _, _, s, _ in kinds.get("sequential", [])})
+    log(f"phase 15: the tour's {len(tour_keys)} keys held, replay == _compute bit for bit: "
+        + ", ".join(f"{k} {v['keys']}" for k, v in out["tour_keys"].items())
+        + f"; sequential S {seq_S}")
+    for k in ("sequential", "loop_coarse", "loop_fine"):
+        if k not in kinds:
+            raise AssertionError(f"the tour met no {k} key")
+
+    # the office cell's pattern: batches of 64, one in flight
+    scans = bench_torch.build_stream()
+    jobs = bench_torch.batch_jobs(scans)
+    batches = [jobs[:64], jobs[64:128], jobs[1:65]]
+    m = M(bench_torch.CFG, device=dev)
+    for _ in range(CAPTURE_AT_USE):
+        m.match_many_async(batches[0]).result()
+    off = m.config.coarse_search_angle_offset
+    want = []
+    for b in batches:
+        args, P, S = m._prepare(b)
+        with K.captured_launches():
+            want.append(m._compute(m._stage(args), S, True, True, off)[0].cpu())
+    with held_replays() as tally:
+        with sync_errors():
+            h = m.match_many_async(batches[0])
+        for k in (1, 2):
+            with sync_errors():
+                nxt = m.match_many_async(batches[k])
+            packed = torch.from_numpy(h._pending[0]())
+            if not torch.equal(bits(packed), bits(want[k - 1])):
+                raise AssertionError("a batch in flight changed an earlier result")
+            h.result()
+            h = nxt
+        if not torch.equal(bits(torch.from_numpy(h._pending[0]())), bits(want[2])):
+            raise AssertionError("the last batch differs from _compute")
+        h.result()
+    out["async64"] = dict(batches=len(batches), replays_held=tally["replays"])
+    log(f"phase 15: match_many_async x64, one batch in flight: {tally['replays']} "
+        f"replays held, every result equal to _compute's after the next batch ran")
+
+    # one dispatch of each kind, three times (eager, capture, replay where
+    # the key is new), with any wait for the card raising
+    seq, meta = slam.seq_matcher, M(device=dev, return_meta=True)
+    scans = [v.obj for v in slam.graph.vertices]
+    q, base = scans[200], scans[190:200]
+    P = seq._point_cap
+    before_kinds = graph_stats()
+    for _ in range(3):
+        with sync_errors():
+            handles = [seq.match_scan_async(q, base), meta.match_scan_async(q, base),
+                       seq.match_many_async([(scans[i], scans[i - 10:i])
+                                             for i in range(150, 155)])]
+        for hd in handles:
+            hd.result()
+        lx, ly, n = q.local_points_padded(P)
+        far = np.arange(P) >= n
+        queries = (np.where(far, 1.0e9, lx)[None].astype(np.float32),
+                   np.where(far, 1.0e9, ly)[None].astype(np.float32),
+                   np.array([n], dtype=np.int32))
+        B = seq._base_bucket(len(base))
+        (idx, mask, pose, q_idx, center, vp, sub), S = seq._assemble_jobs([(q, base)], P, B)
+        with sync_errors():
+            seq._run((idx, mask, pose, q_idx, center, vp, sub), P, True, True,
+                     seq.config.coarse_search_angle_offset, S, queries)
+        # fresh scans: the pipeline puts its estimates on the scans it takes
+        fresh = tour["scans_of"](tour["carmen"][:STREAM_SYNC])
+        pipe = OnlineMatchPipeline(M(device=dev), window=10, sync_every=STREAM_SYNC,
+                                   block_dispatch=True)
+        pipe.seed(fresh[:1])
+        for s in fresh[1:]:
+            pipe.push(s)
+        with sync_errors():
+            pipe._dispatch()
+        pipe.flush()
+        with sync_errors():
+            seq.match_many_mega([(scans[i], scans[i - 10:i]) for i in range(120, 128)],
+                                chunk=4)
+    out["sync_free"] = stats_delta(before_kinds, graph_stats())
+    log(f"phase 15: match_scan_async, with meta, match_many_async, explicit queries, "
+        f"the pipeline's block dispatch and match_many_mega, 3 times each, with syncs "
+        f"raising: no wait for the card before the result ({out['sync_free']})")
+
+    # costs: capture, and the host time of a dispatch against an eager _run
+    key = next(k for k in tour_keys if key_kind(k, slam.loop_matcher) == "sequential"
+               and k.S == max(seq_S))
+    replay_ms, eager_ms = host_times(tour_keys[key][0], tour_keys[key])
+    out["costs"] = dict(stats_delta(before, graph_stats()), key=[key.N, key.B, key.S],
+                        host_us_per_replay=1e3 * replay_ms, host_ms_per_eager_run=eager_ms,
+                        peak_mb=torch.cuda.max_memory_allocated() / 1e6,
+                        peak_reserved_mb=torch.cuda.max_memory_reserved() / 1e6)
+    out["process"] = graph_stats()
+    out["seconds"] = time.perf_counter() - t0
+    c = out["costs"]
+    log(f"phase 15: sequential key N 1 S {key.S}: host {c['host_us_per_replay']:.1f} us a "
+        f"replayed dispatch vs {eager_ms:.3f} ms an eager _run; this phase "
+        f"{c['captures']} captures, {c['ms_per_capture']:.3f} ms each; the process so far "
+        f"{out['process']}; the process's peak {c['peak_mb']:.1f} MB allocated, "
+        f"{c['peak_reserved_mb']:.1f} MB reserved; {out['seconds']:.1f} s ({gpu})")
     return out
 
 

@@ -11,7 +11,7 @@ it, at the benchmark's configuration (G = 4051), float32, penalty and fine
 pass on.  The stages are those of ``CorrelativeScanMatcher._run``:
 
   inputs          library gathers, base points to world, the keep mask
-                  (``_job_inputs``);
+                  (``_stage``, then ``_world_points``);
   occupancy       scatter cells, then the ``scatter_cells`` kernel;
   smear_quantize  the full-grid limits, then the ``smear_quantize`` kernel;
   staged          the staged route instead: ``smear_grid`` then
@@ -21,7 +21,8 @@ pass on.  The stages are those of ``CorrelativeScanMatcher._run``:
   coarse_reduce   its ``reduce_best_pose``;
   fine_score      the fine lattice around the coarse poses (stride 1);
   fine_reduce     its ``reduce_best_pose``;
-  end_to_end      the whole ``_run``.
+  end_to_end      the whole ``_run`` (on the card: staging, one CUDA
+                  graph replay, the clone of its output).
 
 Each stage runs on materialised inputs (the earlier stages' outputs,
 computed once), timed by CUDA events: ``ms`` with the card kept busy by
@@ -123,7 +124,7 @@ def compose(ctx):
         out[name] = fn()
         return out[name]
 
-    inp = stage("inputs", lambda: m._job_inputs(args, P))
+    inp = stage("inputs", lambda: m._world_points(m._stage(args)))
     points = tuple(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox", "soy"))
 
     def occupancy():

@@ -27,6 +27,7 @@ PORT_MODULES = [
     "yag_slam_tpu_torch.mapping.occupancy",
     "yag_slam_tpu_torch.matching",
     "yag_slam_tpu_torch.matching.correlation",
+    "yag_slam_tpu_torch.matching.graphs",
     "yag_slam_tpu_torch.matching.kernels",
     "yag_slam_tpu_torch.matching.matcher",
     "yag_slam_tpu_torch.slam",

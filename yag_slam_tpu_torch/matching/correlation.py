@@ -117,10 +117,25 @@ def keep_mask_for_viewpoint(wx, wy, anchor_idx, term_idx, has_run, valid, vx, vy
 # Grid build
 # ---------------------------------------------------------------------------
 
+# (value, dtype, device) -> 0-dim divisor tensor
+_DIVISORS = {}
+
+
+def divisor(v: float, dtype, device):
+    """`v` as a 0-dim tensor of `dtype` on `device`, made once by a fill
+    (no copy from the host, so no wait) and cached: the CUDA graphs of the
+    matcher read it by address."""
+    key = (v, dtype, torch.device(device))
+    d = _DIVISORS.get(key)
+    if d is None:
+        d = _DIVISORS.setdefault(key, torch.full((), v, dtype=dtype, device=device))
+    return d
+
+
 def _true_div(x, v: float):
     # divide by a device scalar: CUDA turns division by a Python scalar into
     # a multiply by its reciprocal, which rounds differently
-    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+    return x / divisor(v, x.dtype, x.device)
 
 
 def world_to_grid_idx(w, origin, res: float):

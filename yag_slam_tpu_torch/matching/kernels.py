@@ -6,9 +6,14 @@ version (``*_ref``); CUDA tensors launch the hand-written kernel from
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain ints; callers may
 reset them), so a run can show that its main path went through the
-kernels.
+kernels.  A wrapper called while its thread captures a CUDA graph
+(:func:`captured_launches`) counts into the capture instead: those
+launches run at each replay, which adds them (:func:`add_launches`).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -42,9 +47,37 @@ KERNELS = {
 }
 
 
+_capture = threading.local()
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _count(name):
+    counts = getattr(_capture, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within, this thread's launches count into the yielded dict and not
+    into LAUNCHES: a CUDA graph capture records launches that run only when
+    the graph replays."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def add_launches(counts):
+    """Count the launches of one replay of a graph whose capture recorded
+    `counts`."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
 
 
 def _on_cuda(*tensors) -> bool:
@@ -118,7 +151,7 @@ def scatter_cells(sy, sx, rows: int):
     lib = _build.library()
     err = lib.yag_scatter_cells(sy.data_ptr(), sx.data_ptr(), occ.data_ptr(),
                                 N, M, rows, _stream(sy))
-    LAUNCHES["scatter_cells"] += 1
+    _count("scatter_cells")
     _check(err, "scatter_cells")
     return occ
 
@@ -210,7 +243,7 @@ def smear_quantize(occ, lim, taps, S: int, h: int):
     err = lib.yag_smear_quantize(occ.data_ptr(), lim.data_ptr(),
                                  taps.data_ptr(), out.data_ptr(), N, S, h,
                                  _stream(occ))
-    LAUNCHES["smear_quantize"] += 1
+    _count("smear_quantize")
     _check(err, "smear_quantize")
     return out
 
@@ -247,7 +280,7 @@ def smear_grid(occ, taps, S: int, h: int):
         return out
     err = lib.yag_smear_grid(occ.data_ptr(), taps.data_ptr(), out.data_ptr(),
                              N, S, h, _stream(occ))
-    LAUNCHES["smear_grid"] += 1
+    _count("smear_grid")
     _check(err, "smear_grid")
     return out
 
@@ -315,6 +348,6 @@ def window_sum(q, gy0, gx0, n_pts, ny: int, nx: int, stride: int):
     err = lib.yag_window_sum(q.data_ptr(), gy0.data_ptr(), gx0.data_ptr(),
                              n_pts.data_ptr(), out.data_ptr(), N, S, K, P,
                              ny, nx, stride, _stream(q))
-    LAUNCHES["window_sum"] += 1
+    _count("window_sum")
     _check(err, "window_sum")
     return out

@@ -19,6 +19,11 @@ paths (``match_scan_sets``, ``match_scan_sets_with_map``) and the opt-in
   the coarse and fine lattices (kernel ``window_sum``) and reduces them on
   the device, then copies one (N, 2, 8) tensor to the host, without
   blocking until a handle's ``.result()`` asks for it;
+- on CUDA that device program is a CUDA graph per batch shape, shared by
+  the process's matchers (:mod:`yag_slam_tpu_torch.matching.graphs`): a
+  dispatch stages its inputs with one non-blocking copy, replays the graph
+  and clones its outputs; ``match_many`` pads its batch to a power of two
+  so that nearby sizes share a graph;
 - localizing against a saved map scores the map's quantized grid on the
   element path (``correlation.find_best_pose``), whose lattice step need
   not be a multiple of the cell.
@@ -35,6 +40,7 @@ from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from yag_slam_tpu_torch.core.config import ScanMatcherConfig, make_config
 from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching import correlation as C
+from yag_slam_tpu_torch.matching.graphs import GRAPHS
 
 ScanMatcherResult = namedtuple(
     "ScanMatcherResult", ["response", "covariance", "best_pose", "meta"]
@@ -88,6 +94,13 @@ def sanitize_covariance(covar, cfg):
 
 def _next_bucket(n: int, quantum: int = 128) -> int:
     b = quantum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pow2(n: int) -> int:
+    b = 1
     while b < n:
         b *= 2
     return b
@@ -237,9 +250,9 @@ class _MatchHandle:
     the list of them (match_many_async)."""
 
     __slots__ = ("_m", "_pending", "_args", "_P", "_penalty", "_do_fine",
-                 "_S", "_single", "_res")
+                 "_S", "_single", "_n", "_res")
 
-    def __init__(self, matcher, pending, args, P, penalty, do_fine, S, single):
+    def __init__(self, matcher, pending, args, P, penalty, do_fine, S, single, n):
         self._m = matcher
         self._pending = pending
         self._args = args
@@ -248,13 +261,14 @@ class _MatchHandle:
         self._do_fine = do_fine
         self._S = S
         self._single = single
+        self._n = n
         self._res = None
 
     def result(self):
         if self._res is None:
             res = self._m._finish(self._pending, self._args, self._P,
                                   self._penalty, self._do_fine, self._S,
-                                  with_meta=self._single)
+                                  with_meta=self._single, n=self._n)
             self._res = res[0] if self._single else res
             self._pending = self._args = None
         return self._res
@@ -325,10 +339,7 @@ class CorrelativeScanMatcher:
             if n > self._base_cap:
                 raise ValueError(f"{n} base scans > base_capacity {self._base_cap}")
             return self._base_cap
-        b = 1
-        while b < n:
-            b *= 2
-        return b
+        return _pow2(n)
 
     # -- subgrid selection ----------------------------------------------------
     def _max_sub(self):
@@ -410,58 +421,68 @@ class CorrelativeScanMatcher:
         )
         return coarse, fine
 
-    def _job_inputs(self, args, P, queries=None):
-        """The device half of a batch's job arrays, up to the grid build:
-        the base scans' world points (N, B, P) and their keep mask, the
-        full-grid origins, the subgrid origins, the query lanes (padded
+    def _stage(self, args, queries=None):
+        """A batch's device inputs as fresh tensors (the eager staging; on
+        CUDA, :data:`graphs.GRAPHS` stages into an entry's static tensors
+        instead): the job arrays (idx, mask, pose, q_idx, center, vp, sub),
+        the base scans' library rows (lx, ly, anchor, term, has_run; (N, B,
+        P)), the query rows (qlx, qly (N, P), n_q (N,)) and the smear taps,
+        as the dict :meth:`_compute` reads.  Query points come from the
+        library (args' slots) or from `queries` = (q_lx (N, P), q_ly, n_q
+        (N,)) host arrays.  The args may be host arrays or tensors already
+        on the device (the chained pipeline passes device poses and
+        centers)."""
+        dev = self.device
+
+        def tensor(a):
+            return a if isinstance(a, torch.Tensor) else _to_device(a, dev)
+
+        st = dict(zip(("idx", "mask", "pose", "q_idx", "center", "vp", "sub"),
+                      map(tensor, args)))
+        lib = self.library.fields
+        for k in ("lx", "ly", "anchor", "term", "has_run"):
+            st[k] = lib[k][st["idx"]]                      # (N, B, P)
+        if queries is None:
+            q = st["q_idx"]
+            st.update(qlx=lib["lx"][q], qly=lib["ly"][q], n_q=lib["n"][q])
+        else:
+            st.update(zip(("qlx", "qly", "n_q"), map(tensor, queries)))
+        st["taps"] = self._taps
+        return st
+
+    def _world_points(self, st):
+        """The arithmetic half of a batch's job inputs, up to the grid
+        build: the base scans' world points (N, B, P) and their keep mask,
+        the full-grid origins, the subgrid origins, the query lanes (padded
         lanes far away), their counts and the search centers, as a dict of
-        tensors.  Query points come from the library (args' slots) or from
-        `queries` = (q_lx (N, P), q_ly, n_q (N,)) host arrays.  The args
-        may be host arrays or tensors already on the device (the chained
-        pipeline passes device poses and centers)."""
+        tensors.  `st` is :meth:`_stage`'s dict."""
         G = self.grid_size
         res = self.config.resolution
-        dev = self.device
-        idx, mask, pose, q_idx, center, vp, sub = args
-        lib = self.library.fields
-        idx_t = torch.as_tensor(idx, device=dev)
-        mask_t = torch.as_tensor(mask, device=dev)
-        pose_t = torch.as_tensor(pose, device=dev)
-        center_t = torch.as_tensor(center, device=dev)
-        vp_t = torch.as_tensor(vp, device=dev)
-        sub_t = torch.as_tensor(sub, device=dev)
-
-        base_lx = lib["lx"][idx_t]          # (N, B, P)
-        base_ly = lib["ly"][idx_t]
-        if queries is None:
-            q_t = torch.as_tensor(q_idx, device=dev)
-            qlx, qly, n_q = lib["lx"][q_t], lib["ly"][q_t], lib["n"][q_t]
-        else:
-            qlx, qly, n_q = (torch.as_tensor(a, device=dev) for a in queries)
-
-        cx, cy, ct = center_t[:, 0], center_t[:, 1], center_t[:, 2]
-        pc = torch.cos(pose_t[..., 2:3])
-        ps = torch.sin(pose_t[..., 2:3])
-        wx = pose_t[..., 0:1] + pc * base_lx - ps * base_ly
-        wy = pose_t[..., 1:2] + ps * base_lx + pc * base_ly
+        P = st["lx"].shape[-1]
+        center, pose, vp = st["center"], st["pose"], st["vp"]
+        cx, cy, ct = center[:, 0], center[:, 1], center[:, 2]
+        pc = torch.cos(pose[..., 2:3])
+        ps = torch.sin(pose[..., 2:3])
+        wx = pose[..., 0:1] + pc * st["lx"] - ps * st["ly"]
+        wy = pose[..., 1:2] + ps * st["lx"] + pc * st["ly"]
         keep = C.keep_mask_for_viewpoint(
-            wx, wy, lib["anchor"][idx_t], lib["term"][idx_t],
-            lib["has_run"][idx_t], mask_t[..., None],
-            vp_t[:, 0, None, None], vp_t[:, 1, None, None],
+            wx, wy, st["anchor"], st["term"], st["has_run"], st["mask"][..., None],
+            vp[:, 0, None, None], vp[:, 1, None, None],
         )
-        valid = torch.arange(P, device=dev)[None, :] < n_q[:, None]
+        valid = torch.arange(P, device=wx.device)[None, :] < st["n_q"][:, None]
         return dict(
             wx=wx, wy=wy, keep=keep,
             ox=cx - 0.5 * (G - 1) * res, oy=cy - 0.5 * (G - 1) * res,
-            sox=sub_t[:, 0], soy=sub_t[:, 1],
-            qx=torch.where(valid, qlx, _FAR), qy=torch.where(valid, qly, _FAR),
-            n_pts=n_q.to(self.dtype), cx=cx, cy=cy, ct=ct,
+            sox=st["sub"][:, 0], soy=st["sub"][:, 1],
+            qx=torch.where(valid, st["qlx"], _FAR),
+            qy=torch.where(valid, st["qly"], _FAR),
+            n_pts=st["n_q"].to(self.dtype), cx=cx, cy=cy, ct=ct,
         )
 
     def _score_pass(self, q2d, inp, center, fine, penalty, coarse_offset):
         """Score one pass's candidate lattice around `center` = (cx, cy,
         ct), each (N,): the coarse pass, or with `fine` the fine one.
-        `inp` is :meth:`_job_inputs`' dict.  Returns score_lattice's (out,
+        `inp` is :meth:`_world_points`' dict.  Returns score_lattice's (out,
         xvals, yvals, tvals)."""
         cfg = self.config
         res = cfg.resolution
@@ -484,15 +505,26 @@ class CorrelativeScanMatcher:
     @torch.no_grad()
     def _run(self, args, P, penalty, do_fine, coarse_offset, S, queries=None):
         """Grid build + coarse (+ fine) pass for a batch of jobs on the
-        device (args and queries as :meth:`_job_inputs` takes them).
-        Returns the packed (N, 2, 8) device tensor [coarse, fine] x
-        (response, x, y, theta, XX, YY, XY, TH), and job 0's float32 grid
-        before quantize and mask when the matcher returns meta (else
-        None)."""
-        inp = self._job_inputs(args, P, queries)
+        device (args and queries as :meth:`_stage` takes them, at point
+        capacity P and subgrid S).  Returns the packed (N, 2, 8) device
+        tensor [coarse, fine] x (response, x, y, theta, XX, YY, XY, TH),
+        and job 0's float32 grid before quantize and mask when the matcher
+        returns meta (else None), both fresh tensors.  On CUDA through the
+        process's CUDA graphs (:mod:`graphs`); on the CPU eagerly."""
+        if self.device.type == "cuda":
+            return GRAPHS.run(self, args, P, penalty, do_fine, coarse_offset, S, queries)
+        return self._compute(self._stage(args, queries), S, penalty, do_fine,
+                             coarse_offset)
+
+    def _compute(self, st, S, penalty, do_fine, coarse_offset):
+        """The device program of :meth:`_run` on staged inputs (`st` as
+        :meth:`_stage` gives it): world points, grid build, both passes,
+        their reductions.  Reads only `st`'s tensors and Python constants,
+        so a CUDA graph can capture it."""
+        inp = self._world_points(st)
         points = tuple(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox", "soy"))
         build = dict(G=self.grid_size, S=S, h=self._half,
-                     res=self.config.resolution, taps=self._taps)
+                     res=self.config.resolution, taps=st["taps"])
         grid0 = None
         if self.return_meta:
             q2d, grid = C.build_grid_staged(*points, **build)
@@ -599,11 +631,14 @@ class CorrelativeScanMatcher:
         return self._dispatch(jobs, penalty, do_fine, single=False)
 
     def _dispatch(self, jobs, penalty, do_fine, single):
-        args, P, S = self._prepare(jobs)
+        # rows pad to a power of two (the rows past the jobs have no base
+        # scan, and their results are dropped), so that batches of nearby
+        # sizes share one CUDA graph
+        args, P, S = self._prepare(jobs, n_pad=_pow2(len(jobs)))
         packed, grid0 = self._run(args, P, bool(penalty), bool(do_fine),
                                   self.config.coarse_search_angle_offset, S)
         return _MatchHandle(self, (_host_copy_async(packed), grid0), args, P,
-                            penalty, do_fine, S, single)
+                            penalty, do_fine, S, single, len(jobs))
 
     def match_many_mega(self, jobs, penalty=True, do_fine=True, chunk=16):
         """Score an arbitrarily long job list in device chunks of `chunk`
@@ -621,15 +656,15 @@ class CorrelativeScanMatcher:
         ]
         pending = (_host_copy_async(torch.cat(packs)), None)
         return self._finish(pending, args, P, penalty, do_fine, S,
-                            with_meta=False)
+                            with_meta=False, n=len(jobs))
 
-    def _finish(self, pending, args, P, penalty, do_fine, S, with_meta):
-        """Blocking tail of a dispatched batch: wait for the packed
-        result, retry the jobs whose coarse response is empty, assemble.
-        With `with_meta`, job 0's result carries the grid of its last
-        attempt."""
+    def _finish(self, pending, args, P, penalty, do_fine, S, with_meta, n):
+        """Blocking tail of a dispatched batch of `n` jobs (the rows past
+        them are padding): wait for the packed result, retry the jobs whose
+        coarse response is empty, assemble.  With `with_meta`, job 0's
+        result carries the grid of its last attempt."""
         wait, grid0 = pending
-        packed = wait()
+        packed = wait()[:n]
         offset = self.config.coarse_search_angle_offset
         need = [
             j for j in range(len(packed))
