@@ -21,8 +21,11 @@ Phases, one line each; any failure raises (non-zero exit):
      bit for bit; every scan's matcher view (beam compaction, validation
      runs) at the matchers' point capacity natively and by the numpy /
      Python twins, counts and runs bit-equal, points within 1e-14 m (the
-     entries not bit-equal counted); both timed on the host CPU; phases 4
-     and 10 then require every op called (native.CALLS);
+     entries not bit-equal counted); both timed on the host CPU; then every
+     view again in one call of the matchers' batched op (native.scan_views),
+     bit-equal to the per-scan native views, timed a scan; phases 4 and 10
+     then require the ops of the main path called (native.CALLS: the log
+     parse and the batched views);
   4. run the building-tour CARMEN log through the port's GraphSlam at the
      default matcher configs in float32 on the card: require a loop
      closure, ATE below odometry's and every kernel launched (counted at
@@ -107,7 +110,12 @@ Phases, one line each; any failure raises (non-zero exit):
      expansion offsets) run to a replay and held bit for bit to a direct
      _compute on the same staged inputs; the office batch of 64 through
      match_many_async with one batch in flight, every replay held and
-     every result equal to _compute's after the next batch ran;
+     every result equal to _compute's after the next batch ran; then the
+     office cell's traffic (8 fresh streams, 17 batches of 64): host ms of
+     _prepare a batch (the batched views of its new scans timed apart) and
+     of the library's flush, a view's us by the per-scan ops and by the
+     batched op, and the wall ms a dispatch with one batch in
+     flight, once every key is captured, every result finite and positive;
      match_scan_async (with and without meta), match_many_async, explicit
      queries, the pipeline's block dispatch and match_many_mega, three
      times each, under torch.cuda.set_sync_debug_mode("error") (nothing
@@ -235,6 +243,12 @@ REF_MATCHES = 100      # the tour's first sequential matches, on the host CPU
 # numpy's cos / sin may round apart in the last bit), and the timed passes
 HOSTOPS_TOL = 1e-14
 HOSTOPS_PASSES = 5
+# the host ops the main path runs: the matchers make the views of a batch's
+# new scans in one call (the per-scan ops serve the other callers)
+HOSTOPS_ON_PATH = ("parse_carmen", "scan_views")
+# phase 15: the office cell's traffic, fresh streams of 150 scans at 64
+# jobs a dispatch
+X64_STREAMS, X64_BATCH = 8, 64
 # phase 14: bench_torch's first batched jobs, card against the host's
 # plain path.  In float64 within BENCH_F64_TOL (response, pose and
 # covariance, relative for the covariance).  In float32 the poses within
@@ -615,7 +629,7 @@ def host_ops(log_path):
     and every scan's matcher view, native against the numpy / Python twins
     (bit-equal; points within HOSTOPS_TOL), each timed on the host CPU
     (median over HOSTOPS_PASSES passes; views per scan)."""
-    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch import _build, native
     from yag_slam_tpu_torch.core import scan as S
     from yag_slam_tpu_torch.io import carmen as CL
     from yag_slam_tpu_torch.matching import correlation as C
@@ -658,6 +672,18 @@ def host_ops(log_path):
                 runs = segment(lx, ly, n)
                 us[w].append(1e6 * (time.perf_counter() - t))
                 views[w].append((lx, ly, n, runs))
+    # the matchers' op: every scan's view in one call, each row bit-equal
+    # to the per-scan native view, zero past its count
+    batch_us = []
+    for _ in range(HOSTOPS_PASSES):
+        t = time.perf_counter()
+        rows = native.scan_views(scans, cap)
+        batch_us.append(1e6 * (time.perf_counter() - t) / len(scans))
+    for i, (lx, ly, n, runs) in enumerate(views[0]):
+        got = [rows[f][i] for f in ("lx", "ly", "anchor", "term", "has_run")]
+        want = [lx, ly, *(np.pad(r, (0, cap - n)) for r in runs)]
+        if rows["n"][i] != n or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("a batched view differs from the per-scan native view")
     err, not_bit_equal = 0.0, 0
     for (lx, ly, n, runs), (rx, ry, rn, rruns) in zip(*views):
         if n != rn or not all(np.array_equal(a, b) for a, b in zip(runs, rruns)):
@@ -667,14 +693,16 @@ def host_ops(log_path):
     out = dict(build_s=_build.hostops_build_seconds, load_s=load_s, cpu=cpu_model(),
                scans=len(scans), cap=cap, parse_ms=parse_ms, parse_ref_ms=parse_ref_ms,
                view_us=statistics.median(us[0]), view_ref_us=statistics.median(us[1]),
+               view_batched_us=statistics.median(batch_us),
                max_abs_err_m=err, not_bit_equal=not_bit_equal,
                points=2 * sum(v[2] for v in views[0]))
     log(f"phase 4a: host ops built in {out['build_s']} s (loaded in {load_s:.3f} s) on "
         f"{out['cpu']}; parse of {len(recs)} scans {parse_ms:.3f} ms native vs "
         f"{parse_ref_ms:.3f} ms Python, the same scans; view per scan at cap {cap} "
-        f"{out['view_us']:.2f} us native vs {out['view_ref_us']:.2f} us numpy/Python; "
-        f"counts and runs bit-equal, points max |err| {err:.3e} m, {not_bit_equal} of "
-        f"{out['points']} not bit-equal")
+        f"{out['view_us']:.2f} us native vs {out['view_ref_us']:.2f} us numpy/Python, "
+        f"{out['view_batched_us']:.2f} us a scan in one batched call (bit-equal to "
+        f"native); counts and runs bit-equal, points max |err| {err:.3e} m, "
+        f"{not_bit_equal} of {out['points']} not bit-equal")
     if not err <= HOSTOPS_TOL:
         raise AssertionError(f"native beam endpoints {err} m from numpy's")
     return out
@@ -780,8 +808,8 @@ def run_slam(tmp, gpu, dev):
     for k in SLAM_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
-    for op, calls in hostops["calls"]["slam"].items():
-        if calls <= 0:
+    for op in HOSTOPS_ON_PATH:
+        if hostops["calls"]["slam"][op] <= 0:
             raise AssertionError(f"host op {op} never called on the main path")
     log(f"phase 4: host op calls {hostops['calls']['slam']}")
 
@@ -1246,7 +1274,7 @@ def entry_points(tour, tmp, dev, gpu):
     native.reset_calls()
     ((a, b), lines), out["launches"]["cli"] = counted(K, lambda: quiet(cli))
     out["hostops_calls"] = dict(native.CALLS)
-    if min(out["hostops_calls"].values()) <= 0:
+    if min(out["hostops_calls"][op] for op in HOSTOPS_ON_PATH) <= 0:
         raise AssertionError(f"the CLI skipped a host op: {out['hostops_calls']}")
     keys = ("vertices", "edges", "loop_closures", "integrated", "scans_per_s",
             "ate_rmse", "ate_rmse_odom")
@@ -1928,6 +1956,100 @@ def host_times(m, rec, n=20):
     return statistics.median(replay), statistics.median(eager)
 
 
+def x64_batches(seed):
+    """The office cell's traffic: bench_torch's batched jobs of X64_STREAMS
+    fresh 150-scan streams from `seed` on, in full batches of X64_BATCH."""
+    jobs = [j for k in range(X64_STREAMS)
+            for j in bench_torch.batch_jobs(bench_torch.build_stream(seed=seed + k))]
+    return [jobs[i:i + X64_BATCH] for i in range(0, len(jobs) - X64_BATCH + 1, X64_BATCH)]
+
+
+def x64_costs(dev):
+    """Phase 15's host costs at 64 jobs a dispatch, on fresh scans as the
+    office cell meets them: _prepare and the library's flush, host ms a
+    batch (medians; the batched views of the batch's new scans timed
+    apart), then the wall ms a dispatch with one batch in flight (the
+    caller's submit and result apart) once a pass over the same batches
+    on fresh scans has captured every key."""
+    from yag_slam_tpu_torch import native
+    from yag_slam_tpu_torch.matching.graphs import CAPTURE_AT_USE
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+
+    made = []
+    batched = native.scan_views
+
+    def timed_views(scans, cap):
+        t = time.perf_counter()
+        try:
+            return batched(scans, cap)
+        finally:
+            made.append((len(scans), time.perf_counter() - t))
+
+    m = M(bench_torch.CFG, device=dev)
+    prep, flush, views, new, calls = [], [], [], [], []
+    native.scan_views = timed_views
+    try:
+        for b in x64_batches(200):
+            made.clear()
+            t0 = time.perf_counter()
+            m._prepare(b, n_pad=X64_BATCH)
+            t1 = time.perf_counter()
+            m.library.flush()
+            flush.append(1e3 * (time.perf_counter() - t1))
+            prep.append(1e3 * (t1 - t0))
+            views.append(1e3 * sum(t for _, t in made))
+            new.append(sum(n for n, _ in made))
+            calls.append(len(made))
+    finally:
+        native.scan_views = batched
+    # a new scan's view by the per-scan ops against the batched op, on one
+    # fresh stream at the batches' point capacity
+    scans, cap = bench_torch.build_stream(seed=400), m.library.P
+    v0 = time.perf_counter()
+    for s in scans:
+        lx, ly, n = native.compact_beams(s.ranges, s.min_angle, s.angle_increment,
+                                         s.range_threshold, cap)
+        native.segment_runs(lx, ly, n)
+    v1 = time.perf_counter()
+    batched(scans, cap)
+    v2 = time.perf_counter()
+
+    def one_deep(m, batches, times=None):
+        out, h = [], None
+        for b in batches:
+            t = time.perf_counter()
+            nxt = m.match_many_async(b)
+            t1 = time.perf_counter()
+            if h is not None:
+                out += h.result()
+            if times is not None:
+                times.append((t1 - t, time.perf_counter() - t1))
+            h = nxt
+        return out + h.result()
+
+    for _ in range(CAPTURE_AT_USE):
+        one_deep(M(bench_torch.CFG, device=dev), x64_batches(300))
+    batches = x64_batches(300)
+    m = M(bench_torch.CFG, device=dev)
+    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = one_deep(m, batches, times)
+    wall = time.perf_counter() - t0
+    if len(res) != X64_BATCH * len(batches) or not all(
+            np.isfinite(r.response) and r.response > 0 for r in res):
+        raise AssertionError("an x64 result is not finite and positive")
+    med = statistics.median
+    return dict(batches=len(batches), prepare_ms=med(prep), flush_ms=med(flush),
+                views_ms=med(views), new_scans=statistics.mean(new),
+                view_us_per_scan_ops=1e6 * (v1 - v0) / len(scans),
+                view_us_batched=1e6 * (v2 - v1) / len(scans),
+                view_calls=statistics.mean(calls), dispatch_ms=1e3 * wall / len(batches),
+                submit_ms=1e3 * med(s for s, _ in times),
+                result_ms=1e3 * med(r for _, r in times[1:]),
+                matches_per_s=len(res) / wall)
+
+
 def graphs_phase(slam, tour_keys, tour, dev, gpu):
     """Phase 15: every key the tour met held bit for bit, replay against
     _compute; the office batch of 64 with one batch in flight; one
@@ -1991,6 +2113,15 @@ def graphs_phase(slam, tour_keys, tour, dev, gpu):
     out["async64"] = dict(batches=len(batches), replays_held=tally["replays"])
     log(f"phase 15: match_many_async x64, one batch in flight: {tally['replays']} "
         f"replays held, every result equal to _compute's after the next batch ran")
+    out["x64_costs"] = c = x64_costs(dev)
+    log(f"phase 15: x64, the office cell's traffic ({c['batches']} batches of {X64_BATCH}): "
+        f"_prepare {c['prepare_ms']:.3f} ms a batch (median), of which the views of "
+        f"{c['new_scans']:.1f} new scans {c['views_ms']:.3f} ms in {c['view_calls']:.1f} "
+        f"native call(s) (a view {c['view_us_batched']:.2f} us batched, "
+        f"{c['view_us_per_scan_ops']:.2f} us by the per-scan ops); flush "
+        f"{c['flush_ms']:.3f} ms; one batch in flight: "
+        f"{c['dispatch_ms']:.3f} ms a dispatch wall (submit {c['submit_ms']:.3f}, result "
+        f"{c['result_ms']:.3f}), {c['matches_per_s']:.1f} matches/s ({gpu})")
 
     # one dispatch of each kind, three times (eager, capture, replay where
     # the key is new), with any wait for the card raising

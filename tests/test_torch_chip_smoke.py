@@ -324,6 +324,6 @@ def test_host_ops_phase_holds_native_to_the_twins(tmp_path):
     assert out["scans"] == n == 413 and out["cap"] == 256
     assert out["max_abs_err_m"] <= smoke.HOSTOPS_TOL
     assert 0 <= out["not_bit_equal"] <= out["points"]
-    for k in ("parse_ms", "parse_ref_ms", "view_us", "view_ref_us", "load_s"):
+    for k in ("parse_ms", "parse_ref_ms", "view_us", "view_ref_us", "view_batched_us", "load_s"):
         assert out[k] > 0.0
     assert out["cpu"].endswith(" CPUs")

@@ -221,10 +221,26 @@ def test_refusals(tmp_path):
         native.segment_runs(np.zeros(3), np.zeros(3), 5)
 
 
+def twin_scan_views(scans, cap):
+    """native.scan_views composed of the numpy / Python twins."""
+    k = len(scans)
+    out = dict(lx=np.zeros((k, cap)), ly=np.zeros((k, cap)),
+               anchor=np.zeros((k, cap), dtype=np.int32), term=np.zeros((k, cap), dtype=np.int32),
+               has_run=np.zeros((k, cap), dtype=bool), n=np.zeros(k, dtype=np.int64))
+    for i, s in enumerate(scans):
+        lx, ly, n = scan.beam_points_padded_ref(s.ranges, s.min_angle, s.angle_increment,
+                                                s.range_threshold, cap)
+        out["lx"][i], out["ly"][i], out["n"][i] = lx, ly, n
+        runs = correlation.segment_validation_runs_ref(lx, ly, n)
+        for f, v in zip(("anchor", "term", "has_run"), runs):
+            out[f][i, :n] = v
+    return out
+
+
 def test_matcher_same_with_native_or_twin_views(monkeypatch):
     """tests/test_native.py's full-pipeline check on the port: a match on
     the CPU gives the same bits whether the views came from the native ops
-    or from their twins."""
+    (one batched call for the match's four new scans) or from their twins."""
     world = simulator.SimWorld.office()
 
     def run():
@@ -239,21 +255,23 @@ def test_matcher_same_with_native_or_twin_views(monkeypatch):
 
     native.reset_calls()
     a = run()
-    assert native.CALLS["compact_beams"] == native.CALLS["segment_runs"] == 4
-    monkeypatch.setattr(scan, "beam_points_padded", scan.beam_points_padded_ref)
-    monkeypatch.setattr(correlation, "segment_validation_runs",
-                        correlation.segment_validation_runs_ref)
+    assert native.CALLS["scan_views"] == 1
+    monkeypatch.setattr(native, "scan_views", twin_scan_views)
     native.reset_calls()
     b = run()
-    assert native.CALLS["compact_beams"] == native.CALLS["segment_runs"] == 0
+    assert native.CALLS["scan_views"] == 0
     assert a.response == b.response > 0.3
     assert (a.best_pose.x, a.best_pose.y, a.best_pose.euler[-1]) == \
         (b.best_pose.x, b.best_pose.y, b.best_pose.euler[-1])
     np.testing.assert_array_equal(a.covariance, b.covariance)
 
 
-def test_a_cpu_tour_goes_through_every_op(tour):
+def test_a_cpu_tour_goes_through_every_op(tour, monkeypatch):
     log, _ = tour
+    views_made = []
+    batched = native.scan_views
+    monkeypatch.setattr(native, "scan_views",
+                        lambda scans, cap: views_made.append(len(scans)) or batched(scans, cap))
     native.reset_calls()
     scans = carmen.carmen_to_localized_scans(carmen.load_carmen_log(log, 12),
                                              range_threshold=5.0)
@@ -264,10 +282,12 @@ def test_a_cpu_tour_goes_through_every_op(tour):
     assert len(slam.graph.vertices) > 1
     assert native.CALLS["parse_carmen"] == 1
     # each scan's view at each point capacity the matchers took (they widen
-    # as wider scans arrive) is compacted and segmented once, and cached
+    # as wider scans arrive) is compacted and segmented once, and cached;
+    # the matchers make them in batches, never one op per scan
     views = [k for s in scans for k in s._points_cache if k[0] == "matcher_view"]
     assert len(views) >= len(scans)
-    assert native.CALLS["compact_beams"] == native.CALLS["segment_runs"] == len(views)
+    assert sum(views_made) == len(views) and 0 < len(views_made) <= len(views)
+    assert native.CALLS["compact_beams"] == native.CALLS["segment_runs"] == 0
 
 
 def _fresh_build(monkeypatch, tmp_path, source):

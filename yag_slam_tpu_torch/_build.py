@@ -78,6 +78,7 @@ _NATIVE_SIGNATURES = {
 _HOSTOPS_SIGNATURES = {
     "yag_compact_beams": (_P, _L, _D, _D, _D, _L, _P, _P, _P),
     "yag_segment_runs": (_P, _P, _L, _P, _P, _P),
+    "yag_scan_views": (_P, _P, _P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P),
     "yag_parse_carmen": (ctypes.c_char_p, _L, _P, _P, _P),
     "yag_carmen_copy": (_P, _P, _P, _P),
     "yag_carmen_free": (_P,),

@@ -8,9 +8,10 @@ Projection semantics follow the reference: a beam is kept iff its range is
 not NaN and not greater than `range_threshold` (zeros and negatives are
 kept), and the beam angle is ``pose_theta + min_angle + i *
 angle_increment`` (``max_angle`` is unused by the projection, a reference
-quirk kept as it is).  The padded view that the matcher reads is
-compacted by the native host op (``native.compact_beams``);
-:func:`beam_points_padded_ref` is its numpy twin, for the tests.
+quirk kept as it is).  The padded view is compacted by the native host
+op (``native.compact_beams``; the matcher makes the views of a batch's
+new scans with ``native.scan_views``, the same arithmetic over a stack of
+scans); :func:`beam_points_padded_ref` is its numpy twin, for the tests.
 """
 from __future__ import annotations
 
@@ -173,8 +174,13 @@ class LocalizedRangeScan:
 
     @property
     def num_valid_beams(self):
-        r = self.ranges
-        return int(np.sum(~(np.isnan(r) | (r > self.range_threshold))))
+        # cached beside the views, which also take the ranges as fixed
+        n = self._points_cache.get("num_valid_beams")
+        if n is None:
+            r = self.ranges
+            n = int(np.count_nonzero(~(np.isnan(r) | (r > self.range_threshold))))
+            self._points_cache["num_valid_beams"] = n
+        return n
 
     # -- lifecycle ---------------------------------------------------------
     def copy(self):

@@ -36,6 +36,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
+from yag_slam_tpu_torch import native
 from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from yag_slam_tpu_torch.core.config import ScanMatcherConfig, make_config
 from yag_slam_tpu_torch.core.transform import Transform
@@ -67,6 +68,12 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 # scan slots allocated up front; the library doubles when full
 _LIBRARY_INITIAL_CAP = 128
+
+# the matcher's cache of yaws by quaternion is emptied at this size
+_YAW_CACHE = 1 << 16
+
+# the bbox of no scan: the identity of min / max
+_EMPTY_BOX = np.array([np.inf, -np.inf, np.inf, -np.inf])
 
 # The localize-against-map coarse pass's literal search: +-0.25 m at
 # 0.01 m, +-0.1 rad at 0.01 rad, on a 0.05 m grid, unpenalized.
@@ -114,26 +121,32 @@ def scan_matcher_view(scan, cap: int):
     """Cached, pose-independent host view of a scan: compacted local beam
     endpoints + validation-run structure.  Shares the cache key of the JAX
     package, so both matchers reuse one view of a scan."""
+    return scan_matcher_views([scan], cap)[0]
+
+
+def scan_matcher_views(scans, cap: int):
+    """:func:`scan_matcher_view` of each scan; the views not cached yet are
+    made together by one native call (one per shared points cache)."""
     key = ("matcher_view", cap)
-    if key not in scan._points_cache:
-        lx, ly, n = scan.local_points_padded(cap)
-        a, t, h = C.segment_validation_runs(lx, ly, n)
-        anchor = np.zeros(cap, dtype=np.int32)
-        term = np.zeros(cap, dtype=np.int32)
-        has = np.zeros(cap, dtype=bool)
-        anchor[:n], term[:n], has[:n] = a, t, h
-        scan._points_cache[key] = dict(
-            lx=lx, ly=ly, anchor=anchor, term=term, has_run=has, n=n
-        )
-    return scan._points_cache[key]
+    new = {}
+    for s in scans:
+        if key not in s._points_cache:
+            new.setdefault(id(s._points_cache), s)
+    if new:
+        made = native.scan_views(list(new.values()), cap)
+        for i, s in enumerate(new.values()):
+            s._points_cache[key] = dict(
+                lx=made["lx"][i], ly=made["ly"][i], anchor=made["anchor"][i],
+                term=made["term"][i], has_run=made["has_run"][i], n=int(made["n"][i]))
+    return [s._points_cache[key] for s in scans]
 
 
 class DeviceScanLibrary:
     """Device-resident store of scan matcher views: (K, P) tensors per
     field, addressed by slot.
 
-    Uploads are deferred: ``ensure`` assigns slots (host bookkeeping only)
-    and queues the scans; the next read of ``.fields`` copies every queued
+    Uploads are deferred: ``ensure`` assigns slots, queues the scans and
+    makes their host views; the next read of ``.fields`` copies every queued
     scan in one host-to-device transfer per field.  Slots are keyed by the
     identity of the scan's shared points cache, so ``LocalizedRangeScan.copy``
     (the loop-closure temp scans) aliases the original's slot."""
@@ -167,23 +180,25 @@ class DeviceScanLibrary:
             return
         pending, self._pending = self._pending, []
         np_dtype = _NP_DTYPES[self.dtype]
-        views = [scan_matcher_view(s, self.P) for _, s in pending]
+        views = scan_matcher_views([s for _, s in pending], self.P)
         rows = dict(
-            lx=np.stack([v["lx"] for v in views]).astype(np_dtype),
-            ly=np.stack([v["ly"] for v in views]).astype(np_dtype),
-            anchor=np.stack([v["anchor"] for v in views]),
-            term=np.stack([v["term"] for v in views]),
-            has_run=np.stack([v["has_run"] for v in views]),
+            lx=_stack([v["lx"] for v in views], np_dtype),
+            ly=_stack([v["ly"] for v in views], np_dtype),
+            anchor=_stack([v["anchor"] for v in views]),
+            term=_stack([v["term"] for v in views]),
+            has_run=_stack([v["has_run"] for v in views]),
             n=np.asarray([v["n"] for v in views], dtype=np.int32),
         )
-        slots = _to_device(np.asarray([sl for sl, _ in pending], dtype=np.int64),
-                           self.device)
-        for k, v in rows.items():
-            self._fields[k].index_copy_(0, slots, _to_device(v, self.device))
+        slots, *vals = _to_device_all(
+            [np.asarray([sl for sl, _ in pending], dtype=np.int64), *rows.values()],
+            self.device)
+        for k, v in zip(rows, vals):
+            self._fields[k].index_copy_(0, slots, v)
 
     def ensure(self, scans, P):
-        """Give every scan a slot at point capacity P (uploads are queued);
-        returns the slots aligned with `scans`."""
+        """Give every scan a slot at point capacity P and make the views of
+        the scans queued for upload; returns the slots aligned with
+        `scans`."""
         if self._fields is None:
             self.P = P
             self.K_cap = self.initial_cap or _LIBRARY_INITIAL_CAP
@@ -212,17 +227,40 @@ class DeviceScanLibrary:
                 self._scans.append(s)
                 self._pending.append((slot, s))
             out.append(slot)
+        # the queued scans' views, in one native call
+        scan_matcher_views([s for _, s in self._pending], self.P)
         return np.asarray(out, dtype=np.int64)
 
 
+def _stack(rows, dtype=None):
+    """np.stack of equal-length 1-D rows (cast to `dtype`), in one
+    concatenate: np.stack's per-row reshapes cost more than the copy."""
+    return np.concatenate(rows, dtype=dtype).reshape(len(rows), -1)
+
+
 def _to_device(a, device):
-    """Host array -> tensor on `device` without waiting for the device: on
-    CUDA through a pinned staging copy and a non-blocking transfer (the
-    caching host allocator keeps the staging buffer until the copy ran)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    """Host array -> tensor on `device` without waiting for the device (see
+    :func:`_to_device_all`)."""
+    return _to_device_all([a], device)[0]
+
+
+def _to_device_all(arrays, device):
+    """Host arrays -> tensors on `device` without waiting for the device: on
+    CUDA through one pinned staging buffer that holds them all and one
+    non-blocking transfer (the caching host allocator keeps the buffer until
+    the copy ran)."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
     if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+        return [torch.from_numpy(a) for a in arrays]
+    # 8-byte aligned slots, so that every view of the copy is aligned
+    offsets = np.cumsum([0] + [-(-a.nbytes // 8) * 8 for a in arrays]).tolist()
+    host = torch.empty(offsets[-1], dtype=torch.uint8, pin_memory=True)
+    buf = host.numpy()
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes].view(a.dtype).reshape(a.shape)[...] = a
+    dev = host.to(device, non_blocking=True)
+    return [dev[o:o + a.nbytes].view(torch.from_numpy(a).dtype).view(a.shape)
+            for a, o in zip(arrays, offsets)]
 
 
 def _host_copy_async(t):
@@ -326,6 +364,11 @@ class CorrelativeScanMatcher:
         self._taps = torch.as_tensor(
             C.check_smear_taps(self._k1.astype(np.float32)), device=self.device)
         self.library = DeviceScanLibrary(dtype, device=self.device)
+        self._yaws = {}
+        # the subgrid sides a match may take: the buckets below the largest
+        # subgrid, then the largest
+        s_max = self._max_sub()
+        self._sub_sizes = np.array([b for b in _SUB_BUCKETS if b < s_max] + [s_max])
 
     # -- capacity management ------------------------------------------------
     def _ensure_point_cap(self, scans) -> int:
@@ -345,67 +388,94 @@ class CorrelativeScanMatcher:
     def _max_sub(self):
         return _round_up(self.grid_size, 128)
 
-    @staticmethod
-    def _scan_world_bbox(s, P):
-        """World-frame bbox of a scan's padded view at its corrected pose,
-        cached per (pose, P) on the scan's shared points cache."""
-        p = s.corrected_pose
-        t = p.euler[-1]
-        key = ("wbbox", P, p.x, p.y, t)
-        cache = s._points_cache
-        hit = cache.get(key)
-        if hit is None:
-            v = scan_matcher_view(s, P)
-            c, sn = np.cos(t), np.sin(t)
-            wx = p.x + c * v["lx"] - sn * v["ly"]
-            wy = p.y + sn * v["lx"] + c * v["ly"]
-            hit = (wx.min(), wx.max(), wy.min(), wy.max())
-            for k in [k for k in cache if k[0] == "wbbox" and k != key]:
-                del cache[k]
-            cache[key] = hit
-        return hit
+    def _xyt(self, p):
+        """(x, y, yaw) of a pose; the yaw (three atan2 / asin) is computed
+        once per quaternion."""
+        q = (p.qx, p.qy, p.qz, p.qw)
+        t = self._yaws.get(q)
+        if t is None:
+            if len(self._yaws) >= _YAW_CACHE:
+                self._yaws.clear()
+            t = self._yaws[q] = p.euler[-1]
+        return p.x, p.y, t
+
+    def _world_bboxes(self, scans, P):
+        """(K, 4) float64: each scan's world-frame bbox (x min, x max, y
+        min, y max) of its padded view at its corrected pose (the padding
+        puts the pose's own position into the box).  Cached per (pose, P)
+        on the scan's shared points cache, which holds one pose's box (a
+        loop-closure copy shares the cache at another pose); the boxes not
+        cached are computed together."""
+        out, miss = [], []
+        for k, s in enumerate(scans):
+            x, y, t = self._xyt(s.corrected_pose)
+            key = ("wbbox", P, x, y, t)
+            hit = s._points_cache.get(key)
+            if hit is None:
+                miss.append((k, s, key))
+            out.append(hit)
+        if miss:
+            views = scan_matcher_views([s for _, s, _ in miss], P)
+            lx = _stack([v["lx"] for v in views])
+            ly = _stack([v["ly"] for v in views])
+            # per pose: x, y and the scalar cos / sin of its yaw (numpy's
+            # array loops may round differently in the last bit)
+            pc = np.array([(key[2], key[3], np.cos(key[4]), np.sin(key[4]))
+                           for _, _, key in miss])
+            x, y, c, sn = pc[:, 0:1], pc[:, 1:2], pc[:, 2:3], pc[:, 3:4]
+            # x + c * lx - sn * ly and y + sn * lx + c * ly, in place
+            wx, tmp = c * lx, sn * ly
+            wx += x
+            wx -= tmp
+            wy = np.multiply(sn, lx, out=tmp)
+            wy += y
+            wy += np.multiply(c, ly, out=lx)
+            boxes = np.empty((len(miss), 4))
+            wx.min(1, out=boxes[:, 0])
+            wx.max(1, out=boxes[:, 1])
+            wy.min(1, out=boxes[:, 2])
+            wy.max(1, out=boxes[:, 3])
+            for (k, s, key), box in zip(miss, boxes.tolist()):
+                cache = s._points_cache
+                for old in [o for o in cache if o[0] == "wbbox"]:
+                    del cache[old]
+                cache[key] = out[k] = tuple(box)
+        return np.array(out, dtype=np.float64).reshape(len(scans), 4)
+
+    def _subgrids(self, boxes, centers, margin_cells=0):
+        """Host-side tight occupied-bbox subgrids of N jobs: their origins
+        (sox, soy) (N, 2) and sides S (N,), int64, from `boxes` (N, B, 4),
+        the world bboxes of each job's base scans (rows past a job's scans:
+        _EMPTY_BOX), and the search centers' xy (N, 2) float64.  Exact:
+        every base point inside the full grid lands inside the subgrid (+
+        smear halo), so all other cells are zero.  `margin_cells` widens the
+        box on every side: the chained pipeline's host pose estimates can
+        lag the device's poses by a bounded number of cells."""
+        res = self.config.resolution
+        G = self.grid_size
+        h = self._half
+        mc = int(margin_cells)
+        # (x, y) columns: the full grid's origin, the boxes' low and high
+        # corners in its cells, widened by 1 + mc, clipped to the grid
+        o = centers - 0.5 * (G - 1) * res
+        lo = np.floor((boxes[..., 0::2].min(axis=1) - o) / res) - (1 + mc)
+        hi = np.ceil((boxes[..., 1::2].max(axis=1) - o) / res) + (1 + mc)
+        lo = np.minimum(np.maximum(lo, 0), G - 1).astype(np.int64)
+        hi = np.minimum(np.maximum(hi, 0), G - 1).astype(np.int64)
+        span = (hi - lo).max(axis=1) + (1 + 2 * h + 4)
+        sizes = self._sub_sizes
+        S = sizes[np.minimum(np.searchsorted(sizes, span), len(sizes) - 1)]
+        so = np.minimum(np.maximum(lo - (h + 2), 0), (G - S)[:, None])
+        so[S >= G] = 0
+        return so, S
 
     def _subgrid_for(self, base_scans, center_x, center_y, P,
                      margin_cells: int = 0):
-        """Host-side tight occupied-bbox subgrid: (sox, soy, S).  Exact:
-        every base point inside the full grid lands inside the subgrid
-        (+ smear halo), so all other cells are zero.  `margin_cells` widens
-        the box on every side: the chained pipeline's host pose estimates
-        can lag the device's poses by a bounded number of cells."""
-        cfg = self.config
-        res = cfg.resolution
-        G = self.grid_size
-        h = self._half
-        ox = center_x - 0.5 * (G - 1) * res
-        oy = center_y - 0.5 * (G - 1) * res
-
-        minx = miny = np.inf
-        maxx = maxy = -np.inf
-        for s in base_scans:
-            x0, x1, y0, y1 = self._scan_world_bbox(s, P)
-            minx = min(minx, x0)
-            maxx = max(maxx, x1)
-            miny = min(miny, y0)
-            maxy = max(maxy, y1)
-
-        mc = int(margin_cells)
-        gminx = int(np.clip(np.floor((minx - ox) / res) - 1 - mc, 0, G - 1))
-        gmaxx = int(np.clip(np.ceil((maxx - ox) / res) + 1 + mc, 0, G - 1))
-        gminy = int(np.clip(np.floor((miny - oy) / res) - 1 - mc, 0, G - 1))
-        gmaxy = int(np.clip(np.ceil((maxy - oy) / res) + 1 + mc, 0, G - 1))
-        span = max(gmaxx - gminx, gmaxy - gminy) + 1 + 2 * h + 4
-
-        s_max = self._max_sub()
-        S = s_max
-        for b in _SUB_BUCKETS:
-            if b >= span and b < s_max:
-                S = b
-                break
-        if S >= G:
-            return 0, 0, S
-        sox = int(np.clip(gminx - h - 2, 0, G - S))
-        soy = int(np.clip(gminy - h - 2, 0, G - S))
-        return sox, soy, S
+        """:meth:`_subgrids` of one job: (sox, soy, S)."""
+        boxes = self._world_bboxes(base_scans, P)[None]
+        so, S = self._subgrids(boxes, np.array([[center_x, center_y]], dtype=np.float64),
+                               margin_cells)
+        return int(so[0, 0]), int(so[0, 1]), int(S[0])
 
     # -- the match program ------------------------------------------------------
     def _specs(self, coarse_offset):
@@ -562,41 +632,74 @@ class CorrelativeScanMatcher:
         return core
 
     # -- job assembly -----------------------------------------------------------
+    @staticmethod
+    def _distinct_scans(jobs):
+        """The jobs' scans, each once, in the order the jobs first touch
+        them (each job's base scans, then its query; the order in which
+        they take library slots), and where each job's scans sit in that
+        list: its base scans' positions (one list for all jobs, in job
+        order) and its query's ((n,) int64)."""
+        pos, scans, base, query = {}, [], [], []
+        for q, base_scans in jobs:
+            for s in base_scans:
+                k = pos.get(id(s))
+                if k is None:
+                    k = pos[id(s)] = len(scans)
+                    scans.append(s)
+                base.append(k)
+            k = pos.get(id(q))
+            if k is None:
+                k = pos[id(q)] = len(scans)
+                scans.append(q)
+            query.append(k)
+        return scans, np.asarray(base, dtype=np.int64), np.asarray(query, dtype=np.int64)
+
     def _assemble_jobs(self, jobs, P, B, n_pad=None):
         """Host-side per-job metadata: library slots, poses, search
-        centers, viewpoints (the centers' xy) and subgrids.  With `n_pad`,
-        the arrays have n_pad rows; the rows past the jobs are zero with
-        `mask` False."""
-        N = n_pad or len(jobs)
-        idx = np.zeros((N, B), dtype=np.int64)
-        mask = np.zeros((N, B), dtype=bool)
-        pose = np.zeros((N, B, 3), dtype=self.np_dtype)
-        q_idx = np.zeros(N, dtype=np.int64)
-        center = np.zeros((N, 3), dtype=self.np_dtype)
+        centers, viewpoints (the centers' xy) and subgrids, gathered from
+        tables of the batch's distinct scans.  With `n_pad`, the arrays have
+        n_pad rows; the rows past the jobs are zero with `mask` False."""
+        return self._gather_jobs(jobs, self._distinct_scans(jobs), P, B, n_pad)
+
+    def _gather_jobs(self, jobs, distinct, P, B, n_pad):
+        """:meth:`_assemble_jobs` given the jobs' :meth:`_distinct_scans`."""
+        n = len(jobs)
+        N = n_pad or n
+        scans, base_pos, q_pos = distinct
+        K = len(scans)
+        # per-scan tables with one more row, the empty entry, that position
+        # -1 reads: slot 0, pose 0, the empty box
+        slots = np.zeros(K + 1, dtype=np.int64)
+        slots[:K] = self.library.ensure(scans, P)
+        xyt = np.array([self._xyt(s.corrected_pose) for s in scans] + [(0.0, 0.0, 0.0)])
+        in_base = np.zeros(K, dtype=bool)
+        in_base[base_pos] = True
+        in_base = in_base.nonzero()[0]
+        boxes = np.empty((K + 1, 4))
+        boxes[-1] = _EMPTY_BOX
+        boxes[in_base] = self._world_bboxes([scans[k] for k in in_base.tolist()], P)
+
+        at = np.empty((N, B), dtype=np.int64)
+        at.fill(-1)
+        at[:n][np.arange(B) < np.array([len(bs) for _, bs in jobs])[:, None]] = base_pos
+        q_at = np.empty(N, dtype=np.int64)
+        q_at.fill(-1)
+        q_at[:n] = q_pos
+        poses = xyt.astype(self.np_dtype)
+        center = poses[q_at]
+        so, S = self._subgrids(boxes[at[:n]], xyt[q_pos, :2])
         sub = np.zeros((N, 2), dtype=np.int32)
-        S = 0
-        for j, (query, base_scans) in enumerate(jobs):
-            slots = self.library.ensure(list(base_scans) + [query], P)
-            idx[j, : len(base_scans)] = slots[:-1]
-            q_idx[j] = slots[-1]
-            mask[j, : len(base_scans)] = True
-            for i, s in enumerate(base_scans):
-                p = s.corrected_pose
-                pose[j, i] = (p.x, p.y, p.euler[-1])
-            p = query.corrected_pose
-            center[j] = (p.x, p.y, p.euler[-1])
-            sox, soy, S_j = self._subgrid_for(base_scans, p.x, p.y, P)
-            sub[j] = (sox, soy)
-            S = max(S, S_j)
-        return (idx, mask, pose, q_idx, center, center[:, :2], sub), S
+        sub[:n] = so
+        return ((slots[at], at >= 0, poses[at], slots[q_at], center, center[:, :2], sub),
+                int(S.max(initial=0)))
 
     def _prepare(self, jobs, n_pad=None):
         if any(not bs for _, bs in jobs):
             raise ValueError("every job needs at least one base scan")
-        all_scans = [q for q, _ in jobs] + [s for _, bs in jobs for s in bs]
-        P = self._ensure_point_cap(all_scans)
+        distinct = self._distinct_scans(jobs)
+        P = self._ensure_point_cap(distinct[0])
         B = self._base_bucket(max(len(bs) for _, bs in jobs))
-        args, S = self._assemble_jobs(jobs, P, B, n_pad)
+        args, S = self._gather_jobs(jobs, distinct, P, B, n_pad)
         return args, P, S
 
     # -- public API -----------------------------------------------------------

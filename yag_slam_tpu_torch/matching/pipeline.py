@@ -278,14 +278,9 @@ class OnlineMatchPipeline:
         h = m._half
         ox = float(center_xyt[0]) - 0.5 * (G - 1) * res
         oy = float(center_xyt[1]) - 0.5 * (G - 1) * res
-        minx = miny = np.inf
-        maxx = maxy = -np.inf
-        for s in base:
-            x0, x1, y0, y1 = m._scan_world_bbox(s, m._point_cap)
-            minx = min(minx, x0)
-            maxx = max(maxx, x1)
-            miny = min(miny, y0)
-            maxy = max(maxy, y1)
+        boxes = m._world_bboxes(base, m._point_cap)
+        minx, maxx = boxes[:, 0].min(), boxes[:, 1].max()
+        miny, maxy = boxes[:, 2].min(), boxes[:, 3].max()
         # conservative cell bounds (half-even rounding is within the +-1)
         gminx = int(np.floor((minx - ox) / res)) - 1
         gmaxx = int(np.ceil((maxx - ox) / res)) + 1

@@ -7,7 +7,9 @@ functions:
 
 - ``hostops.cpp``: :func:`compact_beams`, :func:`segment_runs` and
   :func:`parse_carmen`, the per-scan host path (``core/scan.py``,
-  ``matching/correlation.py``) and the log reader (``io/carmen.py``).
+  ``matching/correlation.py``) and the log reader (``io/carmen.py``), and
+  :func:`scan_views`, both per-scan ops over a stack of scans in one call
+  (the matcher's views of a batch's new scans).
   Their numpy and Python twins stay in those modules as ``*_ref``, for
   the tests.  ``CALLS`` counts the calls of each op (plain ints; callers
   may reset them), so a run can show that it went through them.
@@ -34,7 +36,7 @@ _ERRORS = {1: "bad argument (no query point, or base offsets not rising)",
 _CAPACITY, _BAD_ARGUMENT = 1, 2
 _CARMEN_META = 8   # min_angle max_angle inc max_range x y theta timestamp
 
-CALLS = {"compact_beams": 0, "segment_runs": 0, "parse_carmen": 0}
+CALLS = {"compact_beams": 0, "segment_runs": 0, "scan_views": 0, "parse_carmen": 0}
 
 
 def reset_calls():
@@ -112,6 +114,38 @@ def segment_runs(px, py, n):
     if err:
         _hostops_failed("segment_runs", err)
     return anchor, term, has.view(bool)
+
+
+def scan_views(scans, cap):
+    """:func:`compact_beams` then :func:`segment_runs` of each of `scans`
+    (objects with ``ranges``, ``min_angle``, ``angle_increment`` and
+    ``range_threshold``) in one call, as (k, cap) rows: xs, ys (float64),
+    anchor, term (int32), has_run (bool), zero past each scan's count,
+    and the counts n (k,) int64.  Raises ValueError when a scan keeps more
+    than `cap` beams."""
+    lib = _build.hostops_library()
+    k, cap = len(scans), int(cap)
+    ranges = [s.ranges for s in scans]
+    flat = np.concatenate(ranges, axis=None, dtype=np.float64) if k else np.zeros(0)
+    offsets = np.zeros(k + 1, dtype=np.int64)
+    np.cumsum([np.size(r) for r in ranges], out=offsets[1:])
+    geom = np.array([(s.min_angle, s.angle_increment, s.range_threshold) for s in scans],
+                    dtype=np.float64).reshape(k, 3).T.copy()
+    # one buffer a pair of outputs: fewer addresses to take
+    xys = np.empty((2, k, cap))
+    runs = np.empty((2, k, cap), dtype=np.int32)
+    has = np.empty((k, cap), dtype=np.uint8)
+    n = np.zeros(k, dtype=np.int64)
+    g, xy, ru = _ptr(geom), _ptr(xys), _ptr(runs)
+    err = lib.yag_scan_views(_ptr(flat), _ptr(offsets), g, g + 8 * k, g + 16 * k, k, cap,
+                             xy, xy + 8 * k * cap, _ptr(n), ru, ru + 4 * k * cap, _ptr(has))
+    CALLS["scan_views"] += 1
+    if err == _CAPACITY:
+        raise ValueError(f"scan has {n.max()} valid beams > point capacity {cap}")
+    if err:
+        _hostops_failed("scan_views", err)
+    return dict(lx=xys[0], ly=xys[1], anchor=runs[0], term=runs[1], has_run=has.view(bool),
+                n=n)
 
 
 def parse_carmen(path, max_scans=None):

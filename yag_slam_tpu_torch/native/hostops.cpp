@@ -4,7 +4,9 @@
 // the host per scan is preprocessing: beam projection and compaction, and
 // the pose-independent validation-run segmentation (the reference's
 // _get_point_readings and validate_points, yag_slam/helpers.py:58-68,
-// 298-329), plus reading CARMEN logs.  They run here as plain C++.
+// 298-329), plus reading CARMEN logs.  They run here as plain C++, per
+// scan or, for the matcher's views of a batch's new scans, over a stack of
+// scans in one call (yag_scan_views).
 //
 // Counterpart of yag_slam_tpu/native/hostops.cpp with the same arithmetic
 // line for line; only the interface differs: plain extern "C" functions
@@ -133,18 +135,13 @@ bool parse_line(char* p, std::vector<double>& ranges, double* meta) {
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
 // Keep the beams whose range is not NaN and not above `threshold`, project
 // them to local x/y and pack them at the front of the zero-filled
 // cap-long xs, ys.  *n_out is the number of kept beams (also when it
 // exceeds cap, which returns YAG_HOSTOPS_CAPACITY).
-int yag_compact_beams(const double* ranges, int64_t n, double min_angle,
-                      double inc, double threshold, int64_t cap, double* xs,
-                      double* ys, int64_t* n_out) {
-  if (n < 0 || cap < 0) return YAG_HOSTOPS_BAD_ARGUMENT;
+int compact_beams(const double* ranges, int64_t n, double min_angle, double inc,
+                  double threshold, int64_t cap, double* xs, double* ys,
+                  int64_t* n_out) {
   std::fill(xs, xs + cap, 0.0);
   std::fill(ys, ys + cap, 0.0);
   int64_t k = 0;
@@ -166,29 +163,72 @@ int yag_compact_beams(const double* ranges, int64_t n, double min_angle,
 // from the run's anchor; per point: the run's anchor and terminal index
 // and whether the point is in a flushed run (point 0 and a trailing
 // unflushed run are not).
-int yag_segment_runs(const double* px, const double* py, int64_t n,
-                     int32_t* anchor, int32_t* term, uint8_t* has) {
-  if (n < 0 || n > INT32_MAX) return YAG_HOSTOPS_BAD_ARGUMENT;
+void segment_runs(const double* px, const double* py, int64_t n,
+                  int32_t* anchor, int32_t* term, uint8_t* has) {
   std::fill(anchor, anchor + n, 0);
   std::fill(term, term + n, 0);
   std::fill(has, has + n, 0);
-  if (n >= 2) {
-    const double msd = 0.2 * 0.2;
-    int64_t fp = 0;
-    int64_t run_start = 1;
-    for (int64_t i = 1; i < n; ++i) {
-      const double dx = px[fp] - px[i];
-      const double dy = py[fp] - py[i];
-      if (dx * dx + dy * dy > msd) {
-        for (int64_t j = run_start; j <= i; ++j) {
-          anchor[j] = static_cast<int32_t>(fp);
-          term[j] = static_cast<int32_t>(i);
-          has[j] = 1;
-        }
-        fp = i;
-        run_start = i + 1;
+  if (n < 2) return;
+  const double msd = 0.2 * 0.2;
+  int64_t fp = 0;
+  int64_t run_start = 1;
+  for (int64_t i = 1; i < n; ++i) {
+    const double dx = px[fp] - px[i];
+    const double dy = py[fp] - py[i];
+    if (dx * dx + dy * dy > msd) {
+      for (int64_t j = run_start; j <= i; ++j) {
+        anchor[j] = static_cast<int32_t>(fp);
+        term[j] = static_cast<int32_t>(i);
+        has[j] = 1;
       }
+      fp = i;
+      run_start = i + 1;
     }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int yag_compact_beams(const double* ranges, int64_t n, double min_angle,
+                      double inc, double threshold, int64_t cap, double* xs,
+                      double* ys, int64_t* n_out) {
+  if (n < 0 || cap < 0) return YAG_HOSTOPS_BAD_ARGUMENT;
+  return compact_beams(ranges, n, min_angle, inc, threshold, cap, xs, ys, n_out);
+}
+
+int yag_segment_runs(const double* px, const double* py, int64_t n,
+                     int32_t* anchor, int32_t* term, uint8_t* has) {
+  if (n < 0 || n > INT32_MAX) return YAG_HOSTOPS_BAD_ARGUMENT;
+  segment_runs(px, py, n, anchor, term, has);
+  return YAG_HOSTOPS_OK;
+}
+
+// The matcher views of k scans at once: scan i's ranges are
+// ranges[offsets[i] .. offsets[i + 1]).  Row i of the (k, cap) outputs gets
+// what compact_beams and segment_runs give that scan: its kept beams packed
+// at the front of zeroed xs, ys, their count in n_out[i], and the runs of
+// those points in anchor, term and has, zero past them.  Stops at the first
+// scan with more than cap kept beams (YAG_HOSTOPS_CAPACITY, its count in
+// n_out); n_out of the scans after it is left as it was.
+int yag_scan_views(const double* ranges, const int64_t* offsets,
+                   const double* min_angle, const double* inc,
+                   const double* threshold, int64_t k, int64_t cap, double* xs,
+                   double* ys, int64_t* n_out, int32_t* anchor, int32_t* term,
+                   uint8_t* has) {
+  if (k < 0 || cap < 0 || cap > INT32_MAX) return YAG_HOSTOPS_BAD_ARGUMENT;
+  for (int64_t i = 0; i < k; ++i) {
+    const int64_t n = offsets[i + 1] - offsets[i];
+    if (n < 0) return YAG_HOSTOPS_BAD_ARGUMENT;
+    const int64_t row = i * cap;
+    const int err = compact_beams(ranges + offsets[i], n, min_angle[i], inc[i],
+                                  threshold[i], cap, xs + row, ys + row, &n_out[i]);
+    if (err) return err;
+    std::fill(anchor + row + n_out[i], anchor + row + cap, 0);
+    std::fill(term + row + n_out[i], term + row + cap, 0);
+    std::fill(has + row + n_out[i], has + row + cap, 0);
+    segment_runs(xs + row, ys + row, n_out[i], anchor + row, term + row, has + row);
   }
   return YAG_HOSTOPS_OK;
 }
