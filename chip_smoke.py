@@ -16,7 +16,8 @@ Phases, one line each; any failure raises (non-zero exit):
      scans; then both smears on {0,1} grids at three densities and
      window_sum at other point counts, bit-equal (--kernels-only stops
      here);
- 4a. the host ops (native/hostops.cpp) built on this machine's CPU (timed):
+ 4a. the host ops (native/hostops.cpp, built into one library with the
+     host SPA solve native/spa_lm.cpp) built on this machine's CPU (timed):
      the tour log parsed natively and by the Python parser, the same scans
      bit for bit; every scan's matcher view (beam compaction, validation
      runs) at the matchers' point capacity natively and by the numpy /
@@ -29,7 +30,9 @@ Phases, one line each; any failure raises (non-zero exit):
   4. run the building-tour CARMEN log through the port's GraphSlam at the
      default matcher configs in float32 on the card: require a loop
      closure, ATE below odometry's and every kernel launched (counted at
-     each replay of the matcher's CUDA graphs); report the graphs' keys,
+     each replay of the matcher's CUDA graphs); every SPA solve through the
+     native host solve (native.CALLS["spa_lm"] equal to the solves), each
+     solve's ms printed; report the graphs' keys,
      eager runs, captures and replays, and record each key's first
      arguments for phase 15; then hold
      the tour's first 300 scans against the plain path on the host CPU in
@@ -77,7 +80,11 @@ Phases, one line each; any failure raises (non-zero exit):
      device solver held to host (cost within 1e-3 relative, poses within
      2e-3) at the sizes where the JAX package's same solver meets those bars
      on the CPU, elsewhere ending finite below its initial cost; ms, LM
-     iterations and host reads per cell; then the tour again with
+     iterations and host reads per cell; the host cell (the native solve)
+     also timed bare beside its numpy + SuperLU version
+     graphopt.spa._host_lm on the same arrays, held to it at the tests'
+     bars (the same stop reason and iterations, poses within 1e-8, cost
+     within 1e-10 relative); then the tour again with
      SPA2d(solver="dense") on the card, held
      to phase 4's host-SPA run (the same counts and poses within 1e-4 after
      300 scans, closures within +-1, ATE below odometry's), SPA ms per
@@ -796,6 +803,14 @@ def run_slam(tmp, gpu, dev):
         f"median seq match {summary['median_match_ms']:.3f} ms; "
         f"SPA {summary['spa_ms_mean']:.3f} ms x {st['opt_runs']}; "
         f"{st['loop_closures']} closures ({gpu})")
+    if spa_ms:
+        log(f"phase 4: host SPA solves (native, {hostops['calls']['slam']['spa_lm']} "
+            f"spa_lm calls): median {summary['spa_ms_median']:.3f} ms, first "
+            f"{spa_ms[0]:.3f}, max {max(spa_ms):.3f}; each ms: "
+            + " ".join(f"{t:.3f}" for t in spa_ms))
+    if hostops["calls"]["slam"]["spa_lm"] != st["opt_runs"]:
+        raise AssertionError(f"{st['opt_runs']} SPA solves but "
+                             f"{hostops['calls']['slam']['spa_lm']} native spa_lm calls")
     log(f"phase 4: ATE slam {ate_slam:.4f} m vs odometry {ate_odom:.4f} m; "
         f"launches {launches}")
     log(f"phase 4: CUDA graphs: {graphs['keys']} keys met, {graphs['eager']} eager "

@@ -15,6 +15,13 @@ to host (cost within 1e-3 relative, poses within 2e-3) at the sizes where
 the JAX package's same solver meets those bars on the CPU; elsewhere it
 must end finite and below its initial cost.  A cell that misses its bar
 raises.  TF32 is turned off: the mixed steps need true float32.
+
+The host column is the native solve (``native.spa_lm``, the host solver's
+path).  Its row also times that solve bare on the packed arrays beside its
+plain numpy + SuperLU version, ``graphopt.spa._host_lm``, on the same
+arrays (:func:`host_pair`), and holds the two to each other at the tests'
+bars (tests/test_torch_spa_native.py): the same stop reason and LM
+iterations, poses within 1e-8, cost within 1e-10 relative.
 ``chip_smoke.py`` phase 12 runs :func:`crossover` with its cg columns at
 100, 1000 and 4000 nodes only.
 """
@@ -38,6 +45,9 @@ REPS = 3
 # a cell whose warm call takes longer is timed by that call alone
 SLOW_MS = 5000.0
 COST_RTOL, POSE_TOL = 1e-3, 2e-3
+# the native host solve against its numpy version (the tests' bars)
+HOST_COST_RTOL, HOST_POSE_TOL = 1e-10, 1e-8
+CONV_TOL = 1.0e-4   # SPA2d.compute's default LM stop
 # the sizes at which each device solver is held to host: those at which
 # the JAX package's same solver reaches host's optimum within the bars on
 # the CPU.  Its float32 factorization (dense:mixed) parts from 1000 nodes
@@ -57,6 +67,45 @@ def pose_gap(a, b):
     dxy = np.hypot(a[:, 0] - b[:, 0], a[:, 1] - b[:, 1]).max()
     dth = np.abs(np.angle(np.exp(1j * (a[:, 2] - b[:, 2])))).max()
     return float(dxy), float(dth)
+
+
+def _best(fn):
+    """One warm call, then the best of REPS (the warm call alone where it
+    takes over SLOW_MS): (best ms, every timed ms, the best call's
+    result)."""
+    def timed():
+        t0 = time.perf_counter()
+        out = fn()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    warm = timed()
+    runs = [timed() for _ in range(REPS)] if warm[0] < SLOW_MS else [warm]
+    ms, out = min(runs, key=lambda r: r[0])
+    return ms, [r[0] for r in runs], out
+
+
+def host_pair(graph):
+    """The native host solve and graphopt.spa._host_lm, each bare on the
+    arrays the host solver packs for `graph` with compute's ARGS: their
+    best-of ms, the native solve's stop reason, LM iterations and fill
+    (blocks of L below its diagonal), and how far the numpy result lies
+    from the native one."""
+    from yag_slam_tpu_torch import native
+    from yag_slam_tpu_torch.graphopt import spa as S
+    from yag_slam_tpu_torch.io.benchmark import populate_spa
+
+    s = populate_spa(S.SPA2d(solver="host", device="cpu"), *graph)._solver
+    args = (np.asarray(s.poses, dtype=np.float64), np.asarray(s.edge_idx, dtype=np.int64),
+            np.asarray(s.edge_means, dtype=np.float64), np.stack(s.edge_infos),
+            ARGS[0], ARGS[1], CONV_TOL)
+    native_ms, native_runs, (p_n, c_n, it_n, why_n) = _best(lambda: native.spa_lm(*args))
+    fill = native.SPA_FILL["blocks"]
+    numpy_ms, numpy_runs, (p_p, c_p, it_p, why_p) = _best(lambda: S._host_lm(*args))
+    return dict(native_ms=native_ms, native_ms_runs=native_runs, numpy_ms=numpy_ms,
+                numpy_ms_runs=numpy_runs, reason=why_n, numpy_reason=why_p,
+                native_iters=it_n, numpy_iters=it_p, fill_blocks=fill,
+                numpy_cost_rel=abs(c_p - c_n) / abs(c_n) if c_n else abs(c_p),
+                numpy_pose_gap=float(np.abs(p_p - p_n).max()))
 
 
 def crossover(device="cuda", sizes=SIZES, cg_sizes=SIZES, log=print, label=""):
@@ -107,14 +156,27 @@ def crossover(device="cuda", sizes=SIZES, cg_sizes=SIZES, log=print, label=""):
                        host_reads=best["reads"], cost=best["cost"], initial_cost=cost0)
             if host is None:
                 host = best
+                pair = host_pair(graph)
+                row.update(pair)
+                if not (pair["reason"] == pair["numpy_reason"]
+                        and pair["native_iters"] == pair["numpy_iters"]
+                        and pair["numpy_cost_rel"] <= HOST_COST_RTOL
+                        and pair["numpy_pose_gap"] <= HOST_POSE_TOL):
+                    bad.append(f"host at {n} nodes parted from its numpy version: {pair}")
             else:
                 dxy, dth = pose_gap(best["poses"], host["poses"])
                 row.update(cost_rel_vs_host=abs(best["cost"] - host["cost"]) / host["cost"],
                            dxy_vs_host_m=dxy, dth_vs_host_rad=dth)
             rows.append(row)
-            gap = ("" if "dxy_vs_host_m" not in row else
-                   f"; vs host: cost {row['cost_rel_vs_host']:.2e} rel, |dxy| "
-                   f"{row['dxy_vs_host_m']:.2e} m, |dth| {row['dth_vs_host_rad']:.2e} rad")
+            if "dxy_vs_host_m" in row:
+                gap = (f"; vs host: cost {row['cost_rel_vs_host']:.2e} rel, |dxy| "
+                       f"{row['dxy_vs_host_m']:.2e} m, |dth| {row['dth_vs_host_rad']:.2e} rad")
+            else:
+                gap = (f"; bare: native {row['native_ms']:.3f} ms vs numpy _host_lm "
+                       f"{row['numpy_ms']:.3f} ms ({row['numpy_ms'] / row['native_ms']:.1f}x), "
+                       f"{row['reason']} after {row['native_iters']} vs {row['numpy_reason']} "
+                       f"after {row['numpy_iters']}, fill {row['fill_blocks']} blocks, numpy "
+                       f"{row['numpy_pose_gap']:.2e} apart, cost {row['numpy_cost_rel']:.2e} rel")
             log(f"SPA {row['nodes']} nodes {name}: {row['ms']:.3f} ms (best of "
                 f"{len(runs)}), {row['iters']} LM iterations, host reads {row['host_reads']}, "
                 f"chi2 {row['cost']:.6g}{gap} ({label})")
@@ -143,6 +205,9 @@ def table(rows):
         lines.append(f"{n:>6} | " + " | ".join(
             f"{cells[s]['ms']:>11.1f}" if s in cells else f"{'-':>11}" for s in names)
             + f"   chi2={cells['host']['cost']:.4g}")
+    lines.append("host bare, best-of-3 ms: " + ", ".join(
+        f"{r['nodes']} nodes native {r['native_ms']:.3f} / numpy {r['numpy_ms']:.3f}"
+        for r in rows if r["solver"] == "host"))
     return lines
 
 

@@ -269,7 +269,8 @@ def test_scan_views_equal_the_per_scan_ops_and_their_twins():
     cap = 512
     native.reset_calls()
     rows = native.scan_views(scans, cap)
-    assert native.CALLS == dict(compact_beams=0, segment_runs=0, scan_views=1, parse_carmen=0)
+    assert native.CALLS == dict(compact_beams=0, segment_runs=0, scan_views=1, parse_carmen=0,
+                                spa_lm=0)
     assert rows["lx"].shape == rows["anchor"].shape == (len(scans), cap)
     assert rows["has_run"].dtype == bool and rows["n"][-2] == 0 and rows["n"][-1] == 180
     for i, s in enumerate(scans):

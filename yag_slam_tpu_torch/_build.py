@@ -14,8 +14,10 @@ file), and loaded with ``ctypes`` through a plain C interface:
   (:func:`native_library`); its hash also covers the compiler and the
   host, since ``-march=native`` ties the binary to the machine;
 - the host ops ``native/hostops.cpp`` (beam compaction, validation-run
-  segmentation, CARMEN parsing: the per-scan host path), compiled by the
-  same compiler with ``HOSTOPS_FLAGS`` (:func:`hostops_library`); no
+  segmentation, CARMEN parsing: the per-scan host path) and the host SPA
+  solve ``native/spa_lm.cpp`` (LM over a block sparse Cholesky), compiled
+  into one library by the same compiler with ``HOSTOPS_FLAGS``
+  (:func:`hostops_library`); its hash covers both sources; no
   ``-march=native``, and ``-ffp-contract=off`` so that no product and sum
   is fused into an FMA, whatever the compiler's defaults: the ops then
   round as their numpy twins do.
@@ -41,6 +43,7 @@ _PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = _PKG_DIR / "csrc"
 NATIVE_SOURCE = _PKG_DIR / "native" / "refbaseline.cpp"
 HOSTOPS_SOURCE = _PKG_DIR / "native" / "hostops.cpp"
+SPA_LM_SOURCE = _PKG_DIR / "native" / "spa_lm.cpp"
 BUILD_DIR = _PKG_DIR / "build"
 
 NVCC_FLAGS = (
@@ -82,6 +85,7 @@ _HOSTOPS_SIGNATURES = {
     "yag_parse_carmen": (ctypes.c_char_p, _L, _P, _P, _P),
     "yag_carmen_copy": (_P, _P, _P, _P),
     "yag_carmen_free": (_P,),
+    "yag_spa_lm": (_P, _L, _P, _L, _P, _P, _L, _D, _D, _P, _P, _P, _P, _P),
 }
 
 CUDA_ROOTS = ("/usr/local/cuda",)
@@ -144,8 +148,12 @@ def _native_path(cxx) -> Path:
     return _hashed_path("libyag_native", [NATIVE_SOURCE], (*CXX_FLAGS, *host))
 
 
+def _hostops_sources():
+    return [HOSTOPS_SOURCE, SPA_LM_SOURCE]
+
+
 def _hostops_path(cxx) -> Path:
-    return _hashed_path("libyag_hostops", [HOSTOPS_SOURCE], (*HOSTOPS_FLAGS, cxx))
+    return _hashed_path("libyag_hostops", _hostops_sources(), (*HOSTOPS_FLAGS, cxx))
 
 
 def _run(cmd):
@@ -228,6 +236,6 @@ def hostops_library():
             path = _hostops_path(cxx)
             if not path.exists():
                 hostops_build_seconds = _build_into(path, lambda tmp, so: _run(
-                    [cxx, *HOSTOPS_FLAGS, "-o", str(so), str(HOSTOPS_SOURCE)]))
+                    [cxx, *HOSTOPS_FLAGS, "-o", str(so), *map(str, _hostops_sources())]))
             _hostops = _load(path, _HOSTOPS_SIGNATURES)
         return _hostops

@@ -1,9 +1,11 @@
 """Sparse pose adjustment (SPA): Levenberg-Marquardt over SE(2) edges.
 
 Counterpart of ``yag_slam_tpu/graphopt/spa.py``, both halves:
-- the host solver, sparse float64 LM with numpy and SuperLU (scipy)
-  (``_np_residuals`` / ``_np_cost`` / ``_host_lm``), which "auto" picks
-  for every graph up to ``AUTO_HOST_NODE_LIMIT`` nodes;
+- the host solver, sparse float64 LM, which "auto" picks for every graph
+  up to ``AUTO_HOST_NODE_LIMIT`` nodes: native C++ over a block sparse
+  Cholesky (``native.spa_lm``, ``native/spa_lm.cpp``); its plain numpy +
+  SuperLU version (``_np_residuals`` / ``_np_cost`` / ``_host_lm``), the
+  JAX package's host solver, stays here for the tests and the harnesses;
 - the device solvers in plain PyTorch on the solver's device: a dense
   LM (Cholesky of the full 3N x 3N system) in float64 or in mixed
   precision (float32 factorization, float64 matrix-free refinement), and
@@ -31,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from yag_slam_tpu_torch import native
 from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 
 # CG iterations run between two reads of the loop's stop flag
@@ -653,7 +656,8 @@ def _host_lm(poses, eidx, means, infos, max_iters, lam0, conv_tol):
     """LM with exact sparse f64 steps.  poses (N,3) f64 (node 0 is the
     gauge), eidx (E,2) int, means (E,3), infos (E,3,3).  Returns
     (poses, cost, iters, reason) with reason in {"converged", "max_iters",
-    "lambda_blowup", "empty"}."""
+    "lambda_blowup", "empty"}.  The plain version of ``native.spa_lm``,
+    which the host solver runs."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -764,8 +768,8 @@ class PoseGraphSolver:
     """LM solver over growing node/edge lists.
 
     `solver`:
-      - "host"  -- exact sparse float64 LM on the host CPU (numpy
-        assembly + SuperLU), whatever `device` is;
+      - "host"  -- exact sparse float64 LM on the host CPU (native C++,
+        block sparse Cholesky: ``native.spa_lm``), whatever `device` is;
       - "dense" -- Cholesky of the full 3N x 3N system on `device`;
       - "cg"    -- matrix-free block-Jacobi PCG over the edge list on
         `device`;
@@ -836,7 +840,7 @@ class PoseGraphSolver:
             return 0.0
 
         if self._use_host(n):
-            out, cost, iters, reason = _host_lm(
+            out, cost, iters, reason = native.spa_lm(
                 np.asarray(self.poses, dtype=np.float64),
                 np.asarray(self.edge_idx, dtype=np.int64),
                 np.asarray(self.edge_means, dtype=np.float64),

@@ -9,10 +9,13 @@ functions:
   :func:`parse_carmen`, the per-scan host path (``core/scan.py``,
   ``matching/correlation.py``) and the log reader (``io/carmen.py``), and
   :func:`scan_views`, both per-scan ops over a stack of scans in one call
-  (the matcher's views of a batch's new scans).
-  Their numpy and Python twins stay in those modules as ``*_ref``, for
-  the tests.  ``CALLS`` counts the calls of each op (plain ints; callers
-  may reset them), so a run can show that it went through them.
+  (the matcher's views of a batch's new scans); and, from ``spa_lm.cpp``
+  in the same library, :func:`spa_lm`, the host pose-graph solve of
+  ``graphopt/spa.py`` (LM over a block sparse Cholesky).
+  Their numpy and Python twins stay in those modules (``*_ref``, and
+  ``graphopt.spa._host_lm``), for the tests and the harnesses.  ``CALLS``
+  counts the calls of each op (plain ints; callers may reset them), so a
+  run can show that it went through them.
 - ``refbaseline.cpp``: the reference algorithm in multithreaded C++,
   held to the float64 oracle at 1e-12, the baseline the card is measured
   against.
@@ -32,11 +35,17 @@ from yag_slam_tpu_torch import _build
 # yag_refbaseline_match_scan's error codes (refbaseline.cpp)
 _ERRORS = {1: "bad argument (no query point, or base offsets not rising)",
            2: "out of memory"}
-# the host ops' error codes (hostops.cpp); yag_parse_carmen returns errno
-_CAPACITY, _BAD_ARGUMENT = 1, 2
+# the host ops' error codes (hostops.cpp, spa_lm.cpp); yag_parse_carmen
+# returns errno
+_CAPACITY, _BAD_ARGUMENT, _NO_MEMORY = 1, 2, 3
 _CARMEN_META = 8   # min_angle max_angle inc max_range x y theta timestamp
 
-CALLS = {"compact_beams": 0, "segment_runs": 0, "scan_views": 0, "parse_carmen": 0}
+CALLS = {"compact_beams": 0, "segment_runs": 0, "scan_views": 0, "parse_carmen": 0,
+         "spa_lm": 0}
+# yag_spa_lm's stop reasons, by code (spa_lm.cpp)
+SPA_REASONS = ("converged", "max_iters", "lambda_blowup", "empty")
+# what the last spa_lm call factored: blocks of L below its diagonal
+SPA_FILL = {"blocks": 0}
 
 
 def reset_calls():
@@ -174,6 +183,34 @@ def parse_carmen(path, max_scans=None):
         lib.yag_carmen_free(handle)
     per_scan = np.split(ranges, np.cumsum(counts)[:-1]) if len(counts) else []
     return [CarmenScan(r, *m) for r, m in zip(per_scan, meta.tolist())]
+
+
+def spa_lm(poses, eidx, means, infos, max_iters, lam0, conv_tol):
+    """Native twin of graphopt.spa._host_lm, with its arguments and
+    results: LM on poses (N, 3) float64 (node 0 the gauge) over edges
+    eidx (E, 2), means (E, 3) and infos (E, 3, 3), each step solved by a
+    block sparse Cholesky in a minimum-degree order.  Returns (poses,
+    cost, iters, reason), reason in SPA_REASONS."""
+    lib = _build.hostops_library()
+    p = _f64(poses).reshape(-1, 3)
+    n = p.shape[0]
+    ei = np.ascontiguousarray(eidx, dtype=np.int64).reshape(-1, 2)
+    e = ei.shape[0]
+    m = _f64(means).reshape(e, 3)
+    w = _f64(infos).reshape(e, 3, 3)
+    out = np.empty((n, 3))
+    cost = ctypes.c_double()
+    iters, reason, fill = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    err = lib.yag_spa_lm(_ptr(p), n, _ptr(ei), e, _ptr(m), _ptr(w), int(max_iters),
+                         float(lam0), float(conv_tol), _ptr(out), ctypes.byref(cost),
+                         ctypes.byref(iters), ctypes.byref(reason), ctypes.byref(fill))
+    CALLS["spa_lm"] += 1
+    if err:
+        raise RuntimeError("spa_lm failed: " + {_BAD_ARGUMENT: "node index out of range",
+                                                 _NO_MEMORY: "out of memory"}.get(err,
+                                                                                  f"error {err}"))
+    SPA_FILL["blocks"] = fill.value
+    return out, cost.value, iters.value, SPA_REASONS[reason.value]
 
 
 def refbaseline_match_scan(query, base_scans, config, penalty=True,
