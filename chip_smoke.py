@@ -37,8 +37,18 @@ Phases, one line each; any failure raises (non-zero exit):
      arguments for phase 15; then hold
      the tour's first 300 scans against the plain path on the host CPU in
      float32, and its first 50 in float64, pose by pose;
-  5. render the occupancy grid, round-trip a checkpoint file and continue
-     5 scans on the restored instance;
+  5. render the occupancy grid: make_occupancy_grid and the tour's
+     prefixes k = 5, half and all through create_occupancy_grid, the
+     render kernels' launches (csrc/render.cu, mapping.render_kernel)
+     counted from 0 around them, one of each stage a render; a render
+     waits for the card twice (set_sync_debug_mode "warn": the box and
+     the image); at each
+     prefix each stage's kernel bit-equal to its plain version on the card
+     (seg, flag and the bounding box; passes and hits; the image, also the
+     whole render's), timed as wrapper, bare kernel, plain version and
+     the whole render (host wall to the image on the host) beside each
+     stage's bound; then round-trip a checkpoint file and continue 5 scans
+     on the restored instance;
   6. trace a window of scans with torch.profiler and report the device's
      busy time and idle share (kernel, memcpy and memset events only);
   7. the matcher API at the default sequential config on the tour's SLAM
@@ -148,6 +158,7 @@ import statistics
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -175,6 +186,18 @@ SMEAR_DENSITIES = (0.001, 0.05, 0.5)
 TOUR_GRID_SCANS = (60, 10)     # phase 3's tour grid: scans 60-69
 WINDOW_POINTS = (1, 31, 180, 257, 2100)   # 2100: more than one staged chunk
 HOLD_BACK = 5   # scans processed after the checkpoint round trip
+# phase 5's renders: make_occupancy_grid's defaults, the prefixes' first
+# (the online mapper's first render), whole renders timed a prefix
+RENDER_RES, RENDER_RANGE, RENDER_FIRST, RENDER_TIMED = 0.05, 12.0, 5, 10
+# the waits of a render: the box, which sizes the grid, and the image
+RENDER_WAITS = 2
+# float32 operations of the trace: a step (k * inv; x0 + dx * t and its y
+# twin; for each axis a subtraction, a division, a rounding and two
+# clamps) and a beam (dx, dy, two abs and divisions, max, ceil, two
+# clamps, max, the reciprocal, and the endpoint's two cells); its atomics
+# have no published peak rate to count them against
+RENDER_STEP_OPS, RENDER_BEAM_OPS = 15, 22
+RENDER_NO_LIBRARY = "none: no single PyTorch call traces rays into a grid"
 # The tour's first scans rerun on the host by the plain path, each as
 # (dtype, scans, tolerance m, tolerance rad) for the card run's poses.
 # float32: the first 300 scans (7 closures), same counts and poses within
@@ -852,13 +875,7 @@ def run_slam(tmp, gpu, dev):
         if not (same and pdxy <= tol_m and pdth <= tol_rad):
             raise AssertionError(f"card run drifted from the host {dtype} run")
 
-    grid = slam.make_occupancy_grid()
-    vals = set(np.unique(grid.image).tolist())
-    if grid.image.shape != (grid.height, grid.width) or not vals <= {0, 200, 255} \
-            or 0 not in vals or 255 not in vals:
-        raise AssertionError(f"bad occupancy grid {grid.image.shape} {vals}")
-    log(f"phase 5: occupancy grid {grid.width}x{grid.height}, "
-        f"{int((grid.image == 0).sum())} occupied cells")
+    summary["render"] = render_phase(slam, dev, gpu)
 
     path = os.path.join(tmp, "map.graph")
     slam.to_file(path)
@@ -893,6 +910,169 @@ def run_slam(tmp, gpu, dev):
     summary["bench"] = bench_rows(dev, gpu)
     summary["graphs"]["phase15"] = graphs_phase(slam, tour_keys, tour, dev, gpu)
     return summary
+
+
+def render_steps(seg, flag, res, max_steps):
+    """The DDA steps the trace takes for these beams: n = min(ceil(max(|dx|,
+    |dy|) / res), max_steps) summed over the valid beams."""
+    x0, y0, x1, y1 = seg.unbind(1)
+    r = torch.tensor(res, dtype=torch.float32, device=seg.device)
+    n = torch.ceil(torch.maximum((x1 - x0).abs() / r, (y1 - y0).abs() / r)).clamp(0, max_steps)
+    return int(torch.where((flag & 1) > 0, n, 0.0).sum())
+
+
+def render_waits(fn):
+    """What fn() did that made the host wait for the card: the warnings of
+    torch.cuda.set_sync_debug_mode("warn"), one a wait (the mode's notice
+    that it is a prototype is not one)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in caught
+            if str(w.message).startswith("called a synchronizing CUDA operation")]
+
+
+def render_phase(slam, dev, gpu):
+    """Phase 5 (a): the map render.  The main path (make_occupancy_grid and
+    the prefixes k = 5, half and all of the tour's vertices through
+    create_occupancy_grid) with the render kernels' launches counted from
+    0; then, at each prefix, every stage's kernel held bit for bit to its
+    plain version on the same inputs on the card (seg, flag and the box;
+    passes and hits; the image, also against the whole render's); wrapper,
+    bare kernel (device_ms on preallocated outputs), plain version and the
+    whole render (host wall to the image on the host) timed beside each
+    stage's bound."""
+    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch.mapping import occupancy as O
+    from yag_slam_tpu_torch.mapping import render_kernel as R
+
+    lib = _build.library()
+    scans = [v.obj for v in slam.graph.vertices]
+    n = len(scans)
+    res, rt, mpt = RENDER_RES, RENDER_RANGE, O.MIN_PASS_THROUGH
+    prefixes = (RENDER_FIRST, n // 2, n)
+    torch.cuda.synchronize()
+    R.reset_launches()
+    grid = slam.make_occupancy_grid(res, rt)
+    renders = {k: O.create_occupancy_grid(scans[:k], res, rt, device=dev) for k in prefixes}
+    torch.cuda.synchronize()
+    launches = dict(R.LAUNCHES)
+    for name, count in launches.items():
+        if count != 1 + len(prefixes):
+            raise AssertionError(f"{name} launched {count} times in {1 + len(prefixes)} renders")
+    vals = set(np.unique(grid.image).tolist())
+    if grid.image.shape != (grid.height, grid.width) or not vals <= {0, 200, 255} \
+            or 0 not in vals or 255 not in vals:
+        raise AssertionError(f"bad occupancy grid {grid.image.shape} {vals}")
+    if not np.array_equal(grid.image, renders[n].image):
+        raise AssertionError("make_occupancy_grid and create_occupancy_grid disagree")
+    log(f"phase 5: occupancy grid {grid.width}x{grid.height}, "
+        f"{int((grid.image == 0).sum())} occupied cells; render launches {launches}")
+    waits = render_waits(lambda: O.create_occupancy_grid(scans, res, rt, device=dev))
+    if len(waits) != RENDER_WAITS:
+        raise AssertionError(f"a render waited for the card {len(waits)} times, not "
+                             f"{RENDER_WAITS} (the box and the image): {waits}")
+    log(f"phase 5: a render waits for the card {len(waits)} times (the box, the image)")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def ok(err, name):
+        if err != 0:
+            raise AssertionError(f"{name}: bare launch failed, cudaError {err}")
+
+    cases = {name: [] for name in R.KERNELS}
+    wall = {}
+    for k in prefixes:
+        table, ranges = O._gather(scans[:k], dev)
+        B = ranges.shape[0]
+        seg, flag, box = R.beam_endpoints(table, ranges, rt)
+        seg_r, flag_r, box_r = R.beam_endpoints_ref(table, ranges, rt)
+        ox, oy, W, H, max_steps = O._frame(box.tolist(), res, rt)
+        f32 = O._f32(ox, oy, res)
+        counts = R.beam_counts(seg, flag, *f32, W, H, max_steps)
+        counts_r = R.beam_counts_ref(seg, flag, *f32, W, H, max_steps)
+        image = R.classify_cells(counts, mpt)
+        image_r = R.classify_cells_ref(counts, mpt)
+        errs = dict(
+            render_endpoints=max(max_abs_err(seg, seg_r), max_abs_err(flag, flag_r),
+                                 max_abs_err(box, box_r)),
+            render_counts=max_abs_err(counts, counts_r),
+            render_classify=max_abs_err(image, image_r))
+        same = (torch.equal(seg, seg_r) and torch.equal(flag, flag_r)
+                and torch.equal(box, box_r) and torch.equal(counts, counts_r)
+                and torch.equal(image, image_r)
+                and np.array_equal(image.cpu().numpy(), renders[k].image)
+                and (renders[k].width, renders[k].height) == (W, H)
+                and (renders[k].offset.x, renders[k].offset.y) == (ox, oy))
+        if not same:
+            raise AssertionError(f"render at k = {k}: a kernel differs from its plain "
+                                 f"version (max abs errors {errs})")
+        valid = int((flag & 1).sum())
+        steps = render_steps(seg, flag, res, max_steps)
+
+        part = torch.empty((k, 4), dtype=torch.float64, device=dev)
+        done = torch.empty(1, dtype=torch.int32, device=dev)
+        seg_p, flag_p, box_p = torch.empty_like(seg), torch.empty_like(flag), torch.empty_like(box)
+        counts_p, image_p = torch.empty_like(counts), torch.empty_like(image)
+        stages = dict(
+            render_endpoints=(
+                dict(**bound(64 * k + 8 * B + 17 * B + 32)),
+                lambda: R.beam_endpoints(table, ranges, rt),
+                lambda: R.beam_endpoints_ref(table, ranges, rt),
+                lambda: ok(lib.yag_render_endpoints(
+                    table.data_ptr(), ranges.data_ptr(), k, B, rt, seg_p.data_ptr(),
+                    flag_p.data_ptr(), part.data_ptr(), done.data_ptr(), box_p.data_ptr(),
+                    stream()), "render_endpoints")),
+            render_counts=(
+                dict(**bound(17 * B + 8 * W * H, RENDER_STEP_OPS * steps
+                             + RENDER_BEAM_OPS * valid), steps=steps),
+                lambda: R.beam_counts(seg, flag, *f32, W, H, max_steps),
+                lambda: R.beam_counts_ref(seg, flag, *f32, W, H, max_steps),
+                lambda: ok(lib.yag_render_trace(
+                    seg.data_ptr(), flag.data_ptr(), B, *f32, W, H, max_steps,
+                    counts_p.data_ptr(), stream()), "render_counts")),
+            render_classify=(
+                dict(**bound(9 * W * H, 4 * W * H)),
+                lambda: R.classify_cells(counts, mpt),
+                lambda: R.classify_cells_ref(counts, mpt),
+                lambda: ok(lib.yag_render_classify(
+                    counts.data_ptr(), W * H, mpt, image_p.data_ptr(), stream()),
+                    "render_classify")),
+        )
+        for name, (row, wrapper, plain, bare) in stages.items():
+            row.update(case=f"k={k}", shape=[k, B, valid, H, W], max_abs_err=errs[name],
+                       library=RENDER_NO_LIBRARY)
+            cases[name].append(timings(row, wrapper, plain, bare))
+        bare_outputs = (torch.equal(seg_p, seg) and torch.equal(flag_p, flag)
+                        and torch.equal(box_p, box) and torch.equal(counts_p, counts)
+                        and torch.equal(image_p, image))
+        if not bare_outputs:
+            raise AssertionError(f"render at k = {k}: a bare launch's output differs")
+
+        def whole():
+            t0 = time.perf_counter()
+            O.create_occupancy_grid(scans[:k], res, rt, device=dev)
+            return 1e3 * (time.perf_counter() - t0)
+
+        whole()
+        wall[k] = statistics.median(whole() for _ in range(RENDER_TIMED))
+        log(f"phase 5: render k = {k} ({B} beams, {valid} valid, {steps} steps, grid "
+            f"{W}x{H}): each stage bit-equal to its plain version; ms kernel / wrapper / "
+            f"plain / bound: " + "; ".join(
+                f"{name} {c[-1]['kernel_ms']:.4f} / {c[-1]['ms']:.4f} / "
+                f"{c[-1]['plain_ms']:.4f} / {c[-1]['bound_ms']:.5f}"
+                for name, c in cases.items())
+            + f"; whole render {wall[k]:.3f} ms (host wall, median of {RENDER_TIMED}) ({gpu})")
+    # the main case, first in each list: the whole map
+    for c in cases.values():
+        c.insert(0, c.pop())
+    return dict(launches=launches, renders=1 + len(prefixes), cases=cases,
+                whole_render_ms=wall, grid=[grid.width, grid.height])
 
 
 def profile_window(scans, dev, tmp, gpu):
@@ -2266,7 +2446,10 @@ def bench_rows(dev, gpu):
 
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
-    smear of phase 8) and the launches of every driven path."""
+    smear of phase 8) and the launches of every driven path; then the
+    render's kernels, their cases and launches from phase 5."""
+    from yag_slam_tpu_torch.mapping import render_kernel as R
+
     checks["smear_grid"].append(slam["localize"]["smear_case"])
     paths = dict(slam=slam["launches"], **slam["matcher_api"]["launches"],
                  localize=slam["localize"]["launches"],
@@ -2305,6 +2488,25 @@ def kernel_lines(K, checks, slam):
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
             library=main_case["library"], share=main_case["share"],
             case=main_case["case"], cases=checks[k],
+        ))
+    # the render's kernels (no Pallas counterpart), on phase 5's path
+    render = slam["render"]
+    for k, info in R.KERNELS.items():
+        if render["launches"][k] <= 0:
+            raise AssertionError(f"{k} never launched on the render path")
+        cases = render["cases"][k]
+        main_case = cases[0]
+        kernels.append(dict(
+            name=k, route="cuda", source=info["source"], replaces=info["replaces"],
+            also_replaces=[], launches=render["launches"][k],
+            launches_by_path={"render": render["launches"][k]},
+            launches_per_render=render["launches"][k] / render["renders"],
+            max_abs_err=max(r["max_abs_err"] for r in cases),
+            ms=main_case["kernel_ms"], wrapper_ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+            library=main_case["library"], share=main_case["share"],
+            case=main_case["case"], cases=cases,
         ))
     return kernels
 

@@ -15,6 +15,7 @@ _spec = importlib.util.spec_from_file_location(
 smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
+from yag_slam_tpu_torch.mapping.render_kernel import KERNELS as RENDER_KERNELS
 from yag_slam_tpu_torch.matching.kernels import KERNELS
 
 NAMES = {k: v["symbols"] for k, v in KERNELS.items()}
@@ -105,7 +106,12 @@ def _run_summary(zero=None):
                           ab_compare=dict(launches=n("ab_compare", smear_grid=0))),
         bench=dict(launches=n("bench", smear_grid=0),
                    profile=dict(launches=n("profile_match"))),
+        render=dict(renders=4, launches={k: 4 for k in RENDER_KERNELS},
+                    cases={k: [dict(case, case="k=833"), dict(case, case="k=5")]
+                           for k in RENDER_KERNELS}),
     )
+    if zero and zero[0] == "render":
+        slam["render"]["launches"][zero[1]] = 0
     return checks, slam
 
 
@@ -114,7 +120,7 @@ def test_kernel_lines_count_launches_by_path():
 
     checks, slam = _run_summary()
     rows = {r["name"]: r for r in smoke.kernel_lines(K, checks, slam)}
-    assert set(rows) == set(KERNELS)
+    assert set(rows) == set(KERNELS) | set(RENDER_KERNELS)
     for k in smoke.SLAM_KERNELS:
         assert set(NEW_PATHS) <= set(rows[k]["launches_by_path"])
         assert rows[k]["launches"] == sum(rows[k]["launches_by_path"].values())
@@ -128,6 +134,19 @@ def test_kernel_lines_count_launches_by_path():
         assert r["ms"] == 0.05 and r["wrapper_ms"] == 0.1
     assert rows["window_sum"]["launches_per_scan"] == 0.25
     assert rows["smear_grid"]["launches_per_scan"] == 0.0
+    for k in RENDER_KERNELS:
+        assert rows[k]["launches_by_path"] == {"render": 4}
+        assert rows[k]["launches_per_render"] == 1.0 and rows[k]["case"] == "k=833"
+        assert rows[k]["replaces"].startswith("yag_slam_tpu/mapping/occupancy.py:")
+
+
+@pytest.mark.parametrize("kernel", sorted(RENDER_KERNELS))
+def test_kernel_lines_fail_when_the_render_skips_a_kernel(kernel):
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    checks, slam = _run_summary(zero=("render", kernel))
+    with pytest.raises(AssertionError, match=f"{kernel} never launched on the render path"):
+        smoke.kernel_lines(K, checks, slam)
 
 
 @pytest.mark.parametrize("path", NEW_PATHS)

@@ -25,6 +25,7 @@ PORT_MODULES = [
     "yag_slam_tpu_torch.graphopt.spa",
     "yag_slam_tpu_torch.mapping",
     "yag_slam_tpu_torch.mapping.occupancy",
+    "yag_slam_tpu_torch.mapping.render_kernel",
     "yag_slam_tpu_torch.matching",
     "yag_slam_tpu_torch.matching.correlation",
     "yag_slam_tpu_torch.matching.graphs",
@@ -309,7 +310,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_name_follows_sources():
     """The built library is keyed by a hash of every CUDA source."""
     srcs, headers = _build._sources()
-    assert {p.name for p in srcs} == {"grid_build.cu", "window_sum.cu"}
+    assert {p.name for p in srcs} == {"grid_build.cu", "render.cu", "window_sum.cu"}
     path = _build._library_path(srcs, headers)
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libyag_kernels_") and path.suffix == ".so"

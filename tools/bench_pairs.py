@@ -25,8 +25,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# metric -> better direction
-HIGHER = {"scans_per_s": True, "matches_per_s": True}
+# metric -> whether higher is better, as BENCHMARK.json's cells state it
+with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
+    HIGHER = {m["name"]: m["direction"] == "higher"
+              for w in json.load(_f)["workloads"] for m in w["metrics"]}
 
 
 def run_cell(tree, cell, seed):

@@ -62,6 +62,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _D = ctypes.c_double
+_F = ctypes.c_float
 # C entry point -> argtypes; every entry point returns a cudaError_t as int
 _SIGNATURES = {
     "yag_scatter_cells": (_P, _P, _P, _I, _I, _I, _P),
@@ -69,6 +70,9 @@ _SIGNATURES = {
     "yag_smear_grid": (_P, _P, _P, _I, _I, _I, _P),
     "yag_smear_smem_bytes": (_I,),
     "yag_window_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yag_render_endpoints": (_P, _P, _I, _L, _D, _P, _P, _P, _P, _P, _P),
+    "yag_render_trace": (_P, _P, _L, _F, _F, _F, _I, _I, _I, _P, _P),
+    "yag_render_classify": (_P, _L, _I, _P, _P),
 }
 
 # C entry point of the host library -> argtypes; it returns an error code

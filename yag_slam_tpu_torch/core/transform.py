@@ -82,10 +82,14 @@ def euler_from_quaternion(q):
     sinp = max(-1.0, min(1.0, sinp))
     pitch = math.asin(sinp)
 
+    return (roll, pitch, _yaw(x, y, z, w))
+
+
+def _yaw(x, y, z, w):
+    """The yaw of :func:`euler_from_quaternion` alone."""
     siny_cosp = 2.0 * (w * z + x * y)
     cosy_cosp = 1.0 - 2.0 * (y * y + z * z)
-    yaw = math.atan2(siny_cosp, cosy_cosp)
-    return (roll, pitch, yaw)
+    return math.atan2(siny_cosp, cosy_cosp)
 
 
 class Transform:
@@ -143,7 +147,8 @@ class Transform:
 
     @property
     def yaw(self):
-        return self.euler[2]
+        """``euler[2]``, without the roll and pitch."""
+        return _yaw(self.qx, self.qy, self.qz, self.qw)
 
     @property
     def xytheta(self):

@@ -1,4 +1,4 @@
-"""Occupancy-grid rendering from scans, as plain PyTorch on the device.
+"""Occupancy-grid rendering from scans, on the device.
 
 Counterpart of ``yag_slam_tpu/mapping/occupancy.py`` with the same value
 contract (occupied=0, unknown=200, free=255) and OpenKarto's rule: every
@@ -6,14 +6,21 @@ beam marks free cells from the sensor to min(range, range_threshold),
 beams shorter than the threshold also mark a hit at the endpoint, and a
 cell with more than MIN_PASS_THROUGH visits is occupied when
 hits >= 0.1 * passes.  The trace is one dominant-axis DDA step per
-(beam, step) pair, counted with ``index_add_``; positions are float32 as
-in the JAX package.  There is no custom kernel in the rendering: the JAX
-package's version is plain XLA as well.  Converting a saved map into a
+(beam, step) pair; endpoints are float64 and positions float32 as in the
+JAX package.
+
+A render is one pass over the scans on the host, gathering their poses,
+beam layouts and ranges into one float64 table, one copy of it to the
+device, and the three stages of :mod:`mapping.render_kernel` there (hand
+written CUDA on a card, ``csrc/render.cu``; their plain PyTorch twins on
+the CPU).  The host waits for the card twice: for the bounding box, which
+sizes the grid, and for the image.  Converting a saved map into a
 correlation grid (:func:`occupancy_grid_map_to_correlation_grid`) runs
 the matcher's scatter_cells and smear_grid kernels on CUDA.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,9 +37,6 @@ GRID_FREE = 255
 MIN_PASS_THROUGH = 2
 OCCUPANCY_THRESHOLD = 0.1
 
-# beams traced per batch; bounds the (beams, steps) temporaries
-_BEAM_CHUNK = 8192
-
 
 @dataclass
 class OccupancyGrid:
@@ -43,54 +47,61 @@ class OccupancyGrid:
     resolution: float
 
 
-def _render_counts(origin_x, origin_y, end_x, end_y, is_hit, ox, oy, res, *,
-                   width, height, max_steps, min_pass_through):
-    """Pass/hit counts of all beams -> (height, width) uint8 image."""
-    dev = origin_x.device
-    size = width * height
-    passes = torch.zeros(size, dtype=torch.int32, device=dev)
-    hits = torch.zeros(size, dtype=torch.int32, device=dev)
-    k = torch.arange(max_steps, dtype=origin_x.dtype, device=dev)
-    for b0 in range(0, origin_x.shape[0], _BEAM_CHUNK):
-        sl = slice(b0, b0 + _BEAM_CHUNK)
-        x0, y0, x1, y1 = origin_x[sl], origin_y[sl], end_x[sl], end_y[sl]
-        dx = x1 - x0
-        dy = y1 - y0
-        adx = torch.abs(dx) / res
-        ady = torch.abs(dy) / res
-        n_steps = torch.ceil(torch.maximum(adx, ady)).clamp(0, max_steps).to(torch.int32)
-        inv = 1.0 / torch.clamp(n_steps.to(dx.dtype), min=1.0)
-        # positions strictly before the endpoint cell: k/n_steps for k<n_steps
-        t = k[None, :] * inv[:, None]
-        px = x0[:, None] + dx[:, None] * t
-        py = y0[:, None] + dy[:, None] * t
-        cx = torch.round((px - ox) / res).clamp(-1, width).to(torch.int32)
-        cy = torch.round((py - oy) / res).clamp(-1, height).to(torch.int32)
-        step_ok = (
-            (k[None, :] < n_steps[:, None].to(dx.dtype))
-            & (cx >= 0) & (cx < width) & (cy >= 0) & (cy < height)
-        )
-        lin = (cy * width + cx)[step_ok].long()
-        passes.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
+def _gather(scans, device):
+    """One pass over the scans: their table (k, 8) float64, one row
+    ``render_kernel.COLS`` a scan (the pose [x, y, yaw] first), and every
+    scan's ranges after it, in one host buffer (pinned for a card) copied
+    to `device` at once.  Returns the (table, ranges) views on `device`."""
+    rows, ranges, n = [], [], 0
+    for scan in scans:
+        p = scan.corrected_pose
+        r = scan.ranges
+        rows += (p.x, p.y, p.yaw, scan.min_angle, scan.angle_increment, scan.min_range,
+                 scan.max_range, n)
+        ranges.append(r)
+        n += len(r)
+    k = len(ranges)
+    buf = torch.empty(8 * k + n, dtype=torch.float64, pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    host[:8 * k] = rows
+    np.concatenate(ranges, out=host[8 * k:])
+    buf = buf.to(device, non_blocking=True)
+    return buf[:8 * k].view(k, 8), buf[8 * k:]
 
-        ex = torch.round((x1 - ox) / res).clamp(-1, width).to(torch.int32)
-        ey = torch.round((y1 - oy) / res).clamp(-1, height).to(torch.int32)
-        end_ok = (ex >= 0) & (ex < width) & (ey >= 0) & (ey < height)
-        end_lin = (ey * width + ex)[end_ok].long()
-        # the endpoint also counts as a visit (Karto updates pass and hit)
-        passes.index_add_(0, end_lin, torch.ones_like(end_lin, dtype=torch.int32))
-        hits.index_add_(0, end_lin, is_hit[sl][end_ok].to(torch.int32))
 
-    passes = passes.view(height, width)
-    hits = hits.view(height, width)
-    visited = passes > min_pass_through
-    occupied = visited & (
-        hits.to(torch.float32) >= OCCUPANCY_THRESHOLD * passes.to(torch.float32)
-    ) & (hits > 0)
-    image = torch.full((height, width), GRID_UNKNOWN, dtype=torch.uint8, device=dev)
-    image[visited] = GRID_FREE
-    image[occupied] = GRID_OCCUPIED
-    return image
+def _render_counts(table, ranges, resolution, range_threshold, min_pass_through):
+    """All of a render's device work, from the gathered table to the image
+    on the host: the beams' endpoints and box, the one wait for the box,
+    the grid sized from it as the JAX package sizes it, the counts and the
+    image.  Returns (image (H, W) uint8, ox, oy, width, height)."""
+    from yag_slam_tpu_torch.mapping import render_kernel as R
+
+    seg, flag, box = R.beam_endpoints(table, ranges, range_threshold)
+    ox, oy, width, height, max_steps = _frame(box.tolist(), resolution, range_threshold)
+    counts = R.beam_counts(seg, flag, *_f32(ox, oy, resolution), width, height, max_steps)
+    image = R.classify_cells(counts, min_pass_through)
+    return image.cpu().numpy(), ox, oy, width, height
+
+
+def _frame(box, resolution, range_threshold):
+    """The grid of the beams' box [min x, min y, max x, max y] (float64):
+    (ox, oy, width, height, max_steps), one cell and a margin around the
+    beams, as the JAX package sizes it."""
+    minx, miny, maxx, maxy = box
+    if not all(map(math.isfinite, box)):
+        raise ValueError(f"create_occupancy_grid: no valid beam to bound the grid (box {box})")
+    ox = minx - resolution
+    oy = miny - resolution
+    width = int(np.ceil((maxx - ox) / resolution)) + 2
+    height = int(np.ceil((maxy - oy) / resolution)) + 2
+    max_steps = int(np.ceil(range_threshold / resolution)) + 2
+    return ox, oy, width, height, max_steps
+
+
+def _f32(*values):
+    """The values rounded to float32, as Python floats: the grid's scalars
+    (the JAX package rounds them to float32 too)."""
+    return [float(np.float32(v)) for v in values]
 
 
 def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0,
@@ -101,53 +112,11 @@ def create_occupancy_grid(scans, resolution=0.05, range_threshold=12.0,
     device = resolve_device(device)
     if not scans:
         raise ValueError("create_occupancy_grid needs at least one scan")
-
-    origins = []
-    ends = []
-    hits = []
-    for scan in scans:
-        p = scan.corrected_pose
-        x, y, t = p.x, p.y, p.euler[-1]
-        r = np.asarray(scan.ranges, dtype=np.float64)
-        n = len(r)
-        angles = t + scan.min_angle + np.arange(n) * scan.angle_increment
-        ok = np.isfinite(r) & (r > scan.min_range) & (r <= scan.max_range)
-        rr = np.where(ok, r, 0.0)
-        clipped = np.minimum(rr, range_threshold)
-        ex = x + clipped * np.cos(angles)
-        ey = y + clipped * np.sin(angles)
-        origins.append(np.stack([np.full(n, x), np.full(n, y)], axis=1)[ok])
-        ends.append(np.stack([ex, ey], axis=1)[ok])
-        hits.append((rr < range_threshold)[ok])
-
-    origins = np.concatenate(origins)
-    ends = np.concatenate(ends)
-    hits = np.concatenate(hits)
-
-    all_x = np.concatenate([origins[:, 0], ends[:, 0]])
-    all_y = np.concatenate([origins[:, 1], ends[:, 1]])
-    ox = all_x.min() - resolution
-    oy = all_y.min() - resolution
-    width = int(np.ceil((all_x.max() - ox) / resolution)) + 2
-    height = int(np.ceil((all_y.max() - oy) / resolution)) + 2
-    max_steps = int(np.ceil(range_threshold / resolution)) + 2
-
-    def f32(a):
-        return torch.as_tensor(a.astype(np.float32), device=device)
-
-    def scalar(v):
-        # float32 device scalars: the JAX package rounds them to float32
-        # too, and a device divisor keeps division exact on CUDA
-        return torch.tensor(v, dtype=torch.float32, device=device)
-
-    image = _render_counts(
-        f32(origins[:, 0]), f32(origins[:, 1]), f32(ends[:, 0]), f32(ends[:, 1]),
-        torch.as_tensor(hits, device=device), scalar(ox), scalar(oy),
-        scalar(resolution), width=width, height=height, max_steps=max_steps,
-        min_pass_through=min_pass_through,
-    )
+    table, ranges = _gather(scans, device)
+    image, ox, oy, width, height = _render_counts(
+        table, ranges, resolution, range_threshold, min_pass_through)
     return OccupancyGrid(
-        image=image.cpu().numpy(),
+        image=image,
         width=width,
         height=height,
         offset=Pose2(float(ox), float(oy), 0.0),
