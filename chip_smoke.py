@@ -79,9 +79,19 @@ Phases, one line each; any failure raises (non-zero exit):
      OnlineMapper on the card;
  11. lifelong: an OnlineMapper spliced into phase 4's map image
      (segmentation and raytracing on the card, held to the host's plain
-     run), fed the tour's first 20 scans from their pose in the map; the
-     splice bootstrap links the first, the graph grows by 20, and the poses
-     come back within 0.3 m of phase 4's;
+     run), fed the tour's first 20 scans from their pose in the map, the
+     sweep kernel's launches (csrc/sweep.cu, mapping.raytrace) counted
+     from 0 around it: one a splice; the splice bootstrap links the first,
+     the graph grows by 20, and the poses come back within 0.3 m of phase
+     4's; the sweep kernel over every centroid of the card's labels
+     bit-equal to its plain version on the card (lengths and ends), the
+     sweep waiting for the card twice (the copy up, the lengths back),
+     timed as wrapper, bare kernel and plain version beside its bound;
+     map_to_graph on the card (host wall, split into segment_map,
+     determine_centroids, create_edges, the sweep and the scans'
+     construction) beside the per-centroid routes: trace_rays (the
+     kernel at one start) and the plain version with a copy up and back
+     a centroid;
  12. SPA on the card (TF32 off), through profile_spa_torch.crossover: the
      noisy square-loop graph at 100-4000 nodes through SPA2d with the host,
      dense and cg solvers in mixed and float64 precision, cg at 100, 1000
@@ -245,6 +255,14 @@ LIFELONG_SCANS, LIFELONG_TOL = 20, 0.3
 # end one step apart (float32 cos/sin last bits at .5 sample positions)
 LABEL_FLIPS, RAY_TOL, RAY_STEP_SHARE = 1e-3, 1e-3, 1e-3
 LIFELONG_RAY_CENTROIDS = 8
+# the splice's sweep: float32 operations of a step (the next position's two
+# products and two sums, two roundings, the border's four comparisons, the
+# read's four clamps and the value's comparison) and of a ray (the end's
+# two products and two sums, two differences, two squares, a sum, the
+# square root, the poison's two comparisons and its sum); whole splices
+# timed; the sweep's waits (the copy up, the lengths back)
+SWEEP_STEP_OPS, SWEEP_RAY_OPS, SPLICE_TIMED, SWEEP_WAITS = 15, 13, 3, 2
+SWEEP_NO_LIBRARY = "none: no single PyTorch call marches rays to their first stop"
 # phase 12: the SPA crossover (profile_spa_torch.crossover at
 # profile_spa.py's sizes); the cg columns run to the LM cap from 500 nodes
 # (15-75 s a cell): timed at these sizes only, to keep the script within
@@ -1140,13 +1158,18 @@ def hold(gap, what):
         raise AssertionError(f"{what}: card vs host f32 {gap}")
 
 
-def counted(K, fn):
-    """fn() with the launch counts set to 0 just before; (out, launches)."""
+def counted(K, fn, *more):
+    """fn() with the launch counts of K (and of each module in `more`) set
+    to 0 just before; (out, launches of all of them in one dict)."""
     torch.cuda.synchronize()
-    K.reset_launches()
+    for m in (K, *more):
+        m.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES)
+    for m in more:
+        launches.update(m.LAUNCHES)
+    return out, launches
 
 
 def matcher_api(scans, dev, gpu):
@@ -1531,6 +1554,7 @@ def lifelong(tour, slam, dev, gpu):
     localize the tour's first scans in it."""
     from yag_slam_tpu_torch.core.transform import Transform
     from yag_slam_tpu_torch.apps.online import OnlineMapper
+    from yag_slam_tpu_torch.mapping import raytrace as RT
     from yag_slam_tpu_torch.mapping.raytrace import trace_rays
     from yag_slam_tpu_torch.matching import kernels as K
     from yag_slam_tpu_torch.splicing import splice
@@ -1583,7 +1607,10 @@ def lifelong(tour, slam, dev, gpu):
         torch.cuda.synchronize()
         return mapper, n_base, t1 - t0, time.perf_counter() - t1
 
-    (mapper, n_base, build_s, feed_s), launches = counted(K, run)
+    (mapper, n_base, build_s, feed_s), launches = counted(K, run, RT)
+    if launches["splice_sweep"] != 1:
+        raise AssertionError(f"the splice launched the sweep kernel "
+                             f"{launches['splice_sweep']} times, not once")
     live = mapper.slam.graph.vertices[n_base:]
     got = poses_of([v.obj for v in live])
     back_m, back_rad = pose_gap(got, truth) if len(got) == len(truth) else (np.inf, np.inf)
@@ -1597,7 +1624,125 @@ def lifelong(tour, slam, dev, gpu):
         f"{back_rad:.4f} rad of phase 4's poses; launches {launches} ({gpu})")
     if not linked or len(live) != LIFELONG_SCANS or back_m > LIFELONG_TOL:
         raise AssertionError("the lifelong splice did not localize the tour's scans")
+    out["splices"] = 1
+    out["sweep"] = splice_sweep(im, seg, grid.resolution, origin, dev, gpu)
     return out
+
+
+def splice_parts(im, res, origin, dev):
+    """One map_to_graph on the card, host wall ms of its parts: the calls
+    it makes through splice's module globals (each returns host arrays, so
+    each waits for the card), and the rest, the scans' construction."""
+    from yag_slam_tpu_torch.splicing import splice
+
+    names = ("segment_map", "determine_centroids", "create_edges", "trace_sweeps")
+    parts = dict.fromkeys(names, 0.0)
+    saved = {n: getattr(splice, n) for n in names}
+
+    def timer(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            r = fn(*args, **kwargs)
+            parts[name] += 1e3 * (time.perf_counter() - t0)
+            return r
+        return call
+
+    try:
+        for n in names:
+            setattr(splice, n, timer(n, saved[n]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        splice.map_to_graph(im, res, origin, density=5, device=dev)
+        total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for n, fn in saved.items():
+            setattr(splice, n, fn)
+    parts["scans"] = total - sum(parts.values())
+    parts["map_to_graph"] = total
+    return parts
+
+
+def splice_sweep(im, labels, res, origin, dev, gpu):
+    """Phase 11 (b): the sweep kernel over every centroid of the card's
+    labels, held bit for bit to its plain version on the card (lengths and
+    ends), its waits counted, timed as wrapper, bare kernel and plain
+    version beside its bound; then whole splices, split into their parts,
+    beside the per-centroid routes."""
+    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch.mapping import raytrace as RT
+    from yag_slam_tpu_torch.splicing import splice
+
+    lib = _build.library()
+    cents = splice.determine_centroids(labels)
+    starts = np.array([cents[k] for k in range(len(cents))])
+    angles = np.arange(-180, 180, 0.25)[:-1][::-1]
+    img, c, s, st, max_steps = RT._upload(im, angles, starts, dev)
+    (H, W), S, A = img.shape, st.shape[0], c.shape[0]
+    got = RT.sweep(img, c, s, st, max_steps, ends=True)
+    ref = RT.trace_sweeps_ref(img, c, s, st, max_steps, ends=True)
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"the sweep kernel differs from its plain version over "
+                             f"{S} centroids (max abs error {err} px)")
+    first, poison = RT.first_events(img, c, s, st, max_steps)
+    steps = int((first + 1).sum())
+    waits = render_waits(lambda: RT.trace_sweeps(im, angles, starts, device=dev))
+    if len(waits) != SWEEP_WAITS:
+        raise AssertionError(f"a sweep waited for the card {len(waits)} times, not "
+                             f"{SWEEP_WAITS} (the copy up, the lengths back): {waits}")
+
+    def ok(e):
+        if e != 0:
+            raise AssertionError(f"splice_sweep: bare launch failed, cudaError {e}")
+
+    length = torch.empty((S, A), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    row = dict(**bound(4 * H * W + 8 * A + 8 * S + 4 * S * A,
+                       SWEEP_STEP_OPS * steps + SWEEP_RAY_OPS * S * A),
+               case=f"{S} centroids", shape=[S, A, H, W, max_steps], steps=steps,
+               poisoned=int(poison.sum()), max_abs_err=err, library=SWEEP_NO_LIBRARY)
+    timings(row, lambda: RT.sweep(img, c, s, st, max_steps),
+            lambda: RT.trace_sweeps_ref(img, c, s, st, max_steps),
+            lambda: ok(lib.yag_sweep(img.data_ptr(), H, W, c.data_ptr(), s.data_ptr(), A,
+                                     st.data_ptr(), S, max_steps, length.data_ptr(), None,
+                                     None, stream)))
+    if not torch.equal(length, got[0]):
+        raise AssertionError("splice_sweep: a bare launch's lengths differ")
+
+    splice_parts(im, res, origin, dev)             # warm
+    runs = [splice_parts(im, res, origin, dev) for _ in range(SPLICE_TIMED)]
+    split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+    def per_centroid(one):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, y in starts:
+            one(x, y)
+        return 1e3 * (time.perf_counter() - t0)
+
+    def plain_one(x, y):
+        args = RT._upload(im, angles, [(x, y)], dev)
+        return RT.trace_sweeps_ref(*args).cpu()
+
+    kernel_loop_ms = per_centroid(lambda x, y: RT.trace_rays(im, angles, x, y, device=dev))
+    plain_loop_ms = per_centroid(plain_one)
+    sweep_ms = min(timed(lambda: RT.trace_sweeps(im, angles, starts, device=dev))[1]
+                   for _ in range(SPLICE_TIMED))
+    log(f"phase 11: sweep kernel over {S} centroids x {A} angles ({steps} steps, "
+        f"{row['poisoned']} rays poisoned, map {W}x{H}, max_steps {max_steps}) bit-equal to "
+        f"its plain version (lengths and ends); waits {len(waits)}; ms kernel / wrapper / "
+        f"plain / bound ({row['bound_by']}): {row['kernel_ms']:.4f} / {row['ms']:.4f} / "
+        f"{row['plain_ms']:.4f} / {row['bound_ms']:.5f}; trace_sweeps (copy up, launch, "
+        f"copy back) {sweep_ms:.3f} ms host wall ({gpu})")
+    log(f"phase 11: map_to_graph on the card {split['map_to_graph']:.3f} ms (median of "
+        f"{SPLICE_TIMED}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()
+                                         if k != "map_to_graph")
+        + f"; per-centroid routes: trace_rays (the kernel at one start) x {S} "
+        f"{kernel_loop_ms:.3f} ms, the plain version with a copy up and back a centroid "
+        f"{plain_loop_ms:.3f} ms ({gpu})")
+    return dict(cases=[row], waits=len(waits), trace_sweeps_ms=sweep_ms, split=split,
+                splits=runs, per_centroid_kernel_ms=kernel_loop_ms,
+                per_centroid_plain_ms=plain_loop_ms)
 
 
 # -- phase 12 ----------------------------------------------------------------------
@@ -2447,7 +2592,9 @@ def bench_rows(dev, gpu):
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
     smear of phase 8) and the launches of every driven path; then the
-    render's kernels, their cases and launches from phase 5."""
+    render's kernels, their cases and launches from phase 5, and the
+    splice's sweep, its case and launches from phase 11."""
+    from yag_slam_tpu_torch.mapping import raytrace as RT
     from yag_slam_tpu_torch.mapping import render_kernel as R
 
     checks["smear_grid"].append(slam["localize"]["smear_case"])
@@ -2489,18 +2636,22 @@ def kernel_lines(K, checks, slam):
             library=main_case["library"], share=main_case["share"],
             case=main_case["case"], cases=checks[k],
         ))
-    # the render's kernels (no Pallas counterpart), on phase 5's path
-    render = slam["render"]
-    for k, info in R.KERNELS.items():
-        if render["launches"][k] <= 0:
-            raise AssertionError(f"{k} never launched on the render path")
-        cases = render["cases"][k]
+    # the kernels with no Pallas counterpart: the render's, on phase 5's
+    # path, and the splice's sweep, on phase 11's
+    render, life = slam["render"], slam["lifelong"]
+    added = [(k, info, "render", render["launches"].get(k, 0), render["cases"][k],
+              dict(launches_per_render=render["launches"].get(k, 0) / render["renders"]))
+             for k, info in R.KERNELS.items()]
+    added += [(k, info, "lifelong", life["launches"].get(k, 0), life["sweep"]["cases"],
+               dict(launches_per_splice=life["launches"].get(k, 0) / life["splices"]))
+              for k, info in RT.KERNELS.items()]
+    for k, info, path, n, cases, per in added:
+        if n <= 0:
+            raise AssertionError(f"{k} never launched on the {path} path")
         main_case = cases[0]
         kernels.append(dict(
             name=k, route="cuda", source=info["source"], replaces=info["replaces"],
-            also_replaces=[], launches=render["launches"][k],
-            launches_by_path={"render": render["launches"][k]},
-            launches_per_render=render["launches"][k] / render["renders"],
+            also_replaces=[], launches=n, launches_by_path={path: n}, **per,
             max_abs_err=max(r["max_abs_err"] for r in cases),
             ms=main_case["kernel_ms"], wrapper_ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],

@@ -316,7 +316,8 @@ def test_maps_cell_on_the_cpu(tmp_path):
     assert spans["create_occupancy_grid"]["calls"] == spans["_render_counts"]["calls"] == 3
     assert spans["map_to_graph"]["calls"] == spans["segment_map"]["calls"] == 1
     assert spans["determine_centroids"]["calls"] == spans["create_edges"]["calls"] == 1
-    assert spans["trace_rays"]["calls"] == r["detail"]["splice"]["segments"]
+    # every segment's sweep is one trace_sweeps call inside map_to_graph
+    assert "trace_rays" not in spans and r["detail"]["splice"]["segments"] >= 2
     assert pl["renders"]["window"]["count"] == 2 and pl["splice"]["window"]["count"] == 1
     assert pl["renders"]["device_idle_share"] is None and pl["graph_pool_mb"] is None
     assert pl["peak_allocated_mb"] is None

@@ -15,6 +15,7 @@ _spec = importlib.util.spec_from_file_location(
 smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
+from yag_slam_tpu_torch.mapping.raytrace import KERNELS as SWEEP_KERNELS
 from yag_slam_tpu_torch.mapping.render_kernel import KERNELS as RENDER_KERNELS
 from yag_slam_tpu_torch.matching.kernels import KERNELS
 
@@ -99,7 +100,8 @@ def _run_summary(zero=None):
         stream=dict(launches=n("stream", smear_grid=0)),
         entry_points=dict(launches=dict(cli=n("cli", smear_grid=0),
                                         threaded=n("threaded", smear_grid=0))),
-        lifelong=dict(launches=n("lifelong", smear_grid=0)),
+        lifelong=dict(launches=dict(n("lifelong", smear_grid=0), splice_sweep=1), splices=1,
+                      sweep=dict(cases=[dict(case, case="376 centroids")])),
         spa=dict(tour=dict(launches=n("spa_tour", smear_grid=0))),
         last_modules=dict(sharded=dict(launches=n("sharded", smear_grid=0)),
                           sharded_slam=dict(launches=n("sharded_slam", smear_grid=0)),
@@ -112,6 +114,8 @@ def _run_summary(zero=None):
     )
     if zero and zero[0] == "render":
         slam["render"]["launches"][zero[1]] = 0
+    if zero == ("lifelong", "splice_sweep"):
+        slam["lifelong"]["launches"]["splice_sweep"] = 0
     return checks, slam
 
 
@@ -120,7 +124,7 @@ def test_kernel_lines_count_launches_by_path():
 
     checks, slam = _run_summary()
     rows = {r["name"]: r for r in smoke.kernel_lines(K, checks, slam)}
-    assert set(rows) == set(KERNELS) | set(RENDER_KERNELS)
+    assert set(rows) == set(KERNELS) | set(RENDER_KERNELS) | set(SWEEP_KERNELS)
     for k in smoke.SLAM_KERNELS:
         assert set(NEW_PATHS) <= set(rows[k]["launches_by_path"])
         assert rows[k]["launches"] == sum(rows[k]["launches_by_path"].values())
@@ -138,6 +142,48 @@ def test_kernel_lines_count_launches_by_path():
         assert rows[k]["launches_by_path"] == {"render": 4}
         assert rows[k]["launches_per_render"] == 1.0 and rows[k]["case"] == "k=833"
         assert rows[k]["replaces"].startswith("yag_slam_tpu/mapping/occupancy.py:")
+    sweep = rows["splice_sweep"]
+    assert sweep["launches_by_path"] == {"lifelong": 1} and sweep["launches"] == 1
+    assert sweep["launches_per_splice"] == 1.0 and sweep["case"] == "376 centroids"
+    assert sweep["replaces"] == "yag_slam_tpu/mapping/raytrace.py:25"
+    assert sweep["source"] == "yag_slam_tpu_torch/csrc/sweep.cu" and sweep["route"] == "cuda"
+    # the sweep's launch is not a matcher kernel's: the lifelong path's
+    # matcher rows count only their own
+    assert rows["window_sum"]["launches_by_path"]["lifelong"] == 1
+
+
+def test_kernel_lines_fail_when_the_splice_skips_the_sweep():
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    checks, slam = _run_summary(zero=("lifelong", "splice_sweep"))
+    with pytest.raises(AssertionError, match="splice_sweep never launched on the lifelong path"):
+        smoke.kernel_lines(K, checks, slam)
+    del slam["lifelong"]["launches"]["splice_sweep"]
+    with pytest.raises(AssertionError, match="splice_sweep never launched on the lifelong path"):
+        smoke.kernel_lines(K, checks, slam)
+
+
+def test_counted_resets_and_merges_every_module_s_launches(monkeypatch):
+    """Phase 11 counts the matcher's kernels and the sweep from 0 around
+    the splice, in one dict."""
+    import torch
+
+    from yag_slam_tpu_torch.mapping import raytrace as RT
+    from yag_slam_tpu_torch.matching import kernels as K
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(K, "LAUNCHES", dict.fromkeys(K.LAUNCHES, 7))
+    monkeypatch.setattr(RT, "LAUNCHES", {"splice_sweep": 5})
+
+    def run():
+        K.LAUNCHES["window_sum"] += 2
+        RT.LAUNCHES["splice_sweep"] += 1
+        return "out"
+
+    out, launches = smoke.counted(K, run, RT)
+    assert out == "out"
+    assert launches == dict(dict.fromkeys(K.LAUNCHES, 0), window_sum=2, splice_sweep=1)
+    assert smoke.counted(K, lambda: None)[1] == dict.fromkeys(K.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize("kernel", sorted(RENDER_KERNELS))

@@ -73,6 +73,7 @@ _SIGNATURES = {
     "yag_render_endpoints": (_P, _P, _I, _L, _D, _P, _P, _P, _P, _P, _P),
     "yag_render_trace": (_P, _P, _L, _F, _F, _F, _I, _I, _I, _P, _P),
     "yag_render_classify": (_P, _L, _I, _P, _P),
+    "yag_sweep": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
 }
 
 # C entry point of the host library -> argtypes; it returns an error code
