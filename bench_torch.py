@@ -185,14 +185,18 @@ class _Row:
 
     def timed(self, device, n_matches, fn):
         from yag_slam_tpu_torch.matching import kernels as K
+        from yag_slam_tpu_torch.matching import program_kernels as PK
 
-        before = dict(K.LAUNCHES)
+        def launches():
+            return dict(K.LAUNCHES, **PK.LAUNCHES)
+
+        before = launches()
         t0 = _clock(device)
         out = fn()
         dt = _clock(device) - t0
         self.rates.append(n_matches / dt)
         self.matches += n_matches
-        for k, v in K.LAUNCHES.items():
+        for k, v in launches().items():
             self.launches[k] = self.launches.get(k, 0) + v - before[k]
         return out
 

@@ -14,8 +14,22 @@ Phases, one line each; any failure raises (non-zero exit):
      window_sum) by device time, beside the bound (HBM bytes or float32
      operations at the published peak); both smears also on a grid of tour
      scans; then both smears on {0,1} grids at three densities and
-     window_sum at other point counts, bit-equal (--kernels-only stops
-     here);
+     window_sum at other point counts, bit-equal;
+ 3b. the matcher's program kernels (csrc/match_program.cu,
+     matching/program_kernels.py: world_cells, lattice_cells, score_reduce)
+     against their plain twins on the card at the main path's batches, run
+     by real matchers on the building tour's scans at odometry poses: the
+     sequential coarse and fine passes (1 job, 10 base scans), the loop
+     matcher's coarse batch (4 jobs, 40^2 lattice), the benchmark's office
+     batch (61 jobs padded to 64), float64, OpenKarto's penalty, padded
+     rows and an all-zero lattice; world_cells and lattice_cells
+     bit-equal; score_reduce's response, argmax and tie count bit-equal,
+     its pose and moments within one ulp in float32 (rows apart counted)
+     and 1e-12 relative in float64; the whole _compute equal to the
+     kernels run in turn; each timed as wrapper, bare kernel and twin
+     beside its bound; the kernels' cos / sin bit-equal to torch.cos /
+     torch.sin on the card over every angle met and a sweep of 2^20
+     (--kernels-only stops here);
  4a. the host ops (native/hostops.cpp, built into one library with the
      host SPA solve native/spa_lm.cpp) built on this machine's CPU (timed):
      the tour log parsed natively and by the Python parser, the same scans
@@ -34,7 +48,9 @@ Phases, one line each; any failure raises (non-zero exit):
      native host solve (native.CALLS["spa_lm"] equal to the solves), each
      solve's ms printed; report the graphs' keys,
      eager runs, captures and replays, and record each key's first
-     arguments for phase 15; then hold
+     arguments for phase 15; every path that launches window_sum also
+     launches lattice_cells and score_reduce, every one that launches
+     scatter_cells world_cells (counted from 0 before each path); then hold
      the tour's first 300 scans against the plain path on the host CPU in
      float32, and its first 50 in float64, pose by pose;
   5. render the occupancy grid: make_occupancy_grid and the tour's
@@ -69,7 +85,8 @@ Phases, one line each; any failure raises (non-zero exit):
      the whole tour closures within +-1 and ATE below odometry's; then the
      first 100 scans through OnlineMatchPipeline in block mode, in
      streaming mode with one lagged group and through the blocking
-     match_scan loop, all equal; scans/s of each and the pipeline stats;
+     match_scan loop, all equal; scans/s of each and the pipeline stats
+     (the two pipeline modes' launches counted as path "pipeline");
      block mode again with every step's replay held bit for bit to
      _compute;
  10. entry points: the offline CLI in-process on the tour log (node
@@ -147,13 +164,18 @@ Phases, one line each; any failure raises (non-zero exit):
      queries, the pipeline's block dispatch and match_many_mega, three
      times each, under torch.cuda.set_sync_debug_mode("error") (nothing
      waits for the card before the result); captures, ms per capture,
-     host us of a replayed dispatch against host ms of an eager _run.
+     host us of a replayed dispatch against host ms of an eager _run;
+     the device nodes (kernels, copies, fills) and busy ms of one replay
+     of a captured sequential and a loop coarse _run of the tour, and of
+     a whole dispatch, from torch.profiler.
 Each path's kernel launches are counted from 0 just before it runs.  The
 last lines are a JSON line of phase 14's results ({"bench": ...}), a JSON
-line of the host ops' results ({"hostops": ...}), a JSON line of
-per-kernel results (ms is the bare kernel's device time at its main-path
-case; launches_per_scan is phase 4's count over its scans), the
-nvidia-smi line and {"ok": true, "device": {...}}.
+line of the host ops' results ({"hostops": ...}), the "program:" line
+(the device nodes of one captured sequential _run of the tour, the card's
+busy ms a tour scan from phase 6, the card), a JSON line of per-kernel
+results (ms is the bare kernel's device time at its main-path case;
+launches_per_scan is phase 4's count over its scans), the nvidia-smi line
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -221,9 +243,28 @@ PROFILE_SCANS = (150, 210)   # the traced window of phase 6
 STREAM_PREFIX = 300          # phase 9 is held to phase 4 after these scans
 SNAPSHOTS = {n for _, n, _, _ in HOST_RUNS} | {STREAM_PREFIX}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# the kernels of GraphSlam.process_scan (phase 4); smear_grid runs on the
-# meta, scan-set and localize paths (phases 7 and 8)
+# the kernels of GraphSlam.process_scan (phase 4), besides the program
+# kernels below; smear_grid runs on the meta, scan-set and localize paths
+# (phases 7 and 8)
 SLAM_KERNELS = ("scatter_cells", "smear_quantize", "window_sum")
+# the program kernels, and the kernel each follows on every path
+PROGRAM_AFTER = {"world_cells": "scatter_cells", "lattice_cells": "window_sum",
+                 "score_reduce": "window_sum"}
+PROGRAM_KERNELS = tuple(PROGRAM_AFTER)
+# paths whose scatter_cells builds a saved map's grid, not a matcher's
+MAP_GRID_PATHS = ("localize",)
+# phase 3b: the tour's sequential match (this scan against the 10 before
+# it), the loop matcher's batch (these scans against chains of 10 further
+# back), the benchmark's first batched jobs padded to 64 rows
+PROGRAM_SEQ_QUERY = 120
+PROGRAM_LOOP_QUERIES = (150, 200, 250, 300)
+PROGRAM_X64_JOBS = 61
+PROGRAM_NO_LIBRARY = {
+    "world_cells": "none: no single PyTorch call takes points to world, tests runs and "
+                   "rounds cells",
+    "lattice_cells": "none: no single PyTorch call turns and rounds the lattice's points",
+    "score_reduce": "none: no single PyTorch call scores, penalizes and reduces a lattice",
+}
 H0_S, H0_G = 1024, 1100     # the one-tap (h = 0) smear case of phase 3
 # the node-default sequential config (res 0.01 m, smear 0.07 m, range
 # 20 m) of the CLI and the online mapper: its smear has h = 14
@@ -629,6 +670,292 @@ def window_conv(q, gy0, gx0, n_pts, ny, nx, stride, raw):
     return call, what
 
 
+# -- phase 3b ------------------------------------------------------------------
+
+def tour_scans():
+    """The building tour's scans at their odometry poses (corrected = odometry)."""
+    from yag_slam_tpu_torch.io import (
+        carmen_to_localized_scans, generate_benchmark_log, load_carmen_log)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path, _, _ = generate_benchmark_log(
+            os.path.join(tmp, "tour.clf"), step=0.4, laps=1, n_beams=N_BEAMS, seed=0)
+        scans = carmen_to_localized_scans(load_carmen_log(log_path))
+    for s in scans:
+        s.corrected_pose = s.odom_pose
+    return scans
+
+
+def float_ulps(a, b):
+    """Per element, how many float32 (or float64) values lie between a and
+    b (0 where both are NaN)."""
+    ia, ib = bits(a).to(torch.int64), bits(b).to(torch.int64)
+    top = -(2 ** 31) if a.element_size() == 4 else -(2 ** 63)
+    # order the bit patterns as the values are ordered (-0 and +0 on 0)
+    ka = torch.where(ia < 0, top - ia, ia)
+    kb = torch.where(ib < 0, top - ib, ib)
+    d = (ka - kb).abs()
+    return torch.where(a.isnan() & b.isnan(), 0, d)
+
+
+def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
+    """One batch of the matcher's main path through the three program kernels
+    and their plain twins on the card, on the same inputs at each step
+    (the fine pass centered on the kernel's coarse result).  world_cells and
+    lattice_cells bit-equal; score_reduce's response, argmax and tie count
+    bit-equal, its pose and moments within one ulp in float32 (rows apart
+    counted) or 1e-12 relative in float64; the whole packed result equal to
+    _compute's.  Returns {kernel: case dict} (timed where `timing`)."""
+    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch.matching import correlation as C
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
+    from yag_slam_tpu_torch.utils.profiling import F32_OPS_PER_S, F64_OPS_PER_S
+
+    lib = _build.library()
+    offset = m.config.coarse_search_angle_offset
+    args, _, S = m._prepare(jobs, n_pad=n_pad)
+    st = m._stage(args)
+    G, h, res = m.grid_size, m._half, m.config.resolution
+    karto = m.config.karto_penalty_tuple()
+    N, B, P = st["lx"].shape
+    dt = st["lx"].dtype
+    es, is_double = dt.itemsize, int(dt == torch.float64)
+    rate = F64_OPS_PER_S if is_double else F32_OPS_PER_S
+    jc, n_q, sub = st["center"], st["n_q"], st["sub"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def ok(err, what):
+        if err != 0:
+            raise AssertionError(f"{what}: bare launch failed, cudaError {err}")
+
+    def ptrs(ts):
+        return [t.data_ptr() for t in ts]
+
+    shape = dict(N=N, B=B, P=P, S=S, dtype=str(dt), penalty=penalty, do_fine=do_fine,
+                 karto=karto is not None, padded=0 if n_pad is None else n_pad - len(jobs))
+    out = {}
+
+    # world_cells
+    w_in = [st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose",
+                            "center", "vp", "sub")]
+    kw = dict(G=G, S=S, h=h, res=res)
+    got = PK.world_cells(*w_in, **kw)
+    want = PK.world_cells_ref(*w_in, **kw)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    pre = [torch.empty_like(t) for t in got]
+    wparams = PK._doubles(res, PK._origin_offset(G, res))
+    tested = int((st["has_run"] & st["mask"][..., None]).sum())
+    # per point: its world point (8), its two cells (2 x sub, div, round);
+    # per point tested for its run: the anchor's and terminal's world points
+    # (16) and the cross product (7); per base scan: cos and sin
+    row = dict(case=name, **shape, max_abs_err=err, library=PROGRAM_NO_LIBRARY["world_cells"],
+               **bound(N * B * P * (2 * es + 9) + N * B * (1 + 3 * es) + N * (5 * es + 8)
+                       + 8 * N * B * P + 8 * N,
+                       14 * N * B * P + 23 * tested + 2 * N * B, rate))
+    if timing:
+        timings(row, lambda: PK.world_cells(*w_in, **kw), lambda: PK.world_cells_ref(*w_in, **kw),
+                lambda: ok(lib.yag_world_cells(*ptrs(w_in), *ptrs(pre), N, B, P, G, S, h,
+                                               wparams, is_double, stream), "world_cells"))
+        err = max(err, max(max_abs_err(a, b) for a, b in zip(pre, want)))
+        row["max_abs_err"] = err
+    out["world_cells"] = [row]
+    sy, sx, lim = got
+    q2d, _ = C.grid_from_cells(sy, sx, lim, S=S, h=h, taps=st["taps"])
+
+    packed = torch.full((N, 2, 8), float("nan"), dtype=dt, device=dev)
+    plain = torch.full((N, 2, 8), float("nan"), dtype=dt, device=dev)
+    center = jc
+    out["lattice_cells"], out["score_reduce"] = [], []
+    for r, lat in enumerate(m._lattices(offset)[:1 + bool(do_fine)]):
+        pname = f"{name}_{'fine' if r else 'coarse'}"
+        lshape = dict(shape, lattice=[lat.nx, lat.ny, lat.nt], stride=lat.stride)
+        largs = (st["qlx"], st["qly"], n_q, center, jc, sub, lat)
+        cells = PK.lattice_cells(*largs, G=G, res=res)
+        err = max(max_abs_err(a, b) for a, b in zip(cells, PK.lattice_cells_ref(*largs, G=G,
+                                                                               res=res)))
+        row = dict(case=pname, **lshape, max_abs_err=err,
+                   library=PROGRAM_NO_LIBRARY["lattice_cells"],
+                   **bound(N * P * 2 * es + 4 * N + 2 * 3 * es * N + 8 * N
+                           + 8 * N * lat.nt * P + 4 * N,
+                           14 * N * lat.nt * P + 4 * N * lat.nt, rate))
+        if timing:
+            lpre = [torch.empty_like(t) for t in cells]
+            lparams = PK._doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res, res,
+                                  PK._origin_offset(G, res), PK.FAR)
+            timings(row, lambda: PK.lattice_cells(*largs, G=G, res=res),
+                    lambda: PK.lattice_cells_ref(*largs, G=G, res=res),
+                    lambda: ok(lib.yag_lattice_cells(
+                        st["qlx"].data_ptr(), st["qly"].data_ptr(), n_q.data_ptr(),
+                        center.data_ptr(), center.stride(0), jc.data_ptr(), sub.data_ptr(),
+                        *ptrs(lpre), N, lat.nt, P, lparams, is_double, stream),
+                        "lattice_cells"))
+        out["lattice_cells"].append(row)
+
+        raw = K.window_sum(q2d, *cells, lat.ny, lat.nx, lat.stride)
+        stats = torch.empty((N, 4), dtype=torch.int64, device=dev)
+        stats_ref = torch.empty_like(stats)
+        rkw = dict(G=G, res=res, penalize=penalty, karto=karto, copy_fine=not do_fine)
+        PK.score_reduce(raw, n_q, center, jc, packed, r, lat, stats=stats, **rkw)
+        PK.score_reduce_ref(raw, n_q, center, jc, plain, r, lat, stats=stats_ref, **rkw)
+        a, b = packed[:, r], plain[:, r]
+        if not torch.equal(stats, stats_ref):
+            raise AssertionError(f"score_reduce {pname}: argmax / ties {stats.tolist()} vs "
+                                 f"{stats_ref.tolist()}")
+        if not torch.equal(bits(a[:, 0]), bits(b[:, 0])):
+            raise AssertionError(f"score_reduce {pname}: responses {a[:, 0].tolist()} vs "
+                                 f"{b[:, 0].tolist()}")
+        if not torch.equal(a.isnan(), b.isnan()):
+            raise AssertionError(f"score_reduce {pname}: NaN apart {a.tolist()} {b.tolist()}")
+        ulps = float_ulps(a, b)
+        fin = ~a.isnan()
+        rel = torch.where(fin, (a - b).abs() / b.abs().clamp_min(1e-300), 0.0)
+        if is_double:
+            if float(rel.max()) > 1e-12:
+                raise AssertionError(f"score_reduce {pname}: float64 rel {float(rel.max())}")
+        elif int(ulps.max()) > 1:
+            raise AssertionError(f"score_reduce {pname}: {int(ulps.max())} ulps apart")
+        cells_n = N * lat.nt * lat.ny * lat.nx
+        ties = int(stats[:, 3].sum())
+        win = sum(max(0, min(n - 1, int(c) + 6) - max(0, int(c) - 5))
+                  for i in range(N) for n, c in zip((lat.nx, lat.ny, lat.nt), stats[i, :3]))
+        # per candidate: the division, the / 100 and, penalized, the
+        # penalty's 24 operations and its product; per tie four float64 sums;
+        # per window cell its moments (about 12)
+        row = dict(case=pname, **lshape, max_abs_err=float(torch.where(
+                       fin, (a - b).abs(), 0.0).max()), max_ulps=int(ulps.max()),
+                   rows_apart=int((ulps > 0).any(dim=1).sum()), rows=N,
+                   max_rel=float(rel.max()), ties=stats[:, 3].tolist(),
+                   argmax=stats[:, :3].tolist(), library=PROGRAM_NO_LIBRARY["score_reduce"],
+                   **bound(4 * cells_n + 4 * N + 6 * es * N + 8 * es * N * (1 + (not do_fine)),
+                           cells_n * (2 + 26 * penalty) + 4 * ties + 12 * 11 * win, rate))
+        if timing:
+            sparams = PK._doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res,
+                                  PK._origin_offset(G, res), G * res / 2.0, 0.5 * res, 1.0 * res,
+                                  *(karto or (0.0,) * 4))
+            spre = torch.empty_like(packed)
+            mode = 0 if not penalty else (1 if karto is None else 2)
+            timings(row, lambda: PK.score_reduce(raw, n_q, center, jc, spre, r, lat, **rkw),
+                    lambda: PK.score_reduce_ref(raw, n_q, center, jc, spre, r, lat, **rkw),
+                    lambda: ok(lib.yag_score_reduce(
+                        raw.data_ptr(), n_q.data_ptr(), center.data_ptr(), center.stride(0),
+                        jc.data_ptr(), spre.data_ptr(), None, r, int(not do_fine), N, lat.nx,
+                        lat.ny, lat.nt, mode, sparams, is_double, stream), "score_reduce"))
+        out["score_reduce"].append(row)
+        center = packed[:, 0, 1:4]
+    if not do_fine and not torch.equal(bits(packed[:, 1]), bits(packed[:, 0])):
+        raise AssertionError(f"{name}: the coarse row was not copied into the fine slot")
+    whole, _ = m._compute(st, S, penalty, do_fine, offset)
+    if not torch.equal(bits(whole), bits(packed)):
+        raise AssertionError(f"{name}: _compute differs from the kernels run in turn")
+    trig = torch.cat([st["pose"][..., 2].reshape(-1), jc[:, 2], packed[:, 0, 3]])
+    return out, trig
+
+
+def zero_lattice(m, dev, penalty, karto):
+    """score_reduce on an all-zero lattice (every candidate ties, the
+    moments 0 / 0), against its twin: response, argmax, ties bit-equal,
+    the pose within one ulp, NaN moments in both."""
+    from yag_slam_tpu_torch.matching import program_kernels as PK
+
+    lat = m._lattices(m.config.coarse_search_angle_offset)[0]
+    N = 2
+    raw = torch.zeros((N, lat.nt, lat.ny, lat.nx), dtype=torch.int32, device=dev)
+    n_q = torch.tensor([180, 1], dtype=torch.int32, device=dev)
+    jc = torch.tensor([[1.5, -2.0, 0.3], [0.0, 0.0, -1.2]], dtype=m.dtype, device=dev)
+    outs = []
+    for fn in (PK.score_reduce, PK.score_reduce_ref):
+        packed = torch.zeros((N, 2, 8), dtype=m.dtype, device=dev)
+        stats = torch.zeros((N, 4), dtype=torch.int64, device=dev)
+        fn(raw, n_q, jc, jc, packed, 0, lat, G=m.grid_size, res=m.config.resolution,
+           penalize=penalty, karto=karto, copy_fine=True, stats=stats)
+        outs.append((packed, stats))
+    (a, sa), (b, sb) = outs
+    ulps = float_ulps(a, b)
+    fin = ~a.isnan()
+    rel = float(torch.where(fin, (a - b).abs() / b.abs().clamp_min(1e-300), 0.0).max())
+    close = rel <= 1e-12 if m.dtype == torch.float64 else int(ulps.max()) <= 1
+    if not (torch.equal(sa, sb) and torch.equal(bits(a[..., 0]), bits(b[..., 0]))
+            and torch.equal(a.isnan(), b.isnan()) and close
+            and int(sa[:, 3].min()) == lat.nx * lat.ny * lat.nt):
+        raise AssertionError(f"zero lattice (penalty {penalty}, karto {karto}): "
+                             f"{a.tolist()} vs {b.tolist()}, {sa.tolist()} vs {sb.tolist()}")
+    return dict(case=f"zero_{'karto' if karto else ('ref' if penalty else 'none')}",
+                dtype=str(m.dtype), max_ulps=int(ulps.max()), max_rel=rel,
+                response=a[:, 0, 0].tolist(),
+                nan_moments=int(a[:, 0, 4:].isnan().sum()))
+
+
+def check_program(dev):
+    """Phase 3b: the matcher's program kernels (program_kernels.py,
+    csrc/match_program.cu) against their twins on the card at the main
+    path's batches, timed beside their bounds, and the kernels' cos / sin
+    bit-equal to torch's.  Returns {kernel: [case dicts]} (the first of
+    each kernel is its main-path case)."""
+    from yag_slam_tpu_torch import _build
+    from yag_slam_tpu_torch.core.config import default_config, default_config_loop
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
+
+    t0 = time.perf_counter()
+    tour = tour_scans()
+    office = bench_torch.build_stream()
+    seq = [(tour[PROGRAM_SEQ_QUERY], tour[PROGRAM_SEQ_QUERY - 10:PROGRAM_SEQ_QUERY])]
+    loop = [(tour[q], tour[q - 25:q - 15]) for q in PROGRAM_LOOP_QUERIES]
+    x64 = bench_torch.batch_jobs(office)[:PROGRAM_X64_JOBS]
+    karto_cfg = dict(default_config, use_karto_penalties=True)
+    cases = [
+        ("seq", M(default_config, device=dev), seq, None, True, True),
+        ("loop", M(default_config_loop, loop=True, device=dev), loop, None, False, False),
+        ("x64", M(bench_torch.CFG, device=dev), x64, 64, True, True),
+        ("seq_f64", M(default_config, device=dev, dtype=torch.float64), seq, None, True, True),
+        ("seq_karto", M(karto_cfg, device=dev), seq, None, True, True),
+        ("seq_padded", M(default_config, device=dev), seq, 3, True, True),
+        ("loop_fine", M(default_config, device=dev), loop, None, False, True),
+    ]
+    results = {"world_cells": [], "lattice_cells": [], "score_reduce": []}
+    angles = []
+    for name, m, jobs, n_pad, penalty, do_fine in cases:
+        rows, trig = program_case(name, m, jobs, n_pad, penalty, do_fine, dev)
+        angles.append(trig.double())
+        for k, v in rows.items():
+            results[k] += v
+        for k in ("world_cells", "lattice_cells", "score_reduce"):
+            for r in rows[k]:
+                extra = (f", rows apart by an ulp {r['rows_apart']} of {r['rows']}"
+                         if "rows_apart" in r else "")
+                log(f"phase 3b: {k} {r['case']}: err {r['max_abs_err']}{extra}; wrapper "
+                    f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms; bound {1e3 * r['bound_ms']:.3f} us by "
+                    f"{r['bound_by']}, share {r['share']:.3f}")
+    for m, penalty, karto in ((cases[0][1], True, None), (cases[0][1], False, None),
+                              (cases[4][1], True, cases[4][1].config.karto_penalty_tuple()),
+                              (cases[3][1], True, None)):
+        z = zero_lattice(m, dev, penalty, karto)
+        results["score_reduce"].append(dict(z, max_abs_err=0.0))
+        log(f"phase 3b: score_reduce on an all-zero lattice {z}")
+
+    # the kernels' cos and sin against torch's on the card: every angle
+    # above and a sweep of 2^20 over [-4 pi, 4 pi], float32 and float64
+    lib = _build.library()
+    sweep = torch.linspace(-4 * np.pi, 4 * np.pi, 1 << 20, dtype=torch.float64, device=dev)
+    apart = {}
+    for dt in (torch.float32, torch.float64):
+        x = torch.cat([*angles, sweep]).to(dt)
+        c, s = torch.empty_like(x), torch.empty_like(x)
+        err = lib.yag_program_trig(x.data_ptr(), c.data_ptr(), s.data_ptr(), x.numel(),
+                                   int(dt == torch.float64),
+                                   torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise AssertionError(f"program trig probe failed, cudaError {err}")
+        apart[str(dt)] = int((bits(c) != bits(torch.cos(x))).sum()
+                             + (bits(s) != bits(torch.sin(x))).sum())
+    if any(apart.values()):
+        raise AssertionError(f"the kernels' cos / sin differ from torch's on the card: {apart}")
+    log(f"phase 3b: cos / sin of {x.numel()} angles bit-equal to torch.cos / torch.sin "
+        f"in float32 and float64; {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 # -- phase 4 / 5 / 6 -----------------------------------------------------------
 
 def ate(est_xy, gt_xy):
@@ -761,6 +1088,7 @@ def run_slam(tmp, gpu, dev):
     from yag_slam_tpu_torch.io import (
         carmen_to_localized_scans, generate_benchmark_log, load_carmen_log)
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
     from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 
@@ -800,6 +1128,7 @@ def run_slam(tmp, gpu, dev):
     main, rest = scans[:-HOLD_BACK], scans[-HOLD_BACK:]
     torch.cuda.synchronize()
     K.reset_launches()
+    PK.reset_launches()
     graphs_before = graph_stats()
     match_ms, scan_ms, card_at = [], [], {}
     t_all = time.perf_counter()
@@ -814,7 +1143,7 @@ def run_slam(tmp, gpu, dev):
                 card_at[i + 1] = graph_state(slam)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
-    launches = dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES, **PK.LAUNCHES)
     graphs = dict(stats_delta(graphs_before, graph_stats()), keys=len(tour_keys))
     hostops["calls"] = dict(slam=dict(native.CALLS))
     caps = (slam.seq_matcher._point_cap, slam.loop_matcher._point_cap)
@@ -861,7 +1190,7 @@ def run_slam(tmp, gpu, dev):
         raise AssertionError("no loop closure on the building tour")
     if not ate_slam < ate_odom:
         raise AssertionError(f"ATE {ate_slam} not below odometry {ate_odom}")
-    for k in SLAM_KERNELS:
+    for k in SLAM_KERNELS + PROGRAM_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
     for op in HOSTOPS_ON_PATH:
@@ -1099,6 +1428,7 @@ def profile_window(scans, dev, tmp, gpu):
     from torch.profiler import ProfilerActivity, profile
 
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 
     lo, hi = PROFILE_SCANS
@@ -1116,12 +1446,14 @@ def profile_window(scans, dev, tmp, gpu):
     prof.export_chrome_trace(path)
     with open(path) as f:
         tl = device_timeline(json.load(f)["traceEvents"],
-                             {k: v["symbols"] for k, v in K.KERNELS.items()})
+                             {k: v["symbols"] for k, v in (*K.KERNELS.items(),
+                                                           *PK.KERNELS.items())})
     if tl["parts"]["other_kernels"]["count"] + sum(
-            tl["parts"][k]["count"] for k in K.KERNELS) == 0:
+            tl["parts"][k]["count"] for k in (*K.KERNELS, *PK.KERNELS)) == 0:
         raise AssertionError("the trace holds no kernel on the card")
     tl.update(scans=[lo, hi], window_ms=window_ms,
-              idle_share=1.0 - tl["busy_ms"] / window_ms)
+              idle_share=1.0 - tl["busy_ms"] / window_ms,
+              busy_ms_per_scan=tl["busy_ms"] / (hi - lo))
     parts = ", ".join(f"{k} {v['ms']:.3f} ms x {v['count']}" for k, v in tl["parts"].items())
     log(f"phase 6: scans {lo}-{hi - 1} traced: device busy {tl['busy_ms']:.3f} ms "
         f"of {window_ms:.3f} ms, idle share {tl['idle_share']:.4f}; {parts} ({gpu})")
@@ -1160,7 +1492,8 @@ def hold(gap, what):
 
 def counted(K, fn, *more):
     """fn() with the launch counts of K (and of each module in `more`) set
-    to 0 just before; (out, launches of all of them in one dict)."""
+    to 0 just before; (out, launches of all of them in one dict).  The
+    matcher's paths pass program_kernels in `more`."""
     torch.cuda.synchronize()
     for m in (K, *more):
         m.reset_launches()
@@ -1175,6 +1508,7 @@ def counted(K, fn, *more):
 def matcher_api(scans, dev, gpu):
     """Phase 7 on the tour's scans at their SLAM poses."""
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
 
     out = dict(launches={})
@@ -1183,7 +1517,7 @@ def matcher_api(scans, dev, gpu):
     jobs = [(scans[i], scans[i - 10:i]) for i in META_QUERIES]
 
     metas, out["launches"]["meta"] = counted(
-        K, lambda: [card_meta.match_scan(q, b) for q, b in jobs])
+        K, lambda: [card_meta.match_scan(q, b) for q, b in jobs], PK)
     gaps, meta_ms, plain_ms = [], [], []
     for (q, b), rm in zip(jobs, metas):
         r, ms = timed(lambda: card.match_scan(q, b))
@@ -1210,7 +1544,7 @@ def matcher_api(scans, dev, gpu):
     i = SET_QUERY
     queries, base = scans[i:i + 3], scans[i - 10:i]
     (r, ms), out["launches"]["scan_sets"] = counted(
-        K, lambda: timed(lambda: card_meta.match_scan_sets(queries, base)))
+        K, lambda: timed(lambda: card_meta.match_scan_sets(queries, base)), PK)
     rh = host_meta.match_scan_sets(queries, base)
     gap = result_gap(r, rh)
     hold(gap, "match_scan_sets")
@@ -1226,7 +1560,7 @@ def matcher_api(scans, dev, gpu):
     card.match_many_mega(jobs[:MEGA_CHUNK], chunk=MEGA_CHUNK)      # warm-up
     many, many_ms = timed(lambda: card.match_many(jobs))
     (mega, mega_ms), out["launches"]["mega"] = counted(
-        K, lambda: timed(lambda: card.match_many_mega(jobs, chunk=MEGA_CHUNK)))
+        K, lambda: timed(lambda: card.match_many_mega(jobs, chunk=MEGA_CHUNK)), PK)
     if not all(same_result(a, b) for a, b in zip(many, mega)):
         raise AssertionError("match_many_mega differs from match_many")
     with held_replays() as tally:
@@ -1256,6 +1590,7 @@ def localize(slam, scans, dev, gpu):
     from yag_slam_tpu_torch.mapping import occupancy_grid_map_to_correlation_grid
     from yag_slam_tpu_torch.matching import correlation as C
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
 
     res, smear = 0.05, 0.05
@@ -1282,7 +1617,7 @@ def localize(slam, scans, dev, gpu):
             cg, grid.offset.x, grid.offset.y, queries, penalty=False))
         return cg, conv_ms, r, ms
 
-    (cgrid, conv_ms, r, match_ms), launches = counted(K, run)
+    (cgrid, conv_ms, r, match_ms), launches = counted(K, run, PK)
     host_cgrid = occupancy_grid_map_to_correlation_grid(im, res, smear, device="cpu")
     if not np.array_equal(cgrid, host_cgrid):
         raise AssertionError("map conversion on the card differs from the host's")
@@ -1349,6 +1684,7 @@ def stream(tour, card_prefix, phase4, dev, gpu):
     """Phase 9: the tour through process_scan_stream, held to phase 4's
     blocking run; then the pipeline's modes on the first scans."""
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 
     nm, gt = tour["n_main"], tour["gt"]
@@ -1363,7 +1699,7 @@ def stream(tour, card_prefix, phase4, dev, gpu):
         torch.cuda.synchronize()
         return at, time.perf_counter() - t0
 
-    ((poses, counts), wall), launches = counted(K, run)
+    ((poses, counts), wall), launches = counted(K, run, PK)
     dxy, dth = pose_gap(poses, card_prefix[0])
     est = np.array([xyt(v.obj.corrected_pose)[:2] for v in slam.graph.vertices])
     st = slam.stats
@@ -1399,7 +1735,10 @@ def stream(tour, card_prefix, phase4, dev, gpu):
 def pipeline_modes(tour, dev, gpu):
     """The first PIPELINE_SCANS scans matched against their last 10: the
     blocking match_scan loop, the pipeline in block mode, and in streaming
-    mode with one lagged group."""
+    mode with one lagged group; the pipeline modes' launches counted
+    together (path "pipeline")."""
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
     from yag_slam_tpu_torch.matching.pipeline import OnlineMatchPipeline
 
@@ -1424,14 +1763,17 @@ def pipeline_modes(tour, dev, gpu):
             res += pipe.drain()
         return res + pipe.flush(), dict(pipe.stats)
 
-    runs = {}
+    runs, launches = {}, {}
     for name, fn in (("blocking", blocking),
                      ("block", lambda sc, m: piped(sc, m, block_dispatch=True)),
                      ("streaming_lag1", lambda sc, m: piped(sc, m, lag_blocks=1))):
         scans = tour["scans_of"](tour["carmen"][:PIPELINE_SCANS])
         m = CorrelativeScanMatcher(device=dev)
-        (res, stats), ms = timed(lambda: fn(scans, m))
+        ((res, stats), ms), n = counted(K, lambda: timed(lambda: fn(scans, m)), PK)
         runs[name] = dict(res=res, poses=poses_of(scans[1:]), ms=ms, stats=stats)
+        if name != "blocking":
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
     out = {}
     for name, r in runs.items():
         dxy, dth = pose_gap(r["poses"], runs["block"]["poses"])
@@ -1455,8 +1797,9 @@ def pipeline_modes(tour, dev, gpu):
             poses_of(scans[1:]), runs["block"]["poses"]):
         raise AssertionError(f"block mode held: {tally['replays']} replays")
     out["block"]["replays_held"] = tally["replays"]
+    out["launches"] = launches
     log(f"phase 9: block mode again: its {tally['replays']} replays held to _compute "
-        f"bit for bit, the same poses")
+        f"bit for bit, the same poses; the pipeline modes' launches {launches}")
     return out
 
 
@@ -1479,6 +1822,7 @@ def entry_points(tour, tmp, dev, gpu):
     from yag_slam_tpu_torch.apps import offline_mapper
     from yag_slam_tpu_torch.apps.online import OnlineMapper, ThreadedOnlineMapper
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
 
     out = dict(launches={})
     base = ["--carmen", tour["log"], "--gt", tour["gt_path"], "--device", dev.type,
@@ -1490,7 +1834,7 @@ def entry_points(tour, tmp, dev, gpu):
         return a, b
 
     native.reset_calls()
-    ((a, b), lines), out["launches"]["cli"] = counted(K, lambda: quiet(cli))
+    ((a, b), lines), out["launches"]["cli"] = counted(K, lambda: quiet(cli), PK)
     out["hostops_calls"] = dict(native.CALLS)
     if min(out["hostops_calls"][op] for op in HOSTOPS_ON_PATH) <= 0:
         raise AssertionError(f"the CLI skipped a host op: {out['hostops_calls']}")
@@ -1528,7 +1872,7 @@ def entry_points(tour, tmp, dev, gpu):
         finally:
             mapper.close()
 
-    (mapper, ok, secs), out["launches"]["threaded"] = counted(K, threaded)
+    (mapper, ok, secs), out["launches"]["threaded"] = counted(K, threaded, PK)
     ref = OnlineMapper(**kw)
     for x in args:
         ref.add_scan(*x)
@@ -1557,6 +1901,7 @@ def lifelong(tour, slam, dev, gpu):
     from yag_slam_tpu_torch.mapping import raytrace as RT
     from yag_slam_tpu_torch.mapping.raytrace import trace_rays
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.splicing import splice
 
     grid = slam.make_occupancy_grid()
@@ -1607,7 +1952,7 @@ def lifelong(tour, slam, dev, gpu):
         torch.cuda.synchronize()
         return mapper, n_base, t1 - t0, time.perf_counter() - t1
 
-    (mapper, n_base, build_s, feed_s), launches = counted(K, run, RT)
+    (mapper, n_base, build_s, feed_s), launches = counted(K, run, RT, PK)
     if launches["splice_sweep"] != 1:
         raise AssertionError(f"the splice launched the sweep kernel "
                              f"{launches['splice_sweep']} times, not once")
@@ -1775,6 +2120,7 @@ def spa_tour(tour, card_prefix, phase4, dev, gpu):
     from yag_slam_tpu_torch.graphopt import spa as S
     from yag_slam_tpu_torch.graphopt.spa import SPA2d
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
 
     nm, gt = tour["n_main"], tour["gt"]
@@ -1794,7 +2140,7 @@ def spa_tour(tour, card_prefix, phase4, dev, gpu):
         torch.cuda.synchronize()
         return at, time.perf_counter() - t0, dict(S.HOST_READS)
 
-    ((poses, counts), wall, reads), launches = counted(K, run)
+    ((poses, counts), wall, reads), launches = counted(K, run, PK)
     if not spa_ms or reads["lm"] <= 0:
         raise AssertionError("the dense-SPA tour never solved on the card")
     dxy, dth = pose_gap(poses, card_prefix[0])
@@ -1903,6 +2249,7 @@ def sharded_matching(tour, phase4, mesh, dev, gpu):
     matcher's match_many."""
     from yag_slam_tpu_torch.core.config import default_config_loop
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
     from yag_slam_tpu_torch.parallel import ShardedLoopMatcher
     from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
@@ -1927,7 +2274,7 @@ def sharded_matching(tour, phase4, mesh, dev, gpu):
 
     sharded, plain = ShardedLoopMatcher(loop_matcher(), mesh), loop_matcher()
     (again, sharded_ms), launches = counted(K, lambda: timed(
-        lambda: [sharded.match_many(jobs, False, False) for jobs, _ in batches]))
+        lambda: [sharded.match_many(jobs, False, False) for jobs, _ in batches]), PK)
     want, plain_ms = timed(lambda: [plain.match_many(jobs, False, False) for jobs, _ in batches])
     jobs = positive = 0
     for (_, first), second, ref in zip(batches, again, want):
@@ -2028,6 +2375,7 @@ def sharded_slam(mesh, dev, gpu):
     """Phase 13 (c): GraphSlam with ShardedLoopMatcher and DistributedSPA
     over the 2-lap square loop."""
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
     from yag_slam_tpu_torch.parallel import DistributedSPA, ShardedLoopMatcher
     from yag_slam_tpu_torch.slam.graph_slam import GraphSlam
@@ -2040,7 +2388,7 @@ def sharded_slam(mesh, dev, gpu):
                      loop_search_dist=2.0, loop_search_min_chain_size=5,
                      opt=DistributedSPA(mesh))
     (_, secs), launches = counted(K, lambda: timed(lambda: [slam.process_scan(s)
-                                                           for s in scans]))
+                                                           for s in scans]), PK)
     secs /= 1e3
     err = ate_rmse(trajectory_from_slam(slam), gt[:, :2], align=False)
     st = slam.stats
@@ -2106,9 +2454,10 @@ def ab_harness(dev, gpu):
     card."""
     from yag_slam_tpu_torch.apps import ab_compare
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
 
     (res, lines), launches = counted(
-        K, lambda: quiet(lambda: ab_compare.main(["--synthetic", "--device", dev.type])))
+        K, lambda: quiet(lambda: ab_compare.main(["--synthetic", "--device", dev.type])), PK)
     for line in lines:
         log(f"phase 13: ab_compare: {line}")
     ref, port = res["ref"], res["port"]
@@ -2390,6 +2739,60 @@ def x64_costs(dev):
                 matches_per_s=len(res) / wall)
 
 
+def replay_nodes(key, rec, runs=5):
+    """What the card runs for one _run of `key` (captured): the device
+    activities of a trace (kernels, copies, fills), their busy ms and the
+    kernels by name, for the graph's replay alone and for a whole
+    dispatch of the key's first arguments (staging, replay, clone); means
+    over `runs`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
+    from yag_slam_tpu_torch.matching.graphs import GRAPHS
+
+    symbols = {k: v["symbols"] for k, v in (*K.KERNELS.items(), *PK.KERNELS.items())}
+
+    def traced(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        count = dict.fromkeys(DEVICE_CATS, 0)
+        for e in events:
+            if e.get("cat") in count and "dur" in e:
+                count[e["cat"]] += 1
+        tl = device_timeline(events, symbols)
+        if count["kernel"] == 0:
+            raise AssertionError("the trace of a _run holds no kernel")
+        return dict(nodes=sum(count.values()) / runs, kernels=count["kernel"] / runs,
+                    copies=count["gpu_memcpy"] / runs, fills=count["gpu_memset"] / runs,
+                    busy_ms=tl["busy_ms"] / runs,
+                    parts={k: v["count"] / runs for k, v in tl["parts"].items() if v["count"]})
+
+    def whole(fn):
+        # a trace that lost device events (a part not launched the same
+        # number of times each run) is taken again
+        for _ in range(3):
+            t = traced(fn)
+            if all(float(v).is_integer() for v in t["parts"].values()):
+                return t
+        raise AssertionError(f"the traces of {key} lose device events: {t}")
+
+    m = rec[0]
+    if GRAPHS.entry(key).graph is None:
+        raise AssertionError(f"key {key} was never captured")
+    return dict(replay=whole(GRAPHS.entry(key).graph.replay),
+                dispatch=whole(lambda: m._run(*rec[1:])))
+
+
 def graphs_phase(slam, tour_keys, tour, dev, gpu):
     """Phase 15: every key the tour met held bit for bit, replay against
     _compute; the office batch of 64 with one batch in flight; one
@@ -2422,6 +2825,17 @@ def graphs_phase(slam, tour_keys, tour, dev, gpu):
     for k in ("sequential", "loop_coarse", "loop_fine"):
         if k not in kinds:
             raise AssertionError(f"the tour met no {k} key")
+    out["tour_run_nodes"] = {}
+    for kind in ("sequential", "loop_coarse"):
+        key, rec = next((k, r) for k, r in tour_keys.items()
+                        if key_kind(k, slam.loop_matcher) == kind)
+        out["tour_run_nodes"][kind] = n = replay_nodes(key, rec)
+        log(f"phase 15: one {kind} _run of the tour (N={key.N} B={key.B} S={key.S}): its "
+            f"graph's replay runs {n['replay']['nodes']:g} device nodes "
+            f"({n['replay']['kernels']:g} kernels, {n['replay']['copies']:g} copies, "
+            f"{n['replay']['fills']:g} fills), busy {n['replay']['busy_ms']:.4f} ms "
+            f"({n['replay']['parts']}); the whole dispatch (staging, replay, clone) "
+            f"{n['dispatch']['nodes']:g} nodes, busy {n['dispatch']['busy_ms']:.4f} ms ({gpu})")
 
     # the office cell's pattern: batches of 64, one in flight
     scans = bench_torch.build_stream()
@@ -2543,12 +2957,13 @@ def bench_rows(dev, gpu):
     first batched jobs held to the host's float32 plain path, and
     profile_match_torch's stages, one composed pass counted."""
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
 
     t0 = time.perf_counter()
     scans = bench_torch.build_stream()
     rows, launches = counted(K, lambda: bench_torch.bench_device(scans, device=dev,
-                                                                 repeats=bench_torch.REPEATS))
+                                                                 repeats=bench_torch.REPEATS), PK)
     jobs = bench_torch.batch_jobs(scans)[:BENCH_HELD_JOBS]
     worst = {}
     for dtype in (torch.float64, torch.float32):
@@ -2578,7 +2993,7 @@ def bench_rows(dev, gpu):
 
     t0 = time.perf_counter()
     ctx = profile_match_torch.setup(device=dev)
-    _, prof_launches = counted(K, lambda: profile_match_torch.compose(ctx))
+    _, prof_launches = counted(K, lambda: profile_match_torch.compose(ctx), PK)
     prof = profile_match_torch.profile(ctx)
     for line in quiet(lambda: profile_match_torch.report(prof, torch.cuda.get_device_name(0),
                                                          gpu))[1]:
@@ -2591,16 +3006,19 @@ def bench_rows(dev, gpu):
 
 def kernel_lines(K, checks, slam):
     """Per-kernel results of the run: the phase-3 cases (plus the tour-map
-    smear of phase 8) and the launches of every driven path; then the
+    smear of phase 8) and the launches of every driven path; the program
+    kernels' phase-3b cases (in `checks` too) and launches; then the
     render's kernels, their cases and launches from phase 5, and the
     splice's sweep, its case and launches from phase 11."""
     from yag_slam_tpu_torch.mapping import raytrace as RT
     from yag_slam_tpu_torch.mapping import render_kernel as R
+    from yag_slam_tpu_torch.matching import program_kernels as PK
 
     checks["smear_grid"].append(slam["localize"]["smear_case"])
     paths = dict(slam=slam["launches"], **slam["matcher_api"]["launches"],
                  localize=slam["localize"]["launches"],
                  stream=slam["stream"]["launches"],
+                 pipeline=slam["stream"]["modes"]["launches"],
                  **slam["entry_points"]["launches"],
                  lifelong=slam["lifelong"]["launches"],
                  spa_tour=slam["spa"]["tour"]["launches"],
@@ -2612,11 +3030,20 @@ def kernel_lines(K, checks, slam):
     for path in ("meta", "scan_sets", "localize", "profile_match"):
         if paths[path]["smear_grid"] <= 0:
             raise AssertionError(f"smear_grid never launched on the {path} path")
-    for path in ("stream", "cli", "threaded", "lifelong", "spa_tour", "sharded",
+    for path in ("stream", "pipeline", "cli", "threaded", "lifelong", "spa_tour", "sharded",
                  "sharded_slam", "ab_compare", "bench", "profile_match"):
-        for k in SLAM_KERNELS:
+        for k in SLAM_KERNELS + PROGRAM_KERNELS:
             if paths[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
+    # every matcher grid build runs world_cells, every window sum its
+    # lattice cells and its reduction: as many launches as the kernel each
+    # follows, on every path but the map conversion's (phase 8 scatters the
+    # map's own cells, and matches by the element path)
+    for path, n in paths.items():
+        for k, after in PROGRAM_AFTER.items():
+            if path not in MAP_GRID_PATHS and n[k] != n[after]:
+                raise AssertionError(f"{n[after]} {after} but {n[k]} {k} launches on the "
+                                     f"{path} path")
     kernels = []
     for k, info in K.KERNELS.items():
         main_case = checks[k][0]
@@ -2636,8 +3063,27 @@ def kernel_lines(K, checks, slam):
             library=main_case["library"], share=main_case["share"],
             case=main_case["case"], cases=checks[k],
         ))
-    # the kernels with no Pallas counterpart: the render's, on phase 5's
-    # path, and the splice's sweep, on phase 11's
+    # the kernels with no Pallas counterpart: the matcher's program
+    # kernels, on every matcher path; the render's, on phase 5's path; the
+    # splice's sweep, on phase 11's
+    x64_row = slam["bench"]["rows"]["64"]["launches_per_match"]
+    for k, info in PK.KERNELS.items():
+        cases = checks[k]
+        main_case = cases[0]
+        by_path = {p: n[k] for p, n in paths.items() if n[k] > 0}
+        kernels.append(dict(
+            name=k, route="cuda", source=info["source"], replaces=info["replaces"][0],
+            also_replaces=info["replaces"][1:], launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            launches_per_scan=slam["launches"][k] / slam["scans"],
+            launches_per_batch_match=x64_row[k],
+            max_abs_err=max(r["max_abs_err"] for r in cases),
+            ms=main_case["kernel_ms"], wrapper_ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+            library=main_case["library"], share=main_case["share"],
+            case=main_case["case"], cases=cases,
+        ))
     render, life = slam["render"], slam["lifelong"]
     added = [(k, info, "render", render["launches"].get(k, 0), render["cases"][k],
               dict(launches_per_render=render["launches"].get(k, 0) / render["renders"]))
@@ -2673,7 +3119,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results as JSON here")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1-3 only: build, hold each kernel to its plain "
+                    help="phases 1-3b only: build, hold each kernel to its plain "
                          "version and time it; prints no result line")
     ap.add_argument("--csrc", help="with --kernels-only: build the kernels from this "
                                    "directory of CUDA sources (an earlier tree's "
@@ -2710,10 +3156,12 @@ def main():
         raise AssertionError("the node-default smear is not h = 14")
     checks = check_kernels(K, taps[(0.01, 0.05)], taps[(0.05, 0.05)],
                            taps[(0.01, 0.07)], dev)
+    program = check_program(dev)
     if args.kernels_only:
         if args.out:
             with open(args.out, "w") as f:
-                json.dump(dict(gpu=gpu, device=name, kernels=checks), f, indent=1)
+                json.dump(dict(gpu=gpu, device=name, kernels=checks, program=program), f,
+                          indent=1)
         log(f"phase 3: done ({gpu}); --kernels-only, no result line")
         return
     with tempfile.TemporaryDirectory() as tmp:
@@ -2725,12 +3173,20 @@ def main():
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded[:5]}")
 
+    checks.update(program)
     kernels = kernel_lines(K, checks, slam)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
+    nodes = slam["graphs"]["phase15"]["tour_run_nodes"]["sequential"]
     print(json.dumps({"bench": slam["bench"]}))
     print(json.dumps({"hostops": slam["hostops"]}))
+    print(f"program: one captured sequential _run of the tour replays "
+          f"{nodes['replay']['nodes']:g} device nodes ({nodes['replay']['kernels']:g} kernels, "
+          f"{nodes['replay']['copies']:g} copies, {nodes['replay']['fills']:g} fills), busy "
+          f"{nodes['replay']['busy_ms']:.4f} ms; the card is busy "
+          f"{slam['profile']['busy_ms_per_scan']:.4f} ms a tour scan (scans "
+          f"{PROFILE_SCANS[0]}-{PROFILE_SCANS[1] - 1} traced); {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -10,17 +10,20 @@ bench_torch.py's stream (seed 0), each against the N_BASE scans before
 it, at the benchmark's configuration (G = 4051), float32, penalty and fine
 pass on.  The stages are those of ``CorrelativeScanMatcher._run``:
 
-  inputs          library gathers, base points to world, the keep mask
-                  (``_stage``, then ``_world_points``);
-  occupancy       scatter cells, then the ``scatter_cells`` kernel;
-  smear_quantize  the full-grid limits, then the ``smear_quantize`` kernel;
+  inputs          library gathers (``_stage``);
+  world_cells     base points to world, the keep mask and their scatter
+                  cells (the ``world_cells`` kernel);
+  occupancy       the ``scatter_cells`` kernel;
+  smear_quantize  the ``smear_quantize`` kernel;
   staged          the staged route instead: ``smear_grid`` then
                   ``quantize_mask`` (what ``_run`` runs with meta; its
                   grid must equal smear_quantize's bit for bit);
-  coarse_score    the coarse lattice (``window_sum`` at stride 2);
-  coarse_reduce   its ``reduce_best_pose``;
-  fine_score      the fine lattice around the coarse poses (stride 1);
-  fine_reduce     its ``reduce_best_pose``;
+  coarse_lattice  the coarse lattice's origin cells (``lattice_cells``);
+  coarse_score    its window sums (``window_sum`` at stride 2);
+  coarse_reduce   its scores and best pose (``score_reduce``);
+  fine_lattice    the fine lattice around the coarse poses (stride 1);
+  fine_score      its window sums;
+  fine_reduce     its scores and best pose;
   end_to_end      the whole ``_run`` (on the card: staging, one CUDA
                   graph replay, the clone of its output).
 
@@ -63,8 +66,9 @@ CFG = {
     "smear_deviation": 0.05,
 }
 N_BASE = 10
-STAGES = ("inputs", "occupancy", "smear_quantize", "staged", "coarse_score",
-          "coarse_reduce", "fine_score", "fine_reduce")
+STAGES = ("inputs", "world_cells", "occupancy", "smear_quantize", "staged",
+          "coarse_lattice", "coarse_score", "coarse_reduce", "fine_lattice", "fine_score",
+          "fine_reduce")
 ROUTE = tuple(s for s in STAGES if s != "staged")
 # the spin before each timed stage: longer than any stage's host launches
 STAGE_SPIN = 20_000_000
@@ -112,10 +116,10 @@ def compose(ctx):
     before it.  Returns (packed (N, 2, 8), {stage: output}, {stage: fn}),
     packed being what ``batched_core`` returns for the same jobs; raises
     if the staged route's grid differs from smear_quantize's."""
-    from yag_slam_tpu_torch.matching import correlation as C
     from yag_slam_tpu_torch.matching import kernels as K
+    from yag_slam_tpu_torch.matching import program_kernels as PK
 
-    m, args, P, S, G, h = (ctx[k] for k in ("m", "args", "P", "S", "G", "h"))
+    m, args, S, G, h = (ctx[k] for k in ("m", "args", "S", "G", "h"))
     res, taps, offset = m.config.resolution, m._taps, ctx["offset"]
     out, fns = {}, {}
 
@@ -124,27 +128,27 @@ def compose(ctx):
         out[name] = fn()
         return out[name]
 
-    inp = stage("inputs", lambda: m._world_points(m._stage(args)))
-    points = tuple(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox", "soy"))
-
-    def occupancy():
-        sy, sx = C.occupancy_cells(*points, G=G, S=S, h=h, res=res)
-        return K.scatter_cells(sy, sx, S + 2 * h)
-
-    occ = stage("occupancy", occupancy)
-    q2d = stage("smear_quantize", lambda: K.smear_quantize(
-        occ, C._full_grid_limits(G, inp["sox"], inp["soy"]), taps, S, h))
-    staged = stage("staged", lambda: K.quantize_mask(
-        K.smear_grid(occ, taps, S, h), C._full_grid_limits(G, inp["sox"], inp["soy"])))
+    st = stage("inputs", lambda: m._stage(args))
+    sy, sx, lim = stage("world_cells", lambda: PK.world_cells(
+        *(st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose", "center",
+                          "vp", "sub")), G=G, S=S, h=h, res=res))
+    occ = stage("occupancy", lambda: K.scatter_cells(sy, sx, S + 2 * h))
+    q2d = stage("smear_quantize", lambda: K.smear_quantize(occ, lim, taps, S, h))
+    staged = stage("staged", lambda: K.quantize_mask(K.smear_grid(occ, taps, S, h), lim))
     if not torch.equal(staged, q2d):
         raise AssertionError("the staged route's grid differs from smear_quantize's")
-    stage("coarse_score", lambda: m._score_pass(
-        q2d, inp, (inp["cx"], inp["cy"], inp["ct"]), False, True, offset))
-    coarse = stage("coarse_reduce", lambda: C.reduce_best_pose(*out["coarse_score"]))
-    stage("fine_score", lambda: m._score_pass(
-        q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True, True, offset))
-    fine = stage("fine_reduce", lambda: C.reduce_best_pose(*out["fine_score"]))
-    return torch.stack([coarse, fine], dim=1), out, fns
+    jc, n_q = st["center"], st["n_q"]
+    packed = torch.empty((n_q.shape[0], 2, 8), dtype=m.dtype, device=n_q.device)
+    for row, (name, lat) in enumerate(zip(("coarse", "fine"), m._lattices(offset))):
+        center = jc if row == 0 else packed[:, 0, 1:4]
+        cells = stage(f"{name}_lattice", lambda c=center, lat=lat: PK.lattice_cells(
+            st["qlx"], st["qly"], n_q, c, jc, st["sub"], lat, G=G, res=res))
+        raw = stage(f"{name}_score", lambda c=cells, lat=lat: K.window_sum(
+            q2d, *c, lat.ny, lat.nx, lat.stride))
+        stage(f"{name}_reduce", lambda c=center, r=raw, row=row, lat=lat: PK.score_reduce(
+            r, n_q, c, jc, packed, row, lat, G=G, res=res, penalize=True,
+            karto=m.config.karto_penalty_tuple()))
+    return packed, out, fns
 
 
 def nbytes(*xs):
@@ -186,25 +190,30 @@ def stage_work(ctx, out, fns):
     m, args, N, B, P, S, h = (ctx[k] for k in ("m", "args", "N", "B", "P", "S", "h"))
     lib = m.library.fields
     row = sum(lib[k].element_size() for k in ("lx", "ly", "anchor", "term", "has_run"))
-    inp = out["inputs"]
-    lanes = tuple(inp[k] for k in ("qx", "qy", "n_pts", "cx", "cy", "ct", "ox", "oy",
-                                   "sox", "soy"))
+    st = out["inputs"]
+    world = tuple(st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose",
+                                  "center", "vp", "sub"))
+    queries = tuple(st[k] for k in ("qlx", "qly", "n_q", "center", "sub"))
     work = {
         # library rows of the base and query scans, the job arrays, the outputs
         "inputs": (N * B * P * row + N * (2 * P * lib["lx"].element_size() + 4)
-                   + nbytes(args, inp), 0),
-        "occupancy": (nbytes(*(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox",
-                                                "soy"))) + nbytes(out["occupancy"]), 0),
+                   + nbytes(args, world, queries), 0),
+        "world_cells": (nbytes(world, out["world_cells"]), 0),
+        "occupancy": (nbytes(out["world_cells"][:2], out["occupancy"]), 0),
         "smear_quantize": (smear_bytes(N, S, h, 1) + 8 * N, 0),
         # the staged route also writes the float32 grid (the meta grid)
         "staged": (smear_bytes(N, S, h, 1 + 4) + 8 * N, smear_ops(N, S, h)),
     }
     for name in ("coarse", "fine"):
+        work[f"{name}_lattice"] = (nbytes(queries, st["center"], out[f"{name}_lattice"]), 0)
         q, gy0, gx0, n_pts, ny, nx, stride = _window_args(fns[f"{name}_score"])
         cells = sum(window_cells(q[j:j + 1], gy0[j:j + 1], gx0[j:j + 1], int(n_pts[j]),
                                  ny, nx, stride) for j in range(N))
-        work[f"{name}_score"] = (cells + nbytes(lanes, out[f"{name}_score"]), 0)
-        work[f"{name}_reduce"] = (nbytes(out[f"{name}_score"], out[f"{name}_reduce"]), 0)
+        work[f"{name}_score"] = (cells + nbytes(out[f"{name}_lattice"],
+                                                out[f"{name}_score"]), 0)
+        # the sums read, one row of the result written
+        work[f"{name}_reduce"] = (nbytes(out[f"{name}_score"], st["n_q"])
+                                  + out[f"{name}_reduce"].nbytes // 2, 0)
     return work
 
 

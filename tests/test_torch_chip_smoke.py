@@ -18,6 +18,7 @@ _spec.loader.exec_module(smoke)
 from yag_slam_tpu_torch.mapping.raytrace import KERNELS as SWEEP_KERNELS
 from yag_slam_tpu_torch.mapping.render_kernel import KERNELS as RENDER_KERNELS
 from yag_slam_tpu_torch.matching.kernels import KERNELS
+from yag_slam_tpu_torch.matching.program_kernels import KERNELS as PROGRAM_KERNELS
 
 NAMES = {k: v["symbols"] for k, v in KERNELS.items()}
 
@@ -82,7 +83,7 @@ def _run_summary(zero=None):
     path for every kernel (smear_grid only on its own paths); `zero` =
     (path, kernel) sets that count to 0."""
     def n(path, **kw):
-        counts = {k: kw.get(k, 1) for k in KERNELS}
+        counts = {k: kw.get(k, 1) for k in (*KERNELS, *PROGRAM_KERNELS)}
         if zero and zero[0] == path:
             counts[zero[1]] = 0
         return counts
@@ -90,14 +91,15 @@ def _run_summary(zero=None):
     case = dict(case="c", max_abs_err=0, ms=0.1, plain_ms=1.0, kernel_ms=0.05,
                 bound_ms=0.01, bound_by="bytes", library_ms=None, library="none",
                 share=0.2)
-    checks = {k: [dict(case)] for k in KERNELS}
+    checks = {k: [dict(case)] for k in (*KERNELS, *PROGRAM_KERNELS)}
     slam = dict(
         scans=4,
         launches=n("slam", smear_grid=0),
         matcher_api=dict(launches=dict(meta=n("meta"), scan_sets=n("scan_sets"),
                                        mega=n("mega", smear_grid=0))),
         localize=dict(launches=n("localize"), smear_case=dict(case, case="tour_map")),
-        stream=dict(launches=n("stream", smear_grid=0)),
+        stream=dict(launches=n("stream", smear_grid=0),
+                    modes=dict(launches=n("pipeline", smear_grid=0))),
         entry_points=dict(launches=dict(cli=n("cli", smear_grid=0),
                                         threaded=n("threaded", smear_grid=0))),
         lifelong=dict(launches=dict(n("lifelong", smear_grid=0), splice_sweep=1), splices=1,
@@ -107,7 +109,9 @@ def _run_summary(zero=None):
                           sharded_slam=dict(launches=n("sharded_slam", smear_grid=0)),
                           ab_compare=dict(launches=n("ab_compare", smear_grid=0))),
         bench=dict(launches=n("bench", smear_grid=0),
-                   profile=dict(launches=n("profile_match"))),
+                   profile=dict(launches=n("profile_match")),
+                   rows={"64": dict(launches_per_match=dict.fromkeys(PROGRAM_KERNELS,
+                                                                     0.03125))}),
         render=dict(renders=4, launches={k: 4 for k in RENDER_KERNELS},
                     cases={k: [dict(case, case="k=833"), dict(case, case="k=5")]
                            for k in RENDER_KERNELS}),
@@ -124,8 +128,9 @@ def test_kernel_lines_count_launches_by_path():
 
     checks, slam = _run_summary()
     rows = {r["name"]: r for r in smoke.kernel_lines(K, checks, slam)}
-    assert set(rows) == set(KERNELS) | set(RENDER_KERNELS) | set(SWEEP_KERNELS)
-    for k in smoke.SLAM_KERNELS:
+    assert set(rows) == (set(KERNELS) | set(PROGRAM_KERNELS) | set(RENDER_KERNELS)
+                         | set(SWEEP_KERNELS))
+    for k in smoke.SLAM_KERNELS + smoke.PROGRAM_KERNELS:
         assert set(NEW_PATHS) <= set(rows[k]["launches_by_path"])
         assert rows[k]["launches"] == sum(rows[k]["launches_by_path"].values())
     assert set(rows["smear_grid"]["launches_by_path"]) == {"meta", "scan_sets", "localize",
@@ -248,8 +253,9 @@ def test_phase_14_counts_from_zero_and_prints_its_line(monkeypatch, capsys):
     monkeypatch.setattr(K, "LAUNCHES", dict(K.LAUNCHES, scatter_cells=99))
     out = smoke.bench_rows(torch.device("cpu"), "label")
     assert out["launches"] == {"scatter_cells": 3, "smear_quantize": 3, "smear_grid": 0,
-                               "window_sum": 3}
-    assert out["profile"] == dict(shapes={"N": 2}, launches={k: 0 for k in K.KERNELS})
+                               "window_sum": 3, **dict.fromkeys(PROGRAM_KERNELS, 0)}
+    assert out["profile"] == dict(shapes={"N": 2},
+                                  launches={k: 0 for k in (*K.KERNELS, *PROGRAM_KERNELS)})
     assert out["held_jobs"] == smoke.BENCH_HELD_JOBS == 4
     # the CPU's plain path on both sides: no gap in either precision
     assert out["worst_gap"] == {d: dict(response=0.0, dxy_m=0.0, dth_rad=0.0, cov_rel=0.0,

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "yag_slam_tpu_torch.matching.correlation",
     "yag_slam_tpu_torch.matching.graphs",
     "yag_slam_tpu_torch.matching.kernels",
+    "yag_slam_tpu_torch.matching.program_kernels",
     "yag_slam_tpu_torch.matching.matcher",
     "yag_slam_tpu_torch.slam",
     "yag_slam_tpu_torch.slam.graph_slam",
@@ -310,7 +311,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_name_follows_sources():
     """The built library is keyed by a hash of every CUDA source."""
     srcs, headers = _build._sources()
-    assert {p.name for p in srcs} == {"grid_build.cu", "render.cu", "sweep.cu", "window_sum.cu"}
+    assert {p.name for p in srcs} == {"grid_build.cu", "match_program.cu", "render.cu",
+                                      "sweep.cu", "window_sum.cu"}
     path = _build._library_path(srcs, headers)
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libyag_kernels_") and path.suffix == ".so"

@@ -1,0 +1,707 @@
+"""The matcher's program kernels (matching/program_kernels.py) on the CPU.
+
+There is no card here, so each wrapper runs its plain twin (``*_ref``):
+- the twins against the JAX package's arithmetic, run in float64 as the
+  conftest sets it: integer cells bit-equal, scores and poses within
+  1e-12 relative;
+- score_reduce's own steps (its rounding, its float64 sums in the order of
+  its block's threads and tree) emulated in numpy against its twin:
+  response, argmax and tie count bit-equal, pose and moments within an ulp
+  in float32 and 1e-12 relative in float64;
+- ``_compute`` bit-equal to the composition it replaced (kept here);
+- the CUDA dispatch with a fake library: the kernel launches, counts
+  through ``kernels._count`` (captures included), raises on an error, and
+  never runs the twin.
+Inputs come from numpy seeds at the tour's and bench's shapes cut small.
+"""
+import ast
+import inspect
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yag_slam_tpu.matching import correlation as JC
+from yag_slam_tpu_torch import _build
+from yag_slam_tpu_torch.matching import correlation as TC
+from yag_slam_tpu_torch.matching import kernels as K
+from yag_slam_tpu_torch.matching import program_kernels as PK
+from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
+
+from test_matching import TEST_CFG, make_room_scan
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL = 1e-12
+G, S, H, RES = 101, 64, 2, 0.05
+OFF = 0.5 * (G - 1) * RES
+KARTO = (0.3, 0.2, 0.5, 0.9)      # dist_var, ang_var, min_dist, min_ang
+# a coarse-like pass (stride 2) and a fine-like one (stride 1); the last
+# has more candidates than a score_reduce block has threads
+LATTICES = {
+    "coarse": PK.PassLattice(9, 9, 5, 0.2, 0.1, 0.08, 0.04, 2),
+    "fine": PK.PassLattice(4, 4, 5, 0.1, 0.05, 0.05, 0.02, 1),
+    "wide": PK.PassLattice(15, 15, 5, 0.35, 0.05, 0.05, 0.02, 1),
+}
+WORLD_KEYS = ("lx", "ly", "anchor", "term", "has_run", "mask", "pose", "center", "vp", "sub")
+
+
+def _t(a, dtype=None):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int64 if t.element_size() == 8 else torch.int32)
+
+
+def _close(got, want, rtol=RTOL):
+    """Equal where both are NaN, else within rtol of each other (or equal:
+    0 and -0 are)."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=rtol, atol=0)
+
+
+# -- world_cells ---------------------------------------------------------------------
+
+def _world_inputs(seed, N, B, P):
+    """A batch's staged job arrays, float64: scans of P lanes (the last
+    lanes past each scan's count far away, as the library pads them),
+    their validation runs, base slots in use, poses, centers, viewpoints
+    and subgrid origins (some past the full grid's high edge)."""
+    rng = np.random.default_rng(seed)
+    ang = np.sort(rng.uniform(-np.pi, np.pi, (N, B, P)), axis=-1)
+    r = rng.uniform(0.3, 2.4, (N, B, P))
+    lx, ly = r * np.cos(ang), r * np.sin(ang)
+    anchor = np.zeros((N, B, P), np.int32)
+    term = np.zeros((N, B, P), np.int32)
+    has_run = np.zeros((N, B, P), bool)
+    for n in range(N):
+        for b in range(B):
+            k = int(rng.integers(P // 2, P + 1))
+            lx[n, b, k:] = ly[n, b, k:] = 1.0e9
+            anchor[n, b, :k], term[n, b, :k], has_run[n, b, :k] = \
+                TC.segment_validation_runs_ref(lx[n, b], ly[n, b], k)
+    mask = rng.uniform(size=(N, B)) > 0.25
+    mask[:, 0] = True
+    pose = np.concatenate([rng.uniform(-0.8, 0.8, (N, B, 2)),
+                           rng.uniform(-np.pi, np.pi, (N, B, 1))], axis=-1)
+    center = np.concatenate([rng.uniform(-0.4, 0.4, (N, 2)),
+                             rng.uniform(-np.pi, np.pi, (N, 1))], axis=-1)
+    sub = rng.integers(0, G - S, (N, 2)).astype(np.int32)
+    sub[-1, 0] = G - S + 10               # the last job's subgrid overhangs the grid
+    return dict(lx=lx, ly=ly, anchor=anchor, term=term, has_run=has_run, mask=mask,
+                pose=pose, center=center, vp=center[:, :2].copy(), sub=sub)
+
+
+def _jax_world_cells(inp):
+    """The JAX matcher's _make_core arithmetic (matcher.py:660-670) through
+    keep_mask_for_viewpoint and world_to_grid_idx, composed into the
+    scatter cells of the port's occupancy_cells (numpy from there on)."""
+    pose = jnp.asarray(inp["pose"])
+    pc, ps = jnp.cos(pose[..., 2:3]), jnp.sin(pose[..., 2:3])
+    lx, ly = jnp.asarray(inp["lx"]), jnp.asarray(inp["ly"])
+    wx = pose[..., 0:1] + pc * lx - ps * ly
+    wy = pose[..., 1:2] + ps * lx + pc * ly
+    vp = jnp.asarray(inp["vp"])
+    keep = np.asarray(JC.keep_mask_for_viewpoint(
+        wx, wy, jnp.asarray(inp["anchor"]), jnp.asarray(inp["term"]),
+        jnp.asarray(inp["has_run"]), jnp.asarray(inp["mask"])[..., None],
+        vp[:, 0][:, None, None], vp[:, 1][:, None, None]))
+    center = jnp.asarray(inp["center"])
+    ox, oy = center[:, 0] - OFF, center[:, 1] - OFF
+    gx = np.asarray(JC.world_to_grid_idx(wx, ox[:, None, None], RES)).astype(np.int64)
+    gy = np.asarray(JC.world_to_grid_idx(wy, oy[:, None, None], RES)).astype(np.int64)
+    N = gx.shape[0]
+    R = S + 2 * H
+    sox, soy = inp["sub"][:, 0, None, None], inp["sub"][:, 1, None, None]
+    sx, sy = gx - sox + H, gy - soy + H
+    ok = ((gx >= 0) & (gx < G) & (gy >= 0) & (gy < G) & keep
+          & (sx >= 0) & (sx < R) & (sy >= 0) & (sy < R)).reshape(N, -1)
+    lim = np.stack([G - inp["sub"][:, 1], G - inp["sub"][:, 0]], axis=1)
+    return (np.where(ok, sy.reshape(N, -1), -1), np.where(ok, sx.reshape(N, -1), 0), lim,
+            int(keep.sum()))
+
+
+@pytest.mark.parametrize("seed,N,B,P", [(0, 1, 4, 64), (1, 2, 3, 37), (2, 4, 2, 16)])
+def test_world_cells_ref_matches_the_jax_program(seed, N, B, P):
+    inp = _world_inputs(seed, N, B, P)
+    got = PK.world_cells_ref(*(_t(inp[k]) for k in WORLD_KEYS), G=G, S=S, h=H, res=RES)
+    *want, kept = _jax_world_cells(inp)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    cells = (got[0] >= 0).sum()
+    assert 0 < cells < kept <= N * B * P      # some kept points fall outside the subgrid
+    assert got[2][-1, 1] == S - 10          # the overhang's full-grid limit
+
+
+# -- lattice_cells -------------------------------------------------------------------
+
+def _query_inputs(seed, N, P):
+    rng = np.random.default_rng(seed)
+    qlx = rng.uniform(-3.0, 3.0, (N, P))
+    qly = rng.uniform(-3.0, 3.0, (N, P))
+    n_q = rng.integers(P // 3, P + 1, N).astype(np.int32)
+    center = np.concatenate([rng.uniform(-0.3, 0.3, (N, 2)),
+                             rng.uniform(-np.pi, np.pi, (N, 1))], axis=-1)
+    job = center + rng.uniform(-0.06, 0.06, (N, 3))
+    sub = rng.integers(0, G - S, (N, 2)).astype(np.int32)
+    return qlx, qly, n_q, center, job, sub
+
+
+def _jax_lattice_cells(qlx, qly, n_q, center, job, sub, lat):
+    """The lattice-origin cells of the JAX package's
+    score_lattice_patch_batched (correlation.py:688-705), with the JAX
+    matcher's query padding (matcher.py:720-724)."""
+    P = qlx.shape[1]
+    lane = jnp.arange(P)
+    pts_x = jnp.where(lane[None, :] < n_q[:, None], qlx, 1.0e9)
+    pts_y = jnp.where(lane[None, :] < n_q[:, None], qly, 1.0e9)
+    cx, cy, ct = (jnp.asarray(center[:, i]) for i in range(3))
+    ox, oy = jnp.asarray(job[:, 0]) - OFF, jnp.asarray(job[:, 1]) - OFF
+    dtype = jnp.float64
+    xvals = (cx - lat.xy_size)[:, None] + jnp.arange(lat.nx, dtype=dtype)[None, :] * lat.xy_res
+    yvals = (cy - lat.xy_size)[:, None] + jnp.arange(lat.ny, dtype=dtype)[None] * lat.xy_res
+    tvals = (ct - lat.ang_size)[:, None] + jnp.arange(lat.nt, dtype=dtype)[None] * lat.ang_res
+    c, s = jnp.cos(tvals), jnp.sin(tvals)
+    rx = c[:, :, None] * pts_x[:, None, :] - s[:, :, None] * pts_y[:, None, :]
+    ry = s[:, :, None] * pts_x[:, None, :] + c[:, :, None] * pts_y[:, None, :]
+    gx0 = JC.world_to_grid_idx(xvals[:, 0, None, None] + rx, ox[:, None, None], RES)
+    gy0 = JC.world_to_grid_idx(yvals[:, 0, None, None] + ry, oy[:, None, None], RES)
+    return (np.asarray(gy0 - sub[:, 1, None, None]), np.asarray(gx0 - sub[:, 0, None, None]))
+
+
+@pytest.mark.parametrize("name", ["coarse", "fine"])
+@pytest.mark.parametrize("seed,N,P", [(3, 1, 64), (4, 3, 29)])
+def test_lattice_cells_ref_matches_the_jax_offsets(name, seed, N, P):
+    lat = LATTICES[name]
+    qlx, qly, n_q, center, job, sub = _query_inputs(seed, N, P)
+    sgy0, sgx0, n_int = PK.lattice_cells_ref(
+        _t(qlx), _t(qly), _t(n_q), _t(center), _t(job), _t(sub), lat, G=G, res=RES)
+    wy, wx = _jax_lattice_cells(qlx, qly, n_q, center, job, sub, lat)
+    assert sgy0.shape == sgx0.shape == (N, lat.nt, P) and sgy0.dtype == torch.int32
+    np.testing.assert_array_equal(n_int.numpy(), n_q)
+    for n in range(N):
+        k = int(n_q[n])
+        np.testing.assert_array_equal(sgy0[n, :, :k].numpy(), wy[n, :, :k])
+        np.testing.assert_array_equal(sgx0[n, :, :k].numpy(), wx[n, :, :k])
+        # padded lanes: the far sentinel, turned, lands ~1e9 m off in x or y
+        far = np.maximum(np.abs(sgx0[n, :, k:].numpy() + sub[n, 0]),
+                         np.abs(sgy0[n, :, k:].numpy() + sub[n, 1]))
+        assert (far >= 10 ** 7).all()
+
+
+# -- score_reduce against JAX ---------------------------------------------------------
+
+def _raw_case(kind, lat, seed):
+    """(raw (N, NT, NY, NX) int32, n_q (N,) int32) of a named case."""
+    rng = np.random.default_rng(seed)
+    shape = (lat.nt, lat.ny, lat.nx)
+    if kind == "random":
+        raw = rng.integers(0, 6000, (3, *shape))
+        n_q = rng.integers(40, 64, 3)
+    elif kind == "ties":        # every candidate ties: the zero-response lattice
+        raw = np.zeros((2, *shape), np.int64)
+        n_q = np.array([60, 1])
+    elif kind == "padded":      # a batch's last row: no base slot in use
+        raw = rng.integers(0, 6000, (3, *shape))
+        raw[2] = 0
+        n_q = np.array([61, 44, 52])
+    else:                       # "edges": the maximum on each face of the lattice
+        faces = [(slice(None), slice(None), 0), (slice(None), slice(None), -1),
+                 (slice(None), 0, slice(None)), (slice(None), -1, slice(None)),
+                 (0, slice(None), slice(None)), (-1, slice(None), slice(None))]
+        raw = rng.integers(0, 50, (len(faces), *shape))
+        for n, face in enumerate(faces):
+            at = rng.integers(0, 10 ** 6, shape)
+            raw[n][face] += 10 ** 5 * (at[face] == at[face].max())
+        n_q = rng.integers(40, 64, len(faces))
+    return raw.astype(np.int32), n_q.astype(np.int32)
+
+
+def _centers(seed, N):
+    rng = np.random.default_rng(seed)
+    center = np.concatenate([rng.uniform(-0.3, 0.3, (N, 2)),
+                             rng.uniform(-np.pi, np.pi, (N, 1))], axis=-1)
+    return center, center + rng.uniform(-0.06, 0.06, (N, 3))
+
+
+def _jax_reduce(raw, n_q, center, job, lat, penalize, karto):
+    """The tail of score_lattice_patch_batched (correlation.py:734-744),
+    its _lattice_penalty, and the JAX matcher's vmapped reduce_best_pose."""
+    dtype = jnp.float64
+    cx, cy, ct = (jnp.asarray(center[:, i]) for i in range(3))
+    ox, oy = jnp.asarray(job[:, 0]) - OFF, jnp.asarray(job[:, 1]) - OFF
+    xvals = (cx - lat.xy_size)[:, None] + jnp.arange(lat.nx, dtype=dtype)[None, :] * lat.xy_res
+    yvals = (cy - lat.xy_size)[:, None] + jnp.arange(lat.ny, dtype=dtype)[None] * lat.xy_res
+    tvals = (ct - lat.ang_size)[:, None] + jnp.arange(lat.nt, dtype=dtype)[None] * lat.ang_res
+    if penalize:
+        penalty = JC._lattice_penalty(
+            xvals, yvals, tvals, ct, ox, oy, grid_size=G, grid_res=RES,
+            dist_var_penalty=0.5, ang_var_penalty=1.0, karto=karto, cx=cx, cy=cy)
+    else:
+        penalty = jnp.ones((), dtype=dtype)
+    raw = jnp.asarray(raw).transpose(0, 3, 2, 1)
+    out = raw.astype(dtype) / jnp.asarray(n_q, dtype)[:, None, None, None] * penalty / 100.0
+    return np.asarray(jnp.stack(jax.vmap(JC.reduce_best_pose)(out, xvals, yvals, tvals), axis=1))
+
+
+def _ref_reduce(raw, n_q, center, job, lat, penalize, karto, dtype=torch.float64):
+    N = raw.shape[0]
+    packed = torch.full((N, 2, 8), 7.0, dtype=dtype)
+    stats = torch.empty((N, 4), dtype=torch.int64)
+    PK.score_reduce_ref(_t(raw), _t(n_q), _t(center, dtype), _t(job, dtype), packed, 0, lat,
+                        G=G, res=RES, penalize=penalize, karto=karto, copy_fine=True,
+                        stats=stats)
+    assert torch.equal(_bits(packed[:, 0]), _bits(packed[:, 1]))
+    return packed[:, 0], stats
+
+
+PENALTIES = {"none": (False, None), "reference": (True, None), "karto": (True, KARTO)}
+
+
+@pytest.mark.parametrize("penalty", list(PENALTIES))
+@pytest.mark.parametrize("kind", ["random", "ties", "edges", "padded"])
+def test_score_reduce_ref_matches_the_jax_reduction(kind, penalty):
+    penalize, karto = PENALTIES[penalty]
+    lat = LATTICES["coarse"]
+    raw, n_q = _raw_case(kind, lat, 5)
+    center, job = _centers(6, raw.shape[0])
+    got, stats = _ref_reduce(raw, n_q, center, job, lat, penalize, karto)
+    want = _jax_reduce(raw, n_q, center, job, lat, penalize, karto)
+    _close(got.numpy(), want)
+    if kind == "ties":
+        assert (stats[:, 3] == lat.nx * lat.ny * lat.nt).all()
+        assert got[:, 4:].isnan().all()       # the moments are 0 / 0
+    if kind == "edges" and penalty != "reference":
+        # each row's maximum on its face: i = 0, NX - 1, j = 0, NY - 1,
+        # theta = 0, NT - 1
+        (i, j, k) = stats[:, :3].T.tolist()
+        assert [i[0], i[1], j[2], j[3], k[4], k[5]] == [
+            0, lat.nx - 1, 0, lat.ny - 1, 0, lat.nt - 1]
+    if kind == "padded":
+        assert stats[2, 3] == lat.nx * lat.ny * lat.nt and got[2, 0].abs() == 0
+
+
+# -- score_reduce's own steps, emulated -------------------------------------------------
+
+def _block_sum(vals, threads=PK.REDUCE_THREADS):
+    """The kernel's float64 sum: thread t adds the values t, t + threads,
+    ... in turn, then the tree partial[t] += partial[t + s] for s =
+    threads / 2, ..., 1."""
+    vals = np.asarray(vals, dtype=np.float64)
+    rows = -(-len(vals) // threads) or 1
+    pad = np.zeros(rows * threads)
+    pad[:len(vals)] = vals
+    part = np.zeros(threads)
+    for row in pad.reshape(rows, threads):
+        part = part + row
+    s = threads // 2
+    while s:
+        part[:s] = part[:s] + part[s:2 * s]
+        s //= 2
+    return part[0]
+
+
+def _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto, dtype, cuda_div):
+    """score_reduce_kernel step by step in numpy (each operation rounded to
+    `dtype`).  A division by a Python number: a product with its reciprocal
+    where `cuda_div` (PyTorch's CUDA division, which the kernel follows),
+    else a division (PyTorch's CPU one, which the twin runs here).
+    Returns (rows (N, 8), stats (N, 4), values (N, NT, NY, NX))."""
+    T = np.float32 if dtype == torch.float32 else np.float64
+
+    def sdiv(a, c):
+        return a * (T(1) / T(c)) if cuda_div else a / T(c)
+
+    N = raw.shape[0]
+    rows = np.empty((N, 8), T)
+    stats = np.empty((N, 4), np.int64)
+    values = np.empty(raw.shape, T)
+    ii_, jj_, qq_ = np.arange(lat.nx), np.arange(lat.ny), np.arange(lat.nt)
+    for n in range(N):
+        cx, cy, ct = T(center[n, 0]), T(center[n, 1]), T(center[n, 2])
+        xv = (cx - T(lat.xy_size)) + ii_.astype(T) * T(lat.xy_res)
+        yv = (cy - T(lat.xy_size)) + jj_.astype(T) * T(lat.xy_res)
+        tv = (ct - T(lat.ang_size)) + qq_.astype(T) * T(lat.ang_res)
+        v = raw[n].astype(T) / T(n_q[n])                     # (NT, NY, NX)
+        if penalize:
+            if karto:
+                sx, sy, dc, ac = cx, cy, karto[0], karto[1]
+            else:
+                sx = (T(job[n, 0]) - T(OFF)) + T(G * RES / 2.0)
+                sy = (T(job[n, 1]) - T(OFF)) + T(G * RES / 2.0)
+                dc, ac = 0.5 * RES, 1.0 * RES
+            dx, dy = xv - sx, yv - sy
+            sqd = dx[None, :] * dx[None, :] + dy[:, None] * dy[:, None]   # (NY, NX)
+            dpen = T(1) - sdiv(T(0.2) * sqd, dc)
+            da = tv - ct
+            apen = T(1) - sdiv(T(0.2) * (da * da), ac)
+            if karto:
+                dpen, apen = np.maximum(dpen, T(karto[2])), np.maximum(apen, T(karto[3]))
+            v = v * (dpen[None] * apen[:, None, None])
+        v = sdiv(v, 100.0)
+        values[n] = v
+        flat = v.transpose(2, 1, 0).reshape(-1)              # C order over (x, y, theta)
+        m = int(np.argmax(flat))
+        ii, jj, kk = m // (lat.ny * lat.nt), (m % (lat.ny * lat.nt)) // lat.nt, m % lat.nt
+        response = flat[m]
+        tie = v >= response - T(1e-8)                         # memory order (q, j, i)
+        q3, j3, i3 = np.meshgrid(qq_, jj_, ii_, indexing="ij")
+        cnt = _block_sum(tie.reshape(-1).astype(np.float64))
+        sums = [_block_sum(np.where(tie, c, 0).reshape(-1).astype(np.float64))
+                for c in (xv[i3], yv[j3], tv[q3])]
+        bx, by, bt = (T(s / cnt) for s in sums)
+        i0, i1 = max(0, ii - 5), min(lat.nx - 1, ii + 6)
+        j0, j1 = max(0, jj - 5), min(lat.ny - 1, jj + 6)
+        q0, q1 = max(0, kk - 5), min(lat.nt - 1, kk + 6)
+        wi, wj = np.meshgrid(np.arange(i0, i1), np.arange(j0, j1), indexing="ij")
+        wi, wj = wi.reshape(-1), wj.reshape(-1)               # window order w = i * wj + j
+        s = v[kk, wj, wi]
+        ddx, ddy = xv[wi] - bx, yv[wj] - by
+        norm, XX, YY, XY = (_block_sum(a.astype(np.float64)) for a in (
+            s, s * (ddx * ddx), s * (ddy * ddy), (s * ddx) * ddy))
+        sq = v[q0:q1, jj, ii]
+        dt = tv[q0:q1] - bt
+        thn, TH = _block_sum(sq.astype(np.float64)), _block_sum((sq * (dt * dt)).astype(np.float64))
+        r = np.float64(response)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rows[n] = [response, bx, by, bt, T(XX / norm / r), T(YY / norm / r),
+                       T(XY / norm / r), T(TH / thn)]
+        stats[n] = ii, jj, kk, int(cnt)
+    return rows, stats, values
+
+
+def _ulps(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    ia = a.view(np.int32 if a.dtype == np.float32 else np.int64).astype(np.int64)
+    ib = b.view(np.int32 if b.dtype == np.float32 else np.int64).astype(np.int64)
+    top = -(2 ** 31) if a.dtype == np.float32 else -(2 ** 63)
+    ka, kb = np.where(ia < 0, top - ia, ia), np.where(ib < 0, top - ib, ib)
+    return np.where(np.isnan(a) & np.isnan(b), 0, np.abs(ka - kb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("penalty", list(PENALTIES))
+@pytest.mark.parametrize("kind,lattice", [("random", "coarse"), ("random", "wide"),
+                                          ("ties", "fine"), ("edges", "wide"),
+                                          ("padded", "fine")])
+def test_score_reduce_kernel_steps_emulated(kind, lattice, penalty, dtype):
+    """The kernel's steps in numpy, with the CPU's division, equal the twin:
+    every candidate's response bit for bit, the response, argmax and tie
+    count bit-equal, the pose and moments within one ulp in float32 (their
+    float64 sums run in another order) and 1e-12 relative in float64.  With
+    CUDA's division by a Python number (what the kernel runs on the card)
+    the candidates move by a few float32 ulps of the lattice's largest
+    score (the penalty's 1 - x cancels)."""
+    penalize, karto = PENALTIES[penalty]
+    lat = LATTICES[lattice]
+    raw, n_q = _raw_case(kind, lat, 8)
+    center, job = _centers(9, raw.shape[0])
+    T = np.float32 if dtype == torch.float32 else np.float64
+    rows, stats, values = _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto,
+                                                dtype, cuda_div=False)
+    got, want_stats = _ref_reduce(raw, n_q, center, job, lat, penalize, karto, dtype)
+    got = got.numpy()
+    # every candidate's response, against the twin's (N, NX, NY, NT) scores
+    ct, jc = _t(center, dtype), _t(job, dtype)
+    xv, yv, tv = TC.lattice_values(ct[:, 0], ct[:, 1], ct[:, 2], spec=lat.spec,
+                                   xy_size=lat.xy_size, xy_res=lat.xy_res,
+                                   ang_size=lat.ang_size, ang_res=lat.ang_res, dtype=dtype)
+    scores = TC.lattice_scores(_t(raw), _t(n_q).to(dtype), xv, yv, tv, ct[:, 0], ct[:, 1],
+                               ct[:, 2], jc[:, 0] - OFF, jc[:, 1] - OFF, grid_size=G,
+                               grid_res=RES, penalize=penalize, karto_penalties=karto)
+    np.testing.assert_array_equal(values.transpose(0, 3, 2, 1).view(np.int64 if T is np.float64
+                                                                    else np.int32),
+                                  scores.numpy().view(np.int64 if T is np.float64 else np.int32))
+    np.testing.assert_array_equal(stats, want_stats.numpy())
+    np.testing.assert_array_equal(rows[:, 0].view(got.dtype), got[:, 0])
+    np.testing.assert_array_equal(np.isnan(rows), np.isnan(got))
+    if dtype == torch.float32:
+        assert _ulps(rows, got).max() <= 1
+    else:
+        _close(rows, got)
+    cuda_rows, cuda_stats, cuda_values = _emulate_score_reduce(
+        raw, n_q, center, job, lat, penalize, karto, dtype, cuda_div=True)
+    scale = np.abs(values).max(initial=1.0)
+    np.testing.assert_allclose(cuda_values, values, rtol=0, atol=8 * np.finfo(T).eps * scale)
+
+
+# -- _compute against the composition it replaced ------------------------------------------
+
+_FAR = 1.0e9
+
+
+def _pre_change_compute(m, st, S, penalty, do_fine, coarse_offset):
+    """CorrelativeScanMatcher._compute as it was before the program kernels:
+    _world_points, build_quantized_grid / build_grid_staged, _score_pass and
+    reduce_best_pose, the packed result stacked."""
+    G, res = m.grid_size, m.config.resolution
+    P = st["lx"].shape[-1]
+    center, pose, vp = st["center"], st["pose"], st["vp"]
+    cx, cy, ct = center[:, 0], center[:, 1], center[:, 2]
+    pc = torch.cos(pose[..., 2:3])
+    ps = torch.sin(pose[..., 2:3])
+    wx = pose[..., 0:1] + pc * st["lx"] - ps * st["ly"]
+    wy = pose[..., 1:2] + ps * st["lx"] + pc * st["ly"]
+    keep = TC.keep_mask_for_viewpoint(
+        wx, wy, st["anchor"], st["term"], st["has_run"], st["mask"][..., None],
+        vp[:, 0, None, None], vp[:, 1, None, None])
+    valid = torch.arange(P, device=wx.device)[None, :] < st["n_q"][:, None]
+    inp = dict(wx=wx, wy=wy, keep=keep, ox=cx - 0.5 * (G - 1) * res,
+               oy=cy - 0.5 * (G - 1) * res, sox=st["sub"][:, 0], soy=st["sub"][:, 1],
+               qx=torch.where(valid, st["qlx"], _FAR), qy=torch.where(valid, st["qly"], _FAR),
+               n_pts=st["n_q"].to(m.dtype), cx=cx, cy=cy, ct=ct)
+    points = tuple(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox", "soy"))
+    build = dict(G=G, S=S, h=m._half, res=res, taps=st["taps"])
+    grid0 = None
+    if m.return_meta:
+        q2d, grid = TC.build_grid_staged(*points, **build)
+        grid0 = grid[0]
+    else:
+        q2d = TC.build_quantized_grid(*points, **build)
+    coarse = TC.reduce_best_pose(*m._score_pass(q2d, inp, (cx, cy, ct), False, penalty,
+                                                coarse_offset))
+    fine = coarse
+    if do_fine:
+        fine = TC.reduce_best_pose(*m._score_pass(
+            q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True, penalty,
+            coarse_offset))
+    return torch.stack([coarse, fine], dim=1), grid0
+
+
+@pytest.fixture(scope="module")
+def room():
+    base = [make_room_scan(0.1 * i, 0.02 * i, 0.03 * i, seed=i + 1) for i in range(4)]
+    queries = [make_room_scan(0.13, -0.05, 0.05, seed=10),
+               make_room_scan(0.05, 0.04, -0.02, seed=11),
+               make_room_scan(0.21, 0.01, 0.08, seed=12)]
+    for q in queries:
+        q.corrected_pose = q.odom_pose
+    return base, queries
+
+
+@pytest.mark.parametrize("dtype,meta,karto", [(torch.float64, False, False),
+                                              (torch.float32, False, False),
+                                              (torch.float32, True, False),
+                                              (torch.float64, False, True)])
+def test_compute_equals_the_composition_it_replaced(room, dtype, meta, karto):
+    base, queries = room
+    cfg = dict(TEST_CFG, use_karto_penalties=True) if karto else TEST_CFG
+    m = CorrelativeScanMatcher(cfg, device="cpu", dtype=dtype, return_meta=meta)
+    args, P, S = m._prepare([(q, base[i:]) for i, q in enumerate(queries)], n_pad=4)
+    st = m._stage(args)
+    off = m.config.coarse_search_angle_offset
+    for penalty, do_fine in ((True, True), (False, False), (True, False)):
+        got, grid = m._compute(st, S, penalty, do_fine, off)
+        want, want_grid = _pre_change_compute(m, st, S, penalty, do_fine, off)
+        assert torch.equal(_bits(got), _bits(want))
+        assert (grid is None) == (not meta) and (grid is None or torch.equal(grid, want_grid))
+    assert got[:3, :, 0].min() > 0 and got[3, 0, 0] == 0     # the padded row scores 0
+
+
+# -- the CUDA dispatch, without a card ---------------------------------------------------
+
+class _FakeLibrary:
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def __getattr__(self, name):
+        if name not in ("yag_world_cells", "yag_lattice_cells", "yag_score_reduce"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or self.err
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrappers see their tensors as CUDA tensors; a twin fails the test
+    if it runs."""
+    monkeypatch.setattr(PK, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(PK, "_stream", lambda t: 0)
+    for name in ("world_cells_ref", "lattice_cells_ref", "score_reduce_ref"):
+        monkeypatch.setattr(PK, name, lambda *a, **k: pytest.fail("a plain twin ran"))
+
+    def use(err):
+        lib = _FakeLibrary(err)
+        monkeypatch.setattr(_build, "library", lambda: lib)
+        return lib
+
+    return use
+
+
+def _calls(dtype=torch.float32):
+    """One call of each wrapper at small shapes (N 2, B 3, P 5; coarse)."""
+    inp = _world_inputs(10, 2, 3, 5)
+    w = [_t(inp[k], dtype if np.asarray(inp[k]).dtype == np.float64 else None)
+         for k in WORLD_KEYS]
+    lat = LATTICES["coarse"]
+    q = [_t(inp["lx"][:, 0], dtype), _t(inp["ly"][:, 0], dtype),
+         _t(np.array([5, 3], dtype=np.int32))]
+    center = _t(inp["center"], dtype)
+    packed = torch.zeros((2, 2, 8), dtype=dtype)
+    raw = torch.zeros((2, lat.nt, lat.ny, lat.nx), dtype=torch.int32)
+    return dict(
+        world_cells=lambda: PK.world_cells(*w, G=G, S=S, h=H, res=RES),
+        lattice_cells=lambda: PK.lattice_cells(*q, packed[:, 0, 1:4], center, w[-1], lat,
+                                               G=G, res=RES),
+        score_reduce=lambda: PK.score_reduce(raw, q[2], packed[:, 0, 1:4], center, packed, 1,
+                                             lat, G=G, res=RES, penalize=True, karto=KARTO))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_tensors_launch_the_kernels_and_never_the_twins(fake_card, dtype):
+    lib = fake_card(0)
+    PK.reset_launches()
+    K.reset_launches()
+    calls = _calls(dtype)
+    sy, sx, lim = calls["world_cells"]()
+    assert sy.shape == sx.shape == (2, 15) and lim.shape == (2, 2) and sy.dtype == torch.int32
+    sgy0, sgx0, n_int = calls["lattice_cells"]()
+    assert sgy0.shape == sgx0.shape == (2, 5, 5) and n_int.shape == (2,)
+    calls["score_reduce"]()
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 1)
+    assert all(v == 0 for v in K.LAUNCHES.values())
+    (w_name, w), (l_name, lc), (r_name, r) = lib.calls
+    is_double = int(dtype == torch.float64)
+    assert w_name == "yag_world_cells" and w[13:19] == (2, 3, 5, G, S, H) and w[-2] == is_double
+    assert list(w[19]) == [RES, OFF]
+    # the fine pass's center: row 0 of the packed result, 16 elements apart
+    assert l_name == "yag_lattice_cells" and lc[4] == 16 and lc[10:13] == (2, 5, 5)
+    assert list(lc[13]) == [0.2, 0.1, 0.08, 0.04, RES, OFF, PK.FAR]
+    assert r_name == "yag_score_reduce" and r[3] == 16 and r[6] is None
+    assert r[7:14] == (1, 0, 2, 9, 9, 5, 2) and list(r[14])[-4:] == list(KARTO)
+    fake_card(9)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} kernel launch failed: cudaError 9"):
+            call()
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 2)
+
+
+def test_captured_launches_count_at_each_replay(fake_card):
+    """A launch inside a capture counts into the capture, not into
+    LAUNCHES; each replay adds the capture's counts to the program
+    kernels' own table."""
+    fake_card(0)
+    PK.reset_launches()
+    K.reset_launches()
+    calls = _calls()
+    with K.captured_launches() as counts:
+        for call in calls.values():
+            call()
+        K._count("window_sum")
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 0)
+    assert counts == dict(dict.fromkeys(K.LAUNCHES, 0), window_sum=1,
+                          **dict.fromkeys(PK.LAUNCHES, 1))
+    for _ in range(3):
+        K.add_launches(counts)
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 3) and K.LAUNCHES["window_sum"] == 3
+    PK.reset_launches()
+    K.reset_launches()
+    with pytest.raises(ValueError, match="already counted"):
+        K.register_launches({"world_cells": 0})
+
+
+def test_cuda_wrappers_check_their_inputs(fake_card):
+    lib = fake_card(0)
+    inp = _world_inputs(11, 1, 2, 4)
+    w = [_t(inp[k]) for k in WORLD_KEYS]
+    bad = list(w)
+    bad[2] = bad[2].long()
+    with pytest.raises(TypeError, match="anchor"):
+        PK.world_cells(*bad, G=G, S=S, h=H, res=RES)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        PK.world_cells(*(t.half() if t.dtype == torch.float64 else t for t in w),
+                       G=G, S=S, h=H, res=RES)
+    lat = LATTICES["fine"]
+    raw = torch.zeros((1, lat.nt, lat.ny, lat.nx + 1), dtype=torch.int32)
+    packed = torch.zeros((1, 2, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="raw"):
+        PK.score_reduce(raw, _t(np.array([3], np.int32)), w[7], w[7], packed, 0, lat,
+                        G=G, res=RES, penalize=False)
+    with pytest.raises(ValueError, match="center"):
+        PK.lattice_cells(w[0][:, 0], w[1][:, 0], _t(np.array([3], np.int32)),
+                         w[7][:, :2], w[7], w[9], lat, G=G, res=RES)
+    assert not lib.calls
+
+
+def test_cuda_program_kernels_without_a_card_raise(monkeypatch):
+    """No card and no nvcc here: a CUDA tensor's world_cells raises at the
+    kernels' build, and never runs its twin."""
+    monkeypatch.setattr(PK, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(PK, "world_cells_ref", lambda *a, **k: pytest.fail("twin ran"))
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_library_path", lambda *a: _build.BUILD_DIR / "absent.so")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
+    inp = _world_inputs(12, 1, 2, 4)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        PK.world_cells(*(_t(inp[k]) for k in WORLD_KEYS), G=G, S=S, h=H, res=RES)
+
+
+def test_wrappers_dispatch_only_by_device():
+    """Each wrapper takes its twin only on the CPU, first thing, with no
+    try / except; it counts a launch through kernels._count after the
+    library call."""
+    tree = ast.parse(inspect.getsource(PK))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    for name in PK.KERNELS:
+        fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+        first = fn.body[1]
+        assert isinstance(first, ast.If) and ast.unparse(first.test).startswith("not _on_cuda(")
+        assert ast.unparse(first.body[0]).startswith(f"return {name}_ref(")
+        rest = ast.unparse(ast.Module(body=fn.body[2:], type_ignores=[]))
+        assert "_ref(" not in rest and f"K._count('{name}')" in rest
+        assert rest.index(f"yag_{name}(") < rest.index(f"K._count('{name}')")
+
+
+def test_program_kernels_name_what_they_replace():
+    """match_program.cu is built with the other sources, its entry points
+    are declared, and every "file:line" a kernel replaces is the JAX line
+    it stands for."""
+    assert "match_program.cu" in {p.name for p in _build._sources()[0]}
+    for name in ("yag_world_cells", "yag_lattice_cells", "yag_score_reduce"):
+        assert name in _build._SIGNATURES
+    assert set(PK.KERNELS) == set(PK.LAUNCHES) and not set(PK.KERNELS) & set(K.KERNELS)
+    starts = {"yag_slam_tpu/matching/matcher.py:661": "pc = jnp.cos(",
+              "yag_slam_tpu/matching/matcher.py:666": "keep = C.keep_mask_for_viewpoint(",
+              "yag_slam_tpu/matching/matcher.py:722": "qx = jnp.where(",
+              "yag_slam_tpu/matching/matcher.py:792": "jax.vmap(C.reduce_best_pose)",
+              "yag_slam_tpu/matching/matcher.py:803": "jax.vmap(C.reduce_best_pose)",
+              "yag_slam_tpu/matching/correlation.py:109": "def keep_mask_for_viewpoint(",
+              "yag_slam_tpu/matching/correlation.py:132": "def world_to_grid_idx(",
+              "yag_slam_tpu/matching/correlation.py:573": "def _lattice_penalty(",
+              "yag_slam_tpu/matching/correlation.py:697": "gx0 = world_to_grid_idx(",
+              "yag_slam_tpu/matching/correlation.py:743": "out = raw.astype(dtype)",
+              "yag_slam_tpu/matching/correlation.py:1014": "def reduce_best_pose("}
+    named = set()
+    for info in PK.KERNELS.values():
+        assert os.path.isfile(os.path.join(REPO, info["source"]))
+        for ref in info["replaces"]:
+            path, line = ref.rsplit(":", 1)
+            text = open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
+            assert text.strip().startswith(starts[ref]), ref
+            named.add(ref)
+    assert named == set(starts)
+
+
+def test_program_kernels_import_no_jax():
+    """The module imports neither JAX nor the JAX package, by its source
+    and in a fresh interpreter."""
+    tree = ast.parse(inspect.getsource(PK))
+    mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    mods |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert not {m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "yag_slam_tpu")}
+    code = ("import sys; import yag_slam_tpu_torch.matching.program_kernels; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'yag_slam_tpu')))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -74,6 +74,10 @@ _SIGNATURES = {
     "yag_render_trace": (_P, _P, _L, _F, _F, _F, _I, _I, _I, _P, _P),
     "yag_render_classify": (_P, _L, _I, _P, _P),
     "yag_sweep": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
+    "yag_world_cells": (*(_P,) * 13, *(_I,) * 6, _P, _I, _P),
+    "yag_lattice_cells": (_P, _P, _P, _P, _L, *(_P,) * 5, _I, _I, _I, _P, _I, _P),
+    "yag_score_reduce": (_P, _P, _P, _L, _P, _P, _P, *(_I,) * 7, _P, _I, _P),
+    "yag_program_trig": (_P, _P, _P, _L, _I, _P),
 }
 
 # C entry point of the host library -> argtypes; it returns an error code

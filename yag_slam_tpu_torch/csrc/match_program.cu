@@ -1,0 +1,491 @@
+// The matcher's device program around its grid and window kernels, in
+// three launches (matching/program_kernels.py):
+//
+//   world_cells_kernel    one thread per base point: the point to world at
+//                         its scan's pose, the back-face keep test (its
+//                         run's anchor and terminal taken to world the same
+//                         way), its cell in the full grid and in the
+//                         subgrid's halo layout, the scatter's (sy, sx);
+//                         and per job the full-grid limits (G - soy,
+//                         G - sox) of the smear's mask;
+//   lattice_cells_kernel  one thread per (job, angle, query point): the
+//                         point turned by the angle, moved to the lattice's
+//                         first candidate and rounded into its subgrid
+//                         cell, the window sum's (sgy0, sgx0); and per job
+//                         the point count;
+//   score_reduce_kernel   one block per job over the pass's window sums:
+//                         each candidate's response (sum / points, times
+//                         the penalty, over 100) recomputed where it is
+//                         read, the first maximum in C order over (x, y,
+//                         theta), the ties within 1e-8 of it averaged in
+//                         float64, the windowed second moments; one row of
+//                         the packed (N, 2, 8) result.
+//
+// Replaces what the JAX package's matcher compiles with its Pallas kernels
+// into one XLA program (yag_slam_tpu/matching/matcher.py _make_core: the
+// world transform, correlation.keep_mask_for_viewpoint, world_to_grid_idx,
+// the lattice offsets of score_lattice_patch_batched, _lattice_penalty and
+// the vmapped reduce_best_pose), which the port ran as ~400 PyTorch ops.
+//
+// Rounding: the plain versions are PyTorch ops on the card, each rounding
+// its result.  So every product, sum and quotient here is an explicit
+// round-to-nearest intrinsic (nvcc fuses nothing into an FMA); a division
+// by a Python number is a product with its reciprocal, rounded in the
+// tensors' dtype, as PyTorch's CUDA division by a CPU scalar is; a
+// division by a tensor is exact; Python constants are rounded to the dtype
+// once; torch.round is rint (half to even); cos and sin are the CUDA math
+// library's, which PyTorch's kernels call too.  The float64 sums of the
+// reduction run in this block's order (each thread's candidates in memory
+// order, then a tree over the threads), not torch's: a float32 pose or
+// moment rounded from them may come out an ulp apart.
+//
+// Layout contract (checked by the wrappers in program_kernels.py): T is
+// float or double for every float tensor; lx, ly, anchor, term, has_run
+// (N, B, P), mask (N, B), pose (N, B, 3), center (N, 3), vp (N, 2), sub
+// (N, 2) int32; sy, sx (N, B * P) int32, lim (N, 2) int32; qlx, qly (N,
+// P), n_q (N,) int32, a pass's center rows (N, 3) at a row stride; sgy0,
+// sgx0 (N, NT, P) int32, n_int (N,) int32; raw (N, NT, NY, NX) int32;
+// packed (N, 2, 8).
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kPointThreads = 256;
+constexpr int kReduceThreads = 1024;  // program_kernels.REDUCE_THREADS
+constexpr float kIdxClamp = 1073741824.0f;  // 2^30, correlation._IDX_CLAMP
+
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float round_even(float a) { return rintf(a); }
+__device__ __forceinline__ float cos_(float a) { return cosf(a); }
+__device__ __forceinline__ float sin_(float a) { return sinf(a); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double round_even(double a) { return rint(a); }
+__device__ __forceinline__ double cos_(double a) { return cos(a); }
+__device__ __forceinline__ double sin_(double a) { return sin(a); }
+
+// correlation.world_to_grid_idx: round((w - origin) / res), clamped to
+// +-2^30 in floating point, as int32
+template <typename T>
+__device__ __forceinline__ int grid_idx(T w, T origin, T res) {
+  T g = round_even(div(sub(w, origin), res));
+  g = g < (T)-kIdxClamp ? (T)-kIdxClamp : g;
+  g = g > (T)kIdxClamp ? (T)kIdxClamp : g;
+  return (int)g;
+}
+
+// ---------------------------------------------------------------------------
+// world_cells
+// ---------------------------------------------------------------------------
+
+struct WorldParams {
+  double res, off;  // grid resolution; the full grid's origin below its center
+};
+
+template <typename T>
+__global__ void world_cells_kernel(const T* __restrict__ lx, const T* __restrict__ ly,
+                                   const int* __restrict__ anchor,
+                                   const int* __restrict__ term,
+                                   const uint8_t* __restrict__ has_run,
+                                   const uint8_t* __restrict__ mask,
+                                   const T* __restrict__ pose, const T* __restrict__ center,
+                                   const T* __restrict__ vp, const int* __restrict__ subo,
+                                   int* __restrict__ sy_out, int* __restrict__ sx_out,
+                                   int* __restrict__ lim, int N, int B, int P, int G, int S,
+                                   int h, WorldParams prm) {
+  const long long total = (long long)N * B * P;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int p = (int)(t % P);
+  const long long nb = t / P;  // n * B + b
+  const int n = (int)(nb / B);
+  const long long row = nb * P;
+  const int sox = subo[2 * n], soy = subo[2 * n + 1];
+  if (p == 0 && nb == (long long)n * B) {
+    lim[2 * n] = G - soy;
+    lim[2 * n + 1] = G - sox;
+  }
+  const T px = pose[3 * nb], py = pose[3 * nb + 1], pt = pose[3 * nb + 2];
+  const T pc = cos_(pt), ps = sin_(pt);
+  // pose_x + pc * lx - ps * ly and pose_y + ps * lx + pc * ly, PyTorch's
+  // order of the plain version
+  auto world = [&](long long i, T& wx, T& wy) {
+    const T a = lx[i], b = ly[i];
+    wx = sub(add(px, mul(pc, a)), mul(ps, b));
+    wy = add(add(py, mul(ps, a)), mul(pc, b));
+  };
+  T wx, wy;
+  world(row + p, wx, wy);
+  bool keep = has_run[row + p] != 0 && mask[nb] != 0;
+  if (keep) {
+    T ax, ay, tx, ty;
+    world(row + anchor[row + p], ax, ay);
+    world(row + term[row + p], tx, ty);
+    const T vx = vp[2 * n], vy = vp[2 * n + 1];
+    const T ss = sub(mul(sub(tx, ax), sub(vy, ay)), mul(sub(ty, ay), sub(vx, ax)));
+    keep = ss > (T)0;
+  }
+  const T res = (T)prm.res, off = (T)prm.off;
+  const int gx = grid_idx(wx, sub(center[3 * n], off), res);
+  const int gy = grid_idx(wy, sub(center[3 * n + 1], off), res);
+  const int R = S + 2 * h;
+  const int sx = gx - sox + h, sy = gy - soy + h;
+  const bool ok = keep && gx >= 0 && gx < G && gy >= 0 && gy < G && sx >= 0 && sx < R &&
+                  sy >= 0 && sy < R;
+  sy_out[t] = ok ? sy : -1;
+  sx_out[t] = ok ? sx : 0;
+}
+
+// ---------------------------------------------------------------------------
+// lattice_cells
+// ---------------------------------------------------------------------------
+
+struct LatticeParams {
+  double xy_size, xy_res, ang_size, ang_res, res, off, far;
+};
+
+template <typename T>
+__global__ void lattice_cells_kernel(const T* __restrict__ qlx, const T* __restrict__ qly,
+                                     const int* __restrict__ n_q, const T* __restrict__ center,
+                                     long long cstride, const T* __restrict__ jc,
+                                     const int* __restrict__ subo, int* __restrict__ sgy0,
+                                     int* __restrict__ sgx0, int* __restrict__ n_int, int N,
+                                     int NT, int P, LatticeParams prm) {
+  const long long total = (long long)N * NT * P;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int p = (int)(t % P);
+  const int k = (int)((t / P) % NT);
+  const int n = (int)(t / ((long long)P * NT));
+  const int nq = n_q[n];
+  if (k == 0 && p == 0) n_int[n] = (int)round_even((T)nq);
+  const T* c = center + n * cstride;
+  const T off = (T)prm.off, res = (T)prm.res;
+  const T ox = sub(jc[3 * n], off), oy = sub(jc[3 * n + 1], off);
+  const T qx = p < nq ? qlx[(long long)n * P + p] : (T)prm.far;
+  const T qy = p < nq ? qly[(long long)n * P + p] : (T)prm.far;
+  // correlation.lattice_values at candidate 0 of x and y, candidate k of
+  // theta: (center - size) + index * step
+  const T x0 = add(sub(c[0], (T)prm.xy_size), mul((T)0, (T)prm.xy_res));
+  const T y0 = add(sub(c[1], (T)prm.xy_size), mul((T)0, (T)prm.xy_res));
+  const T tv = add(sub(c[2], (T)prm.ang_size), mul((T)k, (T)prm.ang_res));
+  const T cs = cos_(tv), sn = sin_(tv);
+  const T rx = sub(mul(cs, qx), mul(sn, qy));
+  const T ry = add(mul(sn, qx), mul(cs, qy));
+  sgx0[t] = grid_idx(add(x0, rx), ox, res) - subo[2 * n];
+  sgy0[t] = grid_idx(add(y0, ry), oy, res) - subo[2 * n + 1];
+}
+
+// ---------------------------------------------------------------------------
+// score_reduce
+// ---------------------------------------------------------------------------
+
+struct ReduceParams {
+  // the lattice; the full grid's origin below the job's center and its
+  // half extent (G * res / 2); the reference penalty's divisors (dist_var
+  // * res, ang_var * res); OpenKarto's (dist_var, ang_var, min_dist,
+  // min_ang)
+  double xy_size, xy_res, ang_size, ang_res, off, half, dist_c, ang_c, kdv, kav, kmd, kma;
+};
+
+// Python numbers of the plain version, each rounded to T once
+template <typename T>
+struct Consts {
+  T xs, xr, as, ar, c02, one, inv_d, inv_a, md, ma, inv100, eps, sx, sy;
+};
+
+// torch.clamp(v, min=lo): NaN stays
+template <typename T>
+__device__ __forceinline__ T clamp_min(T v, T lo) {
+  return (v != v) ? v : (v < lo ? lo : v);
+}
+
+template <typename T>
+struct Lattice {
+  const int* raw;  // this job's (NT, NY, NX) sums
+  int NX, NY, NT, mode;
+  T npts, cx, cy, ct;
+  Consts<T> k;
+
+  __device__ T xval(int i) const { return add(sub(cx, k.xs), mul((T)i, k.xr)); }
+  __device__ T yval(int j) const { return add(sub(cy, k.xs), mul((T)j, k.xr)); }
+  __device__ T tval(int q) const { return add(sub(ct, k.as), mul((T)q, k.ar)); }
+
+  // _lattice_penalty's dist_pen[i, j] and ang_pen[q]
+  __device__ T dist_pen(int i, int j) const {
+    const T dx = sub(xval(i), k.sx), dy = sub(yval(j), k.sy);
+    const T sqd = add(mul(dx, dx), mul(dy, dy));
+    const T d = sub(k.one, mul(mul(k.c02, sqd), k.inv_d));
+    return mode == 2 ? clamp_min(d, k.md) : d;
+  }
+  __device__ T ang_pen(int q) const {
+    const T da = sub(tval(q), ct);
+    const T a = sub(k.one, mul(mul(k.c02, mul(da, da)), k.inv_a));
+    return mode == 2 ? clamp_min(a, k.ma) : a;
+  }
+
+  // the response of candidate (i, j, q): raw / n, times the penalty, / 100
+  __device__ T value(int i, int j, int q) const {
+    T v = div((T)raw[((long long)q * NY + j) * NX + i], npts);
+    if (mode != 0) v = mul(v, mul(dist_pen(i, j), ang_pen(q)));
+    return mul(v, k.inv100);
+  }
+};
+
+// (a, ia) comes before (b, ib) in torch.argmax's order: NaN first, then the
+// larger value, then on equal values (+0 and -0 are equal) the lower index
+template <typename T>
+__device__ __forceinline__ bool before(T a, int ia, T b, int ib) {
+  const bool na = a != a, nb = b != b;
+  if (na || nb) return na && (!nb || ia < ib);
+  if (a != b) return a > b;
+  return ia < ib;
+}
+
+// Sum each of M float64 partials over the block: a tree over the threads
+// (s = 512, 256, ..., 1: partial[t] += partial[t + s]); the result is in
+// every thread's v[] on return.
+template <int M>
+__device__ __forceinline__ void block_sum(double (&v)[M], double (*sh)[kReduceThreads]) {
+  const int t = threadIdx.x;
+  for (int m = 0; m < M; ++m) sh[m][t] = v[m];
+  __syncthreads();
+  for (int s = kReduceThreads / 2; s > 0; s >>= 1) {
+    if (t < s)
+      for (int m = 0; m < M; ++m) sh[m][t] = __dadd_rn(sh[m][t], sh[m][t + s]);
+    __syncthreads();
+  }
+  for (int m = 0; m < M; ++m) v[m] = sh[m][0];
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    score_reduce_kernel(const int* __restrict__ raw, const int* __restrict__ n_q,
+                        const T* center, long long cstride, const T* __restrict__ jc,
+                        T* packed, long long* __restrict__ stats, int row, int copy_fine,
+                        int NX, int NY, int NT, int mode, ReduceParams prm) {
+  // 44 KB in float64: the sums' tree, the argmax's values and indices
+  __shared__ double sh[4][kReduceThreads];
+  __shared__ T sh_v[kReduceThreads];
+  __shared__ int sh_f[kReduceThreads];
+  const int n = blockIdx.x, t = threadIdx.x;
+  const int cells = NX * NY * NT;  // < 2^31, checked by the launcher
+
+  Lattice<T> L;
+  L.raw = raw + n * cells;
+  L.NX = NX, L.NY = NY, L.NT = NT, L.mode = mode;
+  const T* c = center + n * cstride;
+  L.cx = c[0], L.cy = c[1], L.ct = c[2];
+  L.npts = (T)n_q[n];
+  Consts<T>& k = L.k;
+  k.xs = (T)prm.xy_size, k.xr = (T)prm.xy_res, k.as = (T)prm.ang_size, k.ar = (T)prm.ang_res;
+  k.c02 = (T)0.2, k.one = (T)1;
+  k.inv100 = div((T)1, (T)100.0);
+  k.eps = (T)1e-8;
+  if (mode == 2) {
+    // OpenKarto: offsets from the pass's center, the variances as given
+    k.sx = L.cx, k.sy = L.cy;
+    k.inv_d = div((T)1, (T)prm.kdv), k.inv_a = div((T)1, (T)prm.kav);
+    k.md = (T)prm.kmd, k.ma = (T)prm.kma;
+  } else {
+    // the reference: half a cell past the full grid's center
+    const T off = (T)prm.off, half = (T)prm.half;
+    k.sx = add(sub(jc[3 * n], off), half), k.sy = add(sub(jc[3 * n + 1], off), half);
+    k.inv_d = div((T)1, (T)prm.dist_c), k.inv_a = div((T)1, (T)prm.ang_c);
+    k.md = k.ma = (T)0;
+  }
+
+  // 1. the first maximum in C order over (i, j, q), f = (i * NY + j) * NT + q;
+  // each thread reads the sums in memory order r = (q * NY + j) * NX + i
+  T bv = (T)0;
+  int bf = -1;
+  for (int r = t; r < cells; r += kReduceThreads) {
+    const int i = r % NX, j = (r / NX) % NY, q = r / (NX * NY);
+    const T v = L.value(i, j, q);
+    const int f = (i * NY + j) * NT + q;
+    if (bf < 0 || before(v, f, bv, bf)) bv = v, bf = f;
+  }
+  sh_v[t] = bv, sh_f[t] = bf;
+  __syncthreads();
+  for (int s = kReduceThreads / 2; s > 0; s >>= 1) {
+    if (t < s && sh_f[t + s] >= 0 &&
+        (sh_f[t] < 0 || before(sh_v[t + s], sh_f[t + s], sh_v[t], sh_f[t])))
+      sh_v[t] = sh_v[t + s], sh_f[t] = sh_f[t + s];
+    __syncthreads();
+  }
+  const T response = sh_v[0];
+  const int m = sh_f[0];
+  __syncthreads();
+  const int ii = m / (NY * NT), jj = (m % (NY * NT)) / NT, kk = m % NT;
+
+  // 2. the ties: count and float64 sums of their x, y, theta
+  const T thr = sub(response, k.eps);
+  double tie[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int r = t; r < cells; r += kReduceThreads) {
+    const int i = r % NX, j = (r / NX) % NY, q = r / (NX * NY);
+    if (L.value(i, j, q) >= thr) {
+      tie[0] = __dadd_rn(tie[0], 1.0);
+      tie[1] = __dadd_rn(tie[1], (double)L.xval(i));
+      tie[2] = __dadd_rn(tie[2], (double)L.yval(j));
+      tie[3] = __dadd_rn(tie[3], (double)L.tval(q));
+    }
+  }
+  block_sum<4>(tie, sh);
+  const T bx = (T)__ddiv_rn(tie[1], tie[0]);
+  const T by = (T)__ddiv_rn(tie[2], tie[0]);
+  const T bt = (T)__ddiv_rn(tie[3], tie[0]);
+
+  // 3. the moments: xy over the half-open windows [i - 5, min(n - 1, i + 6))
+  // at the argmax's theta, theta over its window at the argmax's (i, j)
+  const int i0 = max(0, ii - 5), i1 = min(NX - 1, ii + 6);
+  const int j0 = max(0, jj - 5), j1 = min(NY - 1, jj + 6);
+  const int q0 = max(0, kk - 5), q1 = min(NT - 1, kk + 6);
+  const int wi = max(0, i1 - i0), wj = max(0, j1 - j0), wq = max(0, q1 - q0);
+  double mom[4] = {0.0, 0.0, 0.0, 0.0};  // norm, XX, YY, XY
+  for (int w = t; w < wi * wj; w += kReduceThreads) {
+    const int i = i0 + w / wj, j = j0 + w % wj;
+    const T v = L.value(i, j, kk);
+    const T dx = sub(L.xval(i), bx), dy = sub(L.yval(j), by);
+    mom[0] = __dadd_rn(mom[0], (double)v);
+    mom[1] = __dadd_rn(mom[1], (double)mul(v, mul(dx, dx)));
+    mom[2] = __dadd_rn(mom[2], (double)mul(v, mul(dy, dy)));
+    mom[3] = __dadd_rn(mom[3], (double)mul(mul(v, dx), dy));
+  }
+  block_sum<4>(mom, sh);
+  double th[2] = {0.0, 0.0};  // th_norm, TH
+  for (int w = t; w < wq; w += kReduceThreads) {
+    const T v = L.value(ii, jj, q0 + w);
+    const T d = sub(L.tval(q0 + w), bt);
+    th[0] = __dadd_rn(th[0], (double)v);
+    th[1] = __dadd_rn(th[1], (double)mul(v, mul(d, d)));
+  }
+  block_sum<2>(th, sh);
+
+  if (t == 0) {
+    const double r = (double)response;
+    const T out[8] = {response, bx, by, bt,
+                      (T)__ddiv_rn(__ddiv_rn(mom[1], mom[0]), r),
+                      (T)__ddiv_rn(__ddiv_rn(mom[2], mom[0]), r),
+                      (T)__ddiv_rn(__ddiv_rn(mom[3], mom[0]), r),
+                      (T)__ddiv_rn(th[1], th[0])};
+    T* dst = packed + (long long)n * 16;
+    for (int e = 0; e < 8; ++e) {
+      dst[8 * row + e] = out[e];
+      if (copy_fine) dst[8 + e] = out[e];
+    }
+    if (stats) {
+      // the checks' view: the argmax's (i, j, theta) and the tie count
+      stats[4 * n] = ii, stats[4 * n + 1] = jj, stats[4 * n + 2] = kk;
+      stats[4 * n + 3] = (long long)tie[0];
+    }
+  }
+}
+
+// cos and sin as the kernels take them (the checks hold them to torch's)
+template <typename T>
+__global__ void trig_kernel(const T* __restrict__ x, T* __restrict__ c, T* __restrict__ s,
+                            long long n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  c[t] = cos_(x[t]);
+  s[t] = sin_(x[t]);
+}
+
+unsigned blocks_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+extern "C" int yag_world_cells(const void* lx, const void* ly, const void* anchor,
+                               const void* term, const void* has_run, const void* mask,
+                               const void* pose, const void* center, const void* vp,
+                               const void* subo, void* sy, void* sx, void* lim, int N, int B,
+                               int P, int G, int S, int h, const void* params, int is_double,
+                               void* stream) {
+  const long long total = (long long)N * B * P;
+  if (total == 0) return 0;
+  const double* d = (const double*)params;
+  const WorldParams prm{d[0], d[1]};
+  const unsigned blocks = blocks_for(total, kPointThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+#define YAG_WORLD(T)                                                                   \
+  world_cells_kernel<T><<<blocks, kPointThreads, 0, st>>>(                             \
+      (const T*)lx, (const T*)ly, (const int*)anchor, (const int*)term,                \
+      (const uint8_t*)has_run, (const uint8_t*)mask, (const T*)pose, (const T*)center, \
+      (const T*)vp, (const int*)subo, (int*)sy, (int*)sx, (int*)lim, N, B, P, G, S, h, prm)
+  if (is_double)
+    YAG_WORLD(double);
+  else
+    YAG_WORLD(float);
+#undef YAG_WORLD
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yag_lattice_cells(const void* qlx, const void* qly, const void* n_q,
+                                 const void* center, long long cstride, const void* jc,
+                                 const void* subo, void* sgy0, void* sgx0, void* n_int, int N,
+                                 int NT, int P, const void* params, int is_double,
+                                 void* stream) {
+  const long long total = (long long)N * NT * P;
+  if (total == 0) return 0;
+  const double* d = (const double*)params;
+  const LatticeParams prm{d[0], d[1], d[2], d[3], d[4], d[5], d[6]};
+  const unsigned blocks = blocks_for(total, kPointThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+#define YAG_LATTICE(T)                                                                 \
+  lattice_cells_kernel<T><<<blocks, kPointThreads, 0, st>>>(                           \
+      (const T*)qlx, (const T*)qly, (const int*)n_q, (const T*)center, cstride,        \
+      (const T*)jc, (const int*)subo, (int*)sgy0, (int*)sgx0, (int*)n_int, N, NT, P, prm)
+  if (is_double)
+    YAG_LATTICE(double);
+  else
+    YAG_LATTICE(float);
+#undef YAG_LATTICE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yag_score_reduce(const void* raw, const void* n_q, const void* center,
+                                long long cstride, const void* jc, void* packed, void* stats,
+                                int row, int copy_fine, int N, int NX, int NY, int NT,
+                                int mode, const void* params, int is_double, void* stream) {
+  if (N == 0) return 0;
+  const long long cells = (long long)NX * NY * NT;
+  if (cells == 0 || cells >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const double* d = (const double*)params;
+  const ReduceParams prm{d[0], d[1], d[2], d[3], d[4], d[5],
+                         d[6], d[7], d[8], d[9], d[10], d[11]};
+  cudaStream_t st = (cudaStream_t)stream;
+#define YAG_REDUCE(T)                                                              \
+  score_reduce_kernel<T><<<N, kReduceThreads, 0, st>>>(                            \
+      (const int*)raw, (const int*)n_q, (const T*)center, cstride, (const T*)jc,   \
+      (T*)packed, (long long*)stats, row, copy_fine, NX, NY, NT, mode, prm)
+  if (is_double)
+    YAG_REDUCE(double);
+  else
+    YAG_REDUCE(float);
+#undef YAG_REDUCE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yag_program_trig(const void* x, void* c, void* s, long long n, int is_double,
+                                void* stream) {
+  if (n == 0) return 0;
+  const unsigned blocks = blocks_for(n, kPointThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_double)
+    trig_kernel<double><<<blocks, kPointThreads, 0, st>>>((const double*)x, (double*)c,
+                                                          (double*)s, n);
+  else
+    trig_kernel<float><<<blocks, kPointThreads, 0, st>>>((const float*)x, (float*)c,
+                                                         (float*)s, n);
+  return (int)cudaGetLastError();
+}

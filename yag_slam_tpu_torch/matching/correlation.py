@@ -5,7 +5,9 @@ semantics (banker's rounding into grid cells, int-truncated 100x scoring,
 tie-averaged argmax within 1e-8, windowed covariance with the reference's
 half-open windows).  The device work goes through the four kernels of
 :mod:`yag_slam_tpu_torch.matching.kernels`; everything here is plain
-tensor code around them.  The element-path scorer
+tensor code around them, and the pieces the matcher's program kernels
+(:mod:`yag_slam_tpu_torch.matching.program_kernels`) run on the card
+compose their plain twins.  The element-path scorer
 (:func:`score_lattice_element`, rounding per candidate) is plain tensor
 code, as its JAX counterpart is plain XLA.
 
@@ -184,8 +186,8 @@ def build_quantized_grid(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
     """
     sy, sx = occupancy_cells(wx, wy, keep, ox, oy, sox, soy,
                              G=G, S=S, h=h, res=res)
-    occ = K.scatter_cells(sy, sx, S + 2 * h)
-    return K.smear_quantize(occ, _full_grid_limits(G, sox, soy), taps, S, h)
+    return grid_from_cells(sy, sx, _full_grid_limits(G, sox, soy), S=S, h=h,
+                           taps=taps)[0]
 
 
 def build_grid_staged(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
@@ -200,9 +202,23 @@ def build_grid_staged(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
     """
     sy, sx = occupancy_cells(wx, wy, keep, ox, oy, sox, soy,
                              G=G, S=S, h=h, res=res)
+    return grid_from_cells(sy, sx, _full_grid_limits(G, sox, soy), S=S, h=h,
+                           taps=taps, staged=True)
+
+
+def grid_from_cells(sy, sx, lim, *, S: int, h: int, taps, staged: bool = False):
+    """The grid build from the scatter cells on: :func:`kernels.scatter_cells`
+    of (sy, sx) (as :func:`occupancy_cells` or ``program_kernels.world_cells``
+    give them), then :func:`kernels.smear_quantize` with the full-grid limits
+    `lim` (N, 2) int32.  Returns (q (N, S, S) uint8, None); with `staged`,
+    the staged route (:func:`kernels.smear_grid`, then
+    :func:`kernels.quantize_mask`) and its float32 grid before quantize and
+    mask: (q, grid), q the same bits."""
     occ = K.scatter_cells(sy, sx, S + 2 * h)
-    grid = K.smear_grid(occ, taps, S, h)
-    return K.quantize_mask(grid, _full_grid_limits(G, sox, soy)), grid
+    if staged:
+        grid = K.smear_grid(occ, taps, S, h)
+        return K.quantize_mask(grid, lim), grid
+    return K.smear_quantize(occ, lim, taps, S, h), None
 
 
 def build_correlation_grid(wx, wy, keep, ox, oy, *, grid_size: int,
@@ -318,17 +334,46 @@ def score_lattice(
     Returns (out (N, NX, NY, NT), xvals (N, NX), yvals (N, NY),
     tvals (N, NT)) in the points' dtype.
     """
-    NX, NY, NT = spec
-    dtype = pts_x.dtype
-    dev = pts_x.device
+    stride = lattice_stride(xy_res, grid_res)
+    xvals, yvals, tvals = lattice_values(
+        cx, cy, ct, spec=spec, xy_size=xy_size, xy_res=xy_res, ang_size=ang_size,
+        ang_res=ang_res, dtype=pts_x.dtype)
+    sgy0, sgx0, n_int = lattice_origin_cells(pts_x, pts_y, n_pts, xvals, yvals, tvals,
+                                             ox, oy, sox, soy, grid_res)
+    raw = K.window_sum(qgrid, sgy0, sgx0, n_int, spec.ny, spec.nx, stride)
+    out = lattice_scores(
+        raw, n_pts, xvals, yvals, tvals, cx, cy, ct, ox, oy, grid_size=grid_size,
+        grid_res=grid_res, penalize=penalize, dist_var_penalty=dist_var_penalty,
+        ang_var_penalty=ang_var_penalty, karto_penalties=karto_penalties)
+    return out, xvals, yvals, tvals
+
+
+def lattice_stride(xy_res, grid_res) -> int:
+    """The lattice step in grid cells; raises unless it is an integer."""
     stride = int(round(xy_res / grid_res))
     if abs(stride * grid_res - xy_res) >= 1e-12 * max(1.0, abs(xy_res)):
         raise ValueError(f"lattice step {xy_res} is not a multiple of {grid_res}")
+    return stride
 
+
+def lattice_values(cx, cy, ct, *, spec: LatticeSpec, xy_size, xy_res, ang_size,
+                   ang_res, dtype):
+    """A pass's candidate coordinates around its centers cx, cy, ct (N,):
+    (xvals (N, NX), yvals (N, NY), tvals (N, NT)) in `dtype`."""
+    NX, NY, NT = spec
+    dev = cx.device
     xvals = (cx - xy_size)[:, None] + torch.arange(NX, dtype=dtype, device=dev)[None, :] * xy_res
     yvals = (cy - xy_size)[:, None] + torch.arange(NY, dtype=dtype, device=dev)[None, :] * xy_res
     tvals = (ct - ang_size)[:, None] + torch.arange(NT, dtype=dtype, device=dev)[None, :] * ang_res
+    return xvals, yvals, tvals
 
+
+def lattice_origin_cells(pts_x, pts_y, n_pts, xvals, yvals, tvals, ox, oy, sox, soy,
+                         grid_res):
+    """Each query point's subgrid cell at the lattice origin (xvals[:, 0],
+    yvals[:, 0]) for each angle, rounded once: (sgy0, sgx0) (N, NT, P)
+    int32, and the point counts n_pts (N,) rounded to int32, as
+    :func:`kernels.window_sum` takes them."""
     c, s = torch.cos(tvals), torch.sin(tvals)                    # (N, NT)
     rx = c[:, :, None] * pts_x[:, None, :] - s[:, :, None] * pts_y[:, None, :]
     ry = s[:, :, None] * pts_x[:, None, :] + c[:, :, None] * pts_y[:, None, :]
@@ -337,12 +382,19 @@ def score_lattice(
     gy0 = world_to_grid_idx(yvals[:, 0, None, None] + ry, oy[:, None, None], grid_res)
     sgx0 = (gx0 - sox.to(torch.int32)[:, None, None]).contiguous()
     sgy0 = (gy0 - soy.to(torch.int32)[:, None, None]).contiguous()
-
     n_int = torch.round(n_pts).to(torch.int32).contiguous()
-    raw = K.window_sum(qgrid, sgy0, sgx0, n_int, NY, NX, stride)  # (N, NT, NY, NX)
-    raw = raw.permute(0, 3, 2, 1)                                  # (N, NX, NY, NT)
+    return sgy0, sgx0, n_int
 
-    out = raw.to(dtype) / n_pts[:, None, None, None]
+
+def lattice_scores(raw, n_pts, xvals, yvals, tvals, cx, cy, ct, ox, oy, *,
+                   grid_size: int, grid_res: float, penalize: bool,
+                   dist_var_penalty: float = 0.5, ang_var_penalty: float = 1.0,
+                   karto_penalties: tuple | None = None):
+    """The window sums `raw` (N, NT, NY, NX) int32 as responses (N, NX, NY,
+    NT) in the lattice values' dtype: divided by the point counts, times
+    the penalty where `penalize`, over 100."""
+    raw = raw.permute(0, 3, 2, 1)                                  # (N, NX, NY, NT)
+    out = raw.to(xvals.dtype) / n_pts[:, None, None, None]
     if penalize:
         out = out * _lattice_penalty(
             xvals, yvals, tvals, ct, ox, oy, grid_size=grid_size,
@@ -350,8 +402,7 @@ def score_lattice(
             ang_var_penalty=ang_var_penalty, karto=karto_penalties,
             cx=cx, cy=cy,
         )
-    out = out / 100.0
-    return out, xvals, yvals, tvals
+    return out / 100.0
 
 
 def score_lattice_element(

@@ -9,6 +9,9 @@ reset them), so a run can show that its main path went through the
 kernels.  A wrapper called while its thread captures a CUDA graph
 (:func:`captured_launches`) counts into the capture instead: those
 launches run at each replay, which adds them (:func:`add_launches`).
+Another module's wrappers that run inside the matcher's graphs keep their
+own table and count through :func:`_count` too, once the table is
+registered (:func:`register_launches`).
 """
 from __future__ import annotations
 
@@ -49,6 +52,25 @@ KERNELS = {
 
 _capture = threading.local()
 
+# every table that _count counts into, LAUNCHES first
+_TABLES = [LAUNCHES]
+
+
+def register_launches(table):
+    """Let :func:`_count` count the names of `table` (another module's
+    launch counts) into it, and into a capture like LAUNCHES' names."""
+    if any(set(t) & set(table) for t in _TABLES if t is not table):
+        raise ValueError(f"launch names already counted: {sorted(table)}")
+    if not any(t is table for t in _TABLES):
+        _TABLES.append(table)
+
+
+def _table(name):
+    for t in _TABLES:
+        if name in t:
+            return t
+    raise KeyError(f"no launch table counts {name!r}")
+
 
 def reset_launches():
     for k in LAUNCHES:
@@ -57,14 +79,18 @@ def reset_launches():
 
 def _count(name):
     counts = getattr(_capture, "counts", None)
-    (LAUNCHES if counts is None else counts)[name] += 1
+    if counts is None:
+        _table(name)[name] += 1
+    else:
+        counts[name] = counts.get(name, 0) + 1
 
 
 @contextlib.contextmanager
 def captured_launches():
     """Within, this thread's launches count into the yielded dict and not
-    into LAUNCHES: a CUDA graph capture records launches that run only when
-    the graph replays."""
+    into their tables: a CUDA graph capture records launches that run only
+    when the graph replays.  The dict holds LAUNCHES' names, and those of
+    registered tables that the capture launched."""
     counts = dict.fromkeys(LAUNCHES, 0)
     _capture.counts = counts
     try:
@@ -77,7 +103,7 @@ def add_launches(counts):
     """Count the launches of one replay of a graph whose capture recorded
     `counts`."""
     for k, v in counts.items():
-        LAUNCHES[k] += v
+        _table(k)[k] += v
 
 
 def _on_cuda(*tensors) -> bool:

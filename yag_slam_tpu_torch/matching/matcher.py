@@ -41,6 +41,8 @@ from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from yag_slam_tpu_torch.core.config import ScanMatcherConfig, make_config
 from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching import correlation as C
+from yag_slam_tpu_torch.matching import kernels as K
+from yag_slam_tpu_torch.matching import program_kernels as PK
 from yag_slam_tpu_torch.matching.graphs import GRAPHS
 
 ScanMatcherResult = namedtuple(
@@ -49,7 +51,7 @@ ScanMatcherResult = namedtuple(
 
 # Far-away sentinel for padded point lanes: maps out of any grid, so the
 # lane contributes exactly 0 to every score.
-_FAR = 1.0e9
+_FAR = PK.FAR
 
 # The fine pass's angular extent is a literal in the reference matcher.
 _FINE_ANGLE_SIZE = 0.0349 * 0.5
@@ -478,18 +480,15 @@ class CorrelativeScanMatcher:
         return int(so[0, 0]), int(so[0, 1]), int(S[0])
 
     # -- the match program ------------------------------------------------------
-    def _specs(self, coarse_offset):
+    def _lattices(self, coarse_offset):
+        """The (coarse, fine) passes' lattices (program_kernels.PassLattice)."""
         cfg = self.config
         res = cfg.resolution
-        coarse = C.LatticeSpec.from_search(
-            0.0, 0.0, 0.0, cfg.search_size * 0.5, res * 2,
-            coarse_offset * 0.5, cfg.coarse_angle_resolution,
-        )
-        fine = C.LatticeSpec.from_search(
-            0.0, 0.0, 0.0, res * 2, res,
-            _FINE_ANGLE_SIZE, cfg.fine_search_angle_resolution,
-        )
-        return coarse, fine
+        coarse = (cfg.search_size * 0.5, res * 2, coarse_offset * 0.5,
+                  cfg.coarse_angle_resolution)
+        fine = (res * 2, res, _FINE_ANGLE_SIZE, cfg.fine_search_angle_resolution)
+        return tuple(PK.PassLattice.make(C.LatticeSpec.from_search(0.0, 0.0, 0.0, *lat),
+                                         *lat, res) for lat in (coarse, fine))
 
     def _stage(self, args, queries=None):
         """A batch's device inputs as fresh tensors (the eager staging; on
@@ -520,56 +519,23 @@ class CorrelativeScanMatcher:
         st["taps"] = self._taps
         return st
 
-    def _world_points(self, st):
-        """The arithmetic half of a batch's job inputs, up to the grid
-        build: the base scans' world points (N, B, P) and their keep mask,
-        the full-grid origins, the subgrid origins, the query lanes (padded
-        lanes far away), their counts and the search centers, as a dict of
-        tensors.  `st` is :meth:`_stage`'s dict."""
-        G = self.grid_size
-        res = self.config.resolution
-        P = st["lx"].shape[-1]
-        center, pose, vp = st["center"], st["pose"], st["vp"]
-        cx, cy, ct = center[:, 0], center[:, 1], center[:, 2]
-        pc = torch.cos(pose[..., 2:3])
-        ps = torch.sin(pose[..., 2:3])
-        wx = pose[..., 0:1] + pc * st["lx"] - ps * st["ly"]
-        wy = pose[..., 1:2] + ps * st["lx"] + pc * st["ly"]
-        keep = C.keep_mask_for_viewpoint(
-            wx, wy, st["anchor"], st["term"], st["has_run"], st["mask"][..., None],
-            vp[:, 0, None, None], vp[:, 1, None, None],
-        )
-        valid = torch.arange(P, device=wx.device)[None, :] < st["n_q"][:, None]
-        return dict(
-            wx=wx, wy=wy, keep=keep,
-            ox=cx - 0.5 * (G - 1) * res, oy=cy - 0.5 * (G - 1) * res,
-            sox=st["sub"][:, 0], soy=st["sub"][:, 1],
-            qx=torch.where(valid, st["qlx"], _FAR),
-            qy=torch.where(valid, st["qly"], _FAR),
-            n_pts=st["n_q"].to(self.dtype), cx=cx, cy=cy, ct=ct,
-        )
-
     def _score_pass(self, q2d, inp, center, fine, penalty, coarse_offset):
-        """Score one pass's candidate lattice around `center` = (cx, cy,
-        ct), each (N,): the coarse pass, or with `fine` the fine one.
-        `inp` is :meth:`_world_points`' dict.  Returns score_lattice's (out,
-        xvals, yvals, tvals)."""
-        cfg = self.config
-        res = cfg.resolution
-        coarse_spec, fine_spec = self._specs(coarse_offset)
-        if fine:
-            lattice = dict(spec=fine_spec, xy_size=res * 2, xy_res=res,
-                           ang_size=_FINE_ANGLE_SIZE,
-                           ang_res=cfg.fine_search_angle_resolution)
-        else:
-            lattice = dict(spec=coarse_spec, xy_size=cfg.search_size * 0.5,
-                           xy_res=res * 2, ang_size=coarse_offset * 0.5,
-                           ang_res=cfg.coarse_angle_resolution)
+        """One pass's candidate lattice as plain tensor code
+        (correlation.score_lattice) around `center` = (cx, cy, ct), each
+        (N,): the coarse pass, or with `fine` the fine one.  `inp` holds the
+        padded query lanes (qx, qy), their counts n_pts, the full-grid
+        origins (ox, oy) and the subgrid origins (sox, soy).  Returns
+        score_lattice's (out, xvals, yvals, tvals); reduce_best_pose of
+        them is what :meth:`_compute`'s lattice_cells, window_sum and
+        score_reduce give for the pass."""
+        lat = self._lattices(coarse_offset)[int(bool(fine))]
         return C.score_lattice(
             q2d, inp["qx"], inp["qy"], inp["n_pts"], *center, inp["ox"],
             inp["oy"], inp["sox"], inp["soy"], grid_size=self.grid_size,
-            grid_res=res, penalize=penalty,
-            karto_penalties=cfg.karto_penalty_tuple(), **lattice,
+            grid_res=self.config.resolution, penalize=penalty,
+            karto_penalties=self.config.karto_penalty_tuple(), spec=lat.spec,
+            xy_size=lat.xy_size, xy_res=lat.xy_res, ang_size=lat.ang_size,
+            ang_res=lat.ang_res,
         )
 
     @torch.no_grad()
@@ -588,30 +554,32 @@ class CorrelativeScanMatcher:
 
     def _compute(self, st, S, penalty, do_fine, coarse_offset):
         """The device program of :meth:`_run` on staged inputs (`st` as
-        :meth:`_stage` gives it): world points, grid build, both passes,
-        their reductions.  Reads only `st`'s tensors and Python constants,
-        so a CUDA graph can capture it."""
-        inp = self._world_points(st)
-        points = tuple(inp[k] for k in ("wx", "wy", "keep", "ox", "oy", "sox", "soy"))
-        build = dict(G=self.grid_size, S=S, h=self._half,
-                     res=self.config.resolution, taps=st["taps"])
-        grid0 = None
-        if self.return_meta:
-            q2d, grid = C.build_grid_staged(*points, **build)
-            grid0 = grid[0]
-        else:
-            q2d = C.build_quantized_grid(*points, **build)
-
-        coarse = C.reduce_best_pose(*self._score_pass(
-            q2d, inp, (inp["cx"], inp["cy"], inp["ct"]), False, penalty,
-            coarse_offset))
-        if do_fine:
-            fine = C.reduce_best_pose(*self._score_pass(
-                q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True,
-                penalty, coarse_offset))
-        else:
-            fine = coarse
-        return torch.stack([coarse, fine], dim=1), grid0
+        :meth:`_stage` gives it): the base points' scatter cells
+        (program_kernels.world_cells), the grid build, then per pass the
+        lattice-origin cells, the window sums and the reduction into the
+        packed result (program_kernels.lattice_cells, kernels.window_sum,
+        program_kernels.score_reduce).  Reads only `st`'s tensors and Python
+        constants and never waits for the card, so a CUDA graph can capture
+        it: the fine pass's center is the coarse row of the result, on the
+        device."""
+        G, h, res = self.grid_size, self._half, self.config.resolution
+        sy, sx, lim = PK.world_cells(
+            *(st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose",
+                              "center", "vp", "sub")), G=G, S=S, h=h, res=res)
+        q2d, grid = C.grid_from_cells(sy, sx, lim, S=S, h=h, taps=st["taps"],
+                                      staged=self.return_meta)
+        job_center, n_q = st["center"], st["n_q"]
+        packed = torch.empty((n_q.shape[0], 2, 8), dtype=self.dtype, device=n_q.device)
+        center = job_center
+        for row, lat in enumerate(self._lattices(coarse_offset)[:1 + bool(do_fine)]):
+            sgy0, sgx0, n_int = PK.lattice_cells(st["qlx"], st["qly"], n_q, center,
+                                                 job_center, st["sub"], lat, G=G, res=res)
+            raw = K.window_sum(q2d, sgy0, sgx0, n_int, lat.ny, lat.nx, lat.stride)
+            PK.score_reduce(raw, n_q, center, job_center, packed, row, lat, G=G, res=res,
+                            penalize=penalty, karto=self.config.karto_penalty_tuple(),
+                            copy_fine=not do_fine)
+            center = packed[:, 0, 1:4]
+        return packed, None if grid is None else grid[0]
 
     def batched_core(self, P, B, penalty, do_fine, S, coarse_offset=None):
         """The batch match function, for composition (the sharded loop

@@ -105,8 +105,8 @@ def block_and_time(fn, *args, repeats=10, **kwargs):
 # -- measurement on the card ---------------------------------------------------
 
 # Published peaks of one H100 SXM (NVIDIA's H100 datasheet): HBM
-# bytes/s and float32 operations/s outside the tensor cores
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# bytes/s, float32 and float64 operations/s outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S, F64_OPS_PER_S = 3.35e12, 67e12, 34e12
 TIMING_REPS = 20
 SPIN_CYCLES = 1_000_000      # the card's spin before each device_ms launch
 
@@ -172,11 +172,12 @@ def device_ms(fn, reps=TIMING_REPS, warmup=3, spin=SPIN_CYCLES):
     return statistics.median(times)
 
 
-def bound(n_bytes, ops=0):
+def bound(n_bytes, ops=0, ops_per_s=F32_OPS_PER_S):
     """The least time the card could take: each input byte read once and
-    each output byte written once at the HBM rate, or the float32
-    operations at the card's peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    each output byte written once at the HBM rate, or the operations at
+    the card's peak (float32 unless `ops_per_s` says otherwise), whichever
+    is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / ops_per_s
     return dict(bytes=int(n_bytes), ops=int(ops), bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
