@@ -698,21 +698,35 @@ def float_ulps(a, b):
     return torch.where(a.isnan() & b.isnan(), 0, d)
 
 
+def hold_equal(what, got, want):
+    """Raise unless each tensor of `got` has the shape, dtype and bits of
+    the tensor at its place in `want`."""
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        same = a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            *((bits(a), bits(b)) if a.is_floating_point() else (a, b)))
+        if not same:
+            raise AssertionError(f"{what}: output {i} differs from its twin's "
+                                 f"(max abs err {max_abs_err(a, b)})")
+
+
 def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
     """One batch of the matcher's main path through the three program kernels
-    and their plain twins on the card, on the same inputs at each step
-    (the fine pass centered on the kernel's coarse result).  world_cells and
-    lattice_cells bit-equal; score_reduce's response, argmax and tie count
+    and, beside them, a chain of plain twins only (world_cells_ref, the
+    plain grid build, lattice_cells_ref, window_sum_ref, score_reduce_ref;
+    the fine pass of both centered on the kernels' coarse result).
+    world_cells, lattice_cells, the grid and the window sums bit-equal to
+    the plain chain's; score_reduce's response, argmax and tie count
     bit-equal, its pose and moments within one ulp in float32 (rows apart
-    counted) or 1e-12 relative in float64; the whole packed result equal to
-    _compute's.  Returns {kernel: case dict} (timed where `timing`)."""
+    counted) or 1e-12 relative in float64; the bare launches' outputs equal
+    to the wrappers'; the whole packed result equal to _compute's.  Raises
+    at the first difference.  Returns ({kernel: [case dicts]}, the angles
+    the kernels took cos and sin of); timed where `timing` (on the card)."""
     from yag_slam_tpu_torch import _build
     from yag_slam_tpu_torch.matching import correlation as C
     from yag_slam_tpu_torch.matching import kernels as K
     from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.utils.profiling import F32_OPS_PER_S, F64_OPS_PER_S
 
-    lib = _build.library()
     offset = m.config.coarse_search_angle_offset
     args, _, S = m._prepare(jobs, n_pad=n_pad)
     st = m._stage(args)
@@ -723,7 +737,9 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
     es, is_double = dt.itemsize, int(dt == torch.float64)
     rate = F64_OPS_PER_S if is_double else F32_OPS_PER_S
     jc, n_q, sub = st["center"], st["n_q"], st["sub"]
-    stream = torch.cuda.current_stream().cuda_stream
+    if timing:
+        lib = _build.library()
+        stream = torch.cuda.current_stream().cuda_stream
 
     def ok(err, what):
         if err != 0:
@@ -742,26 +758,29 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
     kw = dict(G=G, S=S, h=h, res=res)
     got = PK.world_cells(*w_in, **kw)
     want = PK.world_cells_ref(*w_in, **kw)
-    err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    pre = [torch.empty_like(t) for t in got]
-    wparams = PK._doubles(res, PK._origin_offset(G, res))
+    hold_equal(f"world_cells {name}", got, want)
     tested = int((st["has_run"] & st["mask"][..., None]).sum())
     # per point: its world point (8), its two cells (2 x sub, div, round);
     # per point tested for its run: the anchor's and terminal's world points
     # (16) and the cross product (7); per base scan: cos and sin
-    row = dict(case=name, **shape, max_abs_err=err, library=PROGRAM_NO_LIBRARY["world_cells"],
+    row = dict(case=name, **shape, max_abs_err=0, library=PROGRAM_NO_LIBRARY["world_cells"],
                **bound(N * B * P * (2 * es + 9) + N * B * (1 + 3 * es) + N * (5 * es + 8)
                        + 8 * N * B * P + 8 * N,
                        14 * N * B * P + 23 * tested + 2 * N * B, rate))
     if timing:
+        pre = [torch.empty_like(t) for t in got]
+        wparams = PK._doubles(res, PK._origin_offset(G, res))
         timings(row, lambda: PK.world_cells(*w_in, **kw), lambda: PK.world_cells_ref(*w_in, **kw),
                 lambda: ok(lib.yag_world_cells(*ptrs(w_in), *ptrs(pre), N, B, P, G, S, h,
                                                wparams, is_double, stream), "world_cells"))
-        err = max(err, max(max_abs_err(a, b) for a, b in zip(pre, want)))
-        row["max_abs_err"] = err
+        hold_equal(f"world_cells {name}, bare launch", pre, want)
     out["world_cells"] = [row]
     sy, sx, lim = got
     q2d, _ = C.grid_from_cells(sy, sx, lim, S=S, h=h, taps=st["taps"])
+    sy, sx, lim = want
+    q2d_plain = K.smear_quantize_ref(K.scatter_cells_ref(sy, sx, S + 2 * h), lim, st["taps"],
+                                     S, h)
+    hold_equal(f"{name}: the grid of world_cells' cells", [q2d], [q2d_plain])
 
     packed = torch.full((N, 2, 8), float("nan"), dtype=dt, device=dev)
     plain = torch.full((N, 2, 8), float("nan"), dtype=dt, device=dev)
@@ -772,9 +791,9 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         lshape = dict(shape, lattice=[lat.nx, lat.ny, lat.nt], stride=lat.stride)
         largs = (st["qlx"], st["qly"], n_q, center, jc, sub, lat)
         cells = PK.lattice_cells(*largs, G=G, res=res)
-        err = max(max_abs_err(a, b) for a, b in zip(cells, PK.lattice_cells_ref(*largs, G=G,
-                                                                               res=res)))
-        row = dict(case=pname, **lshape, max_abs_err=err,
+        cells_plain = PK.lattice_cells_ref(*largs, G=G, res=res)
+        hold_equal(f"lattice_cells {pname}", cells, cells_plain)
+        row = dict(case=pname, **lshape, max_abs_err=0,
                    library=PROGRAM_NO_LIBRARY["lattice_cells"],
                    **bound(N * P * 2 * es + 4 * N + 2 * 3 * es * N + 8 * N
                            + 8 * N * lat.nt * P + 4 * N,
@@ -790,14 +809,17 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
                         center.data_ptr(), center.stride(0), jc.data_ptr(), sub.data_ptr(),
                         *ptrs(lpre), N, lat.nt, P, lparams, is_double, stream),
                         "lattice_cells"))
+            hold_equal(f"lattice_cells {pname}, bare launch", lpre, cells_plain)
         out["lattice_cells"].append(row)
 
         raw = K.window_sum(q2d, *cells, lat.ny, lat.nx, lat.stride)
+        raw_plain = K.window_sum_ref(q2d_plain, *cells_plain, lat.ny, lat.nx, lat.stride)
+        hold_equal(f"{pname}: the window sums of lattice_cells' cells", [raw], [raw_plain])
         stats = torch.empty((N, 4), dtype=torch.int64, device=dev)
         stats_ref = torch.empty_like(stats)
         rkw = dict(G=G, res=res, penalize=penalty, karto=karto, copy_fine=not do_fine)
         PK.score_reduce(raw, n_q, center, jc, packed, r, lat, stats=stats, **rkw)
-        PK.score_reduce_ref(raw, n_q, center, jc, plain, r, lat, stats=stats_ref, **rkw)
+        PK.score_reduce_ref(raw_plain, n_q, center, jc, plain, r, lat, stats=stats_ref, **rkw)
         a, b = packed[:, r], plain[:, r]
         if not torch.equal(stats, stats_ref):
             raise AssertionError(f"score_reduce {pname}: argmax / ties {stats.tolist()} vs "
@@ -841,6 +863,7 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
                         raw.data_ptr(), n_q.data_ptr(), center.data_ptr(), center.stride(0),
                         jc.data_ptr(), spre.data_ptr(), None, r, int(not do_fine), N, lat.nx,
                         lat.ny, lat.nt, mode, sparams, is_double, stream), "score_reduce"))
+            hold_equal(f"score_reduce {pname}, bare launch", [spre[:, r]], [packed[:, r]])
         out["score_reduce"].append(row)
         center = packed[:, 0, 1:4]
     if not do_fine and not torch.equal(bits(packed[:, 1]), bits(packed[:, 0])):
@@ -2770,19 +2793,17 @@ def replay_nodes(key, rec, runs=5):
             if e.get("cat") in count and "dur" in e:
                 count[e["cat"]] += 1
         tl = device_timeline(events, symbols)
-        if count["kernel"] == 0:
-            raise AssertionError("the trace of a _run holds no kernel")
         return dict(nodes=sum(count.values()) / runs, kernels=count["kernel"] / runs,
                     copies=count["gpu_memcpy"] / runs, fills=count["gpu_memset"] / runs,
                     busy_ms=tl["busy_ms"] / runs,
                     parts={k: v["count"] / runs for k, v in tl["parts"].items() if v["count"]})
 
     def whole(fn):
-        # a trace that lost device events (a part not launched the same
-        # number of times each run) is taken again
+        # a trace that lost device events (no kernel at all, or a part not
+        # launched the same number of times each run) is taken again
         for _ in range(3):
             t = traced(fn)
-            if all(float(v).is_integer() for v in t["parts"].values()):
+            if t["kernels"] > 0 and all(float(v).is_integer() for v in t["parts"].values()):
                 return t
         raise AssertionError(f"the traces of {key} lose device events: {t}")
 

@@ -398,3 +398,71 @@ def test_host_ops_phase_holds_native_to_the_twins(tmp_path):
     for k in ("parse_ms", "parse_ref_ms", "view_us", "view_ref_us", "view_batched_us", "load_s"):
         assert out[k] > 0.0
     assert out["cpu"].endswith(" CPUs")
+
+
+@pytest.fixture(scope="module")
+def program_jobs():
+    """Three queries against base windows of the room, and their matcher."""
+    import torch
+    from test_matching import TEST_CFG, make_room_scan
+    from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher
+
+    base = [make_room_scan(0.1 * i, 0.02 * i, 0.03 * i, seed=i + 1) for i in range(4)]
+    queries = [make_room_scan(0.13, -0.05, 0.05, seed=10),
+               make_room_scan(0.05, 0.04, -0.02, seed=11),
+               make_room_scan(0.21, 0.01, 0.08, seed=12)]
+    for q in queries:
+        q.corrected_pose = q.odom_pose
+    m = CorrelativeScanMatcher(TEST_CFG, device="cpu", dtype=torch.float32)
+    return m, [(q, base[i:]) for i, q in enumerate(queries)]
+
+
+def test_program_case_holds_the_kernels_to_an_all_plain_chain(program_jobs):
+    """Phase 3b's case on the CPU (every wrapper runs its twin): it passes,
+    with a row per kernel and pass."""
+    m, jobs = program_jobs
+    rows, trig = smoke.program_case("room", m, jobs, 4, True, True, "cpu", timing=False)
+    assert [len(rows[k]) for k in ("world_cells", "lattice_cells", "score_reduce")] == [1, 2, 2]
+    assert all(r["max_abs_err"] == 0 for v in rows.values() for r in v)
+    assert all(r["rows_apart"] == 0 and r["max_ulps"] == 0 for r in rows["score_reduce"])
+    assert trig.numel() > 0
+
+
+def _spoil_world_cells(result, row):
+    sy, sx, lim = result
+    sy = sy.clone()
+    sy[sy >= 0] = -1        # drop every kept point
+    return sy, sx, lim
+
+
+def _spoil_lattice_cells(result, row):
+    sgy0, sgx0, n_int = result
+    return sgy0, sgx0 + 1, n_int
+
+
+def _spoil_score_reduce(result, row):
+    result[:, row, 1] += 0.01      # x off by half a cell
+    return result
+
+
+@pytest.mark.parametrize("kernel,spoil,match", [
+    ("world_cells", _spoil_world_cells, "world_cells room"),
+    ("lattice_cells", _spoil_lattice_cells, "lattice_cells room_coarse"),
+    ("score_reduce", _spoil_score_reduce, "score_reduce room_coarse"),
+])
+def test_program_case_fails_when_a_kernel_differs_from_its_twin(program_jobs, monkeypatch,
+                                                                kernel, spoil, match):
+    """A wrapper whose result differs from its twin's makes phase 3b's case
+    raise, where the kernels and the plain chain part."""
+    from yag_slam_tpu_torch.matching import program_kernels as PK
+
+    wrapper = getattr(PK, kernel)
+
+    def spoiled(*args, **kw):
+        row = args[5] if kernel == "score_reduce" else 0
+        return spoil(wrapper(*args, **kw), row)
+
+    monkeypatch.setattr(PK, kernel, spoiled)
+    m, jobs = program_jobs
+    with pytest.raises(AssertionError, match=match):
+        smoke.program_case("room", m, jobs, 4, True, True, "cpu", timing=False)

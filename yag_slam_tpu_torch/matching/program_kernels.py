@@ -275,7 +275,6 @@ def lattice_cells(qlx, qly, n_q, center, job_center, sub, lat: PassLattice, *,
 
 def score_reduce_ref(raw, n_q, center, job_center, packed, row: int, lat: PassLattice, *,
                      G: int, res: float, penalize: bool, karto=None,
-                     dist_var_penalty: float = 0.5, ang_var_penalty: float = 1.0,
                      copy_fine: bool = False, stats=None):
     """Plain version of :func:`score_reduce`."""
     dtype = packed.dtype
@@ -287,8 +286,7 @@ def score_reduce_ref(raw, n_q, center, job_center, packed, row: int, lat: PassLa
         ang_size=lat.ang_size, ang_res=lat.ang_res, dtype=dtype)
     out = C.lattice_scores(
         raw, n_q.to(dtype), xvals, yvals, tvals, cx, cy, ct, ox, oy, grid_size=G,
-        grid_res=res, penalize=penalize, dist_var_penalty=dist_var_penalty,
-        ang_var_penalty=ang_var_penalty, karto_penalties=karto)
+        grid_res=res, penalize=penalize, karto_penalties=karto)
     best = C.reduce_best_pose(out, xvals, yvals, tvals)
     if stats is not None:
         N, NX, NY, NT = out.shape
@@ -304,7 +302,6 @@ def score_reduce_ref(raw, n_q, center, job_center, packed, row: int, lat: PassLa
 
 def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattice, *,
                  G: int, res: float, penalize: bool, karto=None,
-                 dist_var_penalty: float = 0.5, ang_var_penalty: float = 1.0,
                  copy_fine: bool = False, stats=None):
     """One search pass's result, written into row `row` of `packed` (N, 2,
     8) in place: (response, x, y, theta, XX, YY, XY, TH) per job; with
@@ -336,9 +333,7 @@ def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattic
     if not _on_cuda(raw, n_q, center, job_center, packed):
         return score_reduce_ref(raw, n_q, center, job_center, packed, row, lat, G=G,
                                 res=res, penalize=penalize, karto=karto,
-                                dist_var_penalty=dist_var_penalty,
-                                ang_var_penalty=ang_var_penalty, copy_fine=copy_fine,
-                                stats=stats)
+                                copy_fine=copy_fine, stats=stats)
     N = raw.shape[0]
     dt = packed.dtype
     is_double = _float_kind(packed)
@@ -359,9 +354,10 @@ def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattic
         mode, kv = 1, (0.0, 0.0, 0.0, 0.0)
     else:
         mode, kv = 2, tuple(karto)
+    # the reference penalty's variances times the grid's resolution, at
+    # correlation.lattice_scores' defaults (0.5 and 1.0), as the twin uses them
     params = _doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res,
-                      _origin_offset(G, res), G * res / 2.0, dist_var_penalty * res,
-                      ang_var_penalty * res, *kv)
+                      _origin_offset(G, res), G * res / 2.0, 0.5 * res, 1.0 * res, *kv)
     err = _build.library().yag_score_reduce(
         raw.data_ptr(), n_q.data_ptr(), center.data_ptr(), center.stride(0),
         job_center.data_ptr(), packed.data_ptr(), None if stats is None else stats.data_ptr(),
