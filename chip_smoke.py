@@ -27,9 +27,13 @@ Phases, one line each; any failure raises (non-zero exit):
      its pose and moments within one ulp in float32 (rows apart counted)
      and 1e-12 relative in float64; the whole _compute equal to the
      kernels run in turn; each timed as wrapper, bare kernel and twin
-     beside its bound; the kernels' cos / sin bit-equal to torch.cos /
-     torch.sin on the card over every angle met and a sweep of 2^20
-     (--kernels-only stops here);
+     beside its bound, score_reduce's launch shape and the parent's time
+     (PARENT_MS) printed beside it; score_reduce also on lattices the main
+     path does not give it (reduce_cases: a wide one on a cluster of
+     blocks, one past eight blocks' shared memory, ties at +0 / -0, NaN
+     and inf responses), each held to its twin the same way; the kernels'
+     cos / sin bit-equal to torch.cos / torch.sin on the card over every
+     angle met and a sweep of 2^20 (--kernels-only stops here);
  4a. the host ops (native/hostops.cpp, built into one library with the
      host SPA solve native/spa_lm.cpp) built on this machine's CPU (timed):
      the tour log parsed natively and by the Python parser, the same scans
@@ -63,10 +67,15 @@ Phases, one line each; any failure raises (non-zero exit):
      (seg, flag and the bounding box; passes and hits; the image, also the
      whole render's), timed as wrapper, bare kernel, plain version and
      the whole render (host wall to the image on the host) beside each
-     stage's bound; then round-trip a checkpoint file and continue 5 scans
-     on the restored instance;
+     stage's bound; the same over the map cell's two-lap tour at its
+     odometry poses (k = 5, 416, 833; render_counts beside the parent's
+     time); the trace on its own cases (TRACE_CASES: beams from one cell,
+     of 0 and 1 steps, clipped at max_steps, long and short within a
+     warp) bit-equal to its plain version; then round-trip a checkpoint
+     file and continue 5 scans on the restored instance;
   6. trace a window of scans with torch.profiler and report the device's
-     busy time and idle share (kernel, memcpy and memset events only);
+     busy time and idle share (kernel, memcpy and memset events only),
+     and each kernel's device us a launch;
   7. the matcher API at the default sequential config on the tour's SLAM
      poses: return_meta=True match_scan (results equal to the matcher
      without meta, meta grid bit-equal to the host's), match_scan_sets
@@ -190,6 +199,7 @@ import statistics
 import sys
 import tempfile
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -230,6 +240,12 @@ RENDER_WAITS = 2
 # have no published peak rate to count them against
 RENDER_STEP_OPS, RENDER_BEAM_OPS = 15, 22
 RENDER_NO_LIBRARY = "none: no single PyTorch call traces rays into a grid"
+# phase 5 also renders the map cell's tour (two laps) at its odometry poses
+MAP_TOUR_SCANS = 833
+# the trace's own cases (trace_case): every beam from one cell; beams of 0
+# and 1 steps among longer ones; beams clipped at max_steps; long and
+# short beams and invalid ones alternating within each warp's beams
+TRACE_CASES = ("one_origin", "zero_steps", "clipped", "mixed_warp")
 # The tour's first scans rerun on the host by the plain path, each as
 # (dtype, scans, tolerance m, tolerance rad) for the card run's poses.
 # float32: the first 300 scans (7 closures), same counts and poses within
@@ -259,6 +275,15 @@ MAP_GRID_PATHS = ("localize",)
 PROGRAM_SEQ_QUERY = 120
 PROGRAM_LOOP_QUERIES = (150, 200, 250, 300)
 PROGRAM_X64_JOBS = 61
+# the earlier designs' bare-launch times as PERF.md section 6 records them
+# (NVIDIA H100 80GB HBM3, 700.00 W): score_reduce at one 1024-thread block
+# a job, the trace at one thread a beam (the map cell's tour at k = 833;
+# phase 5 at k = 408), printed beside this run's
+PARENT_MS = {
+    "score_reduce": {"seq_coarse": 0.0236, "seq_fine": 0.0135, "loop_coarse": 0.0387,
+                     "x64_coarse": 0.0266},
+    "render_counts": {"k=833": 0.1500, "k=408": 0.0921},
+}
 PROGRAM_NO_LIBRARY = {
     "world_cells": "none: no single PyTorch call takes points to world, tests runs and "
                    "rounds cells",
@@ -821,22 +846,7 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         PK.score_reduce(raw, n_q, center, jc, packed, r, lat, stats=stats, **rkw)
         PK.score_reduce_ref(raw_plain, n_q, center, jc, plain, r, lat, stats=stats_ref, **rkw)
         a, b = packed[:, r], plain[:, r]
-        if not torch.equal(stats, stats_ref):
-            raise AssertionError(f"score_reduce {pname}: argmax / ties {stats.tolist()} vs "
-                                 f"{stats_ref.tolist()}")
-        if not torch.equal(bits(a[:, 0]), bits(b[:, 0])):
-            raise AssertionError(f"score_reduce {pname}: responses {a[:, 0].tolist()} vs "
-                                 f"{b[:, 0].tolist()}")
-        if not torch.equal(a.isnan(), b.isnan()):
-            raise AssertionError(f"score_reduce {pname}: NaN apart {a.tolist()} {b.tolist()}")
-        ulps = float_ulps(a, b)
-        fin = ~a.isnan()
-        rel = torch.where(fin, (a - b).abs() / b.abs().clamp_min(1e-300), 0.0)
-        if is_double:
-            if float(rel.max()) > 1e-12:
-                raise AssertionError(f"score_reduce {pname}: float64 rel {float(rel.max())}")
-        elif int(ulps.max()) > 1:
-            raise AssertionError(f"score_reduce {pname}: {int(ulps.max())} ulps apart")
+        ulps, rel, fin = hold_reduce(f"score_reduce {pname}", a, b, stats, stats_ref)
         cells_n = N * lat.nt * lat.ny * lat.nx
         ties = int(stats[:, 3].sum())
         win = sum(max(0, min(n - 1, int(c) + 6) - max(0, int(c) - 5))
@@ -844,7 +854,8 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         # per candidate: the division, the / 100 and, penalized, the
         # penalty's 24 operations and its product; per tie four float64 sums;
         # per window cell its moments (about 12)
-        row = dict(case=pname, **lshape, max_abs_err=float(torch.where(
+        row = dict(case=pname, **lshape, reduce_shape=PK.reduce_shape(lat, dt)._asdict(),
+                   max_abs_err=float(torch.where(
                        fin, (a - b).abs(), 0.0).max()), max_ulps=int(ulps.max()),
                    rows_apart=int((ulps > 0).any(dim=1).sum()), rows=N,
                    max_rel=float(rel.max()), ties=stats[:, 3].tolist(),
@@ -852,17 +863,19 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
                    **bound(4 * cells_n + 4 * N + 6 * es * N + 8 * es * N * (1 + (not do_fine)),
                            cells_n * (2 + 26 * penalty) + 4 * ties + 12 * 11 * win, rate))
         if timing:
-            sparams = PK._doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res,
-                                  PK._origin_offset(G, res), G * res / 2.0, 0.5 * res, 1.0 * res,
-                                  *(karto or (0.0,) * 4))
+            sparams = PK.reduce_params(lat, G, res, karto)
             spre = torch.empty_like(packed)
             mode = 0 if not penalty else (1 if karto is None else 2)
+            rs = PK.reduce_shape(lat, dt)
+            if not rs.in_shared:
+                raise AssertionError(f"score_reduce {pname}: a main-path lattice in scratch")
             timings(row, lambda: PK.score_reduce(raw, n_q, center, jc, spre, r, lat, **rkw),
                     lambda: PK.score_reduce_ref(raw, n_q, center, jc, spre, r, lat, **rkw),
                     lambda: ok(lib.yag_score_reduce(
                         raw.data_ptr(), n_q.data_ptr(), center.data_ptr(), center.stride(0),
-                        jc.data_ptr(), spre.data_ptr(), None, r, int(not do_fine), N, lat.nx,
-                        lat.ny, lat.nt, mode, sparams, is_double, stream), "score_reduce"))
+                        jc.data_ptr(), spre.data_ptr(), None, None, r, int(not do_fine), N,
+                        lat.nx, lat.ny, lat.nt, rs.threads, rs.cluster, rs.cols, mode,
+                        sparams, is_double, stream), "score_reduce"))
             hold_equal(f"score_reduce {pname}, bare launch", [spre[:, r]], [packed[:, r]])
         out["score_reduce"].append(row)
         center = packed[:, 0, 1:4]
@@ -873,6 +886,75 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         raise AssertionError(f"{name}: _compute differs from the kernels run in turn")
     trig = torch.cat([st["pose"][..., 2].reshape(-1), jc[:, 2], packed[:, 0, 3]])
     return out, trig
+
+
+def hold_reduce(what, a, b, stats, stats_ref):
+    """score_reduce's rows `a` against its twin's `b`: argmax, tie count
+    and response bit-equal, NaN in the same places, the rest within one
+    ulp in float32 or 1e-12 relative in float64.  Raises at the first
+    difference; returns (ulps, relative gaps, where a is not NaN)."""
+    if not torch.equal(stats, stats_ref):
+        raise AssertionError(f"{what}: argmax / ties {stats.tolist()} vs {stats_ref.tolist()}")
+    if not torch.equal(bits(a[:, 0]), bits(b[:, 0])):
+        raise AssertionError(f"{what}: responses {a[:, 0].tolist()} vs {b[:, 0].tolist()}")
+    if not torch.equal(a.isnan(), b.isnan()):
+        raise AssertionError(f"{what}: NaN apart {a.tolist()} {b.tolist()}")
+    ulps = float_ulps(a, b)
+    fin = ~a.isnan()
+    rel = torch.where(fin, (a - b).abs() / b.abs().clamp_min(1e-300), 0.0)
+    if a.dtype == torch.float64:
+        if float(rel.max()) > 1e-12:
+            raise AssertionError(f"{what}: float64 rel {float(rel.max())}")
+    elif int(ulps.max()) > 1:
+        raise AssertionError(f"{what}: {int(ulps.max())} ulps apart")
+    return ulps, rel, fin
+
+
+def reduce_cases(dev):
+    """score_reduce on lattices the main path does not give it, against
+    its twin (hold_reduce): a wide lattice (a cluster of blocks), one whose
+    responses pass eight blocks' shared memory (scratch rows); ties at +0
+    and -0 (all-zero sums under the reference penalty on the loop
+    lattice); NaN and inf responses (no query point).  Returns case rows."""
+    from yag_slam_tpu_torch.matching import program_kernels as PK
+
+    rng = np.random.default_rng(3)
+    G, res = 881, 0.05
+    lattices = {
+        "wide": PK.PassLattice(32, 32, 40, 0.5, 0.02, 0.1, 0.005, 1),
+        "scratch": PK.PassLattice(64, 64, 400, 0.5, 0.02, 0.1, 0.005, 1),
+        "signed_zero": PK.PassLattice(40, 40, 10, 2.0, 0.1, 0.1745, 0.0349, 2),
+        "nan": PK.PassLattice(4, 4, 10, 0.02, 0.01, 0.0175, 0.0035, 1),
+    }
+    rows = []
+    for name, lat in lattices.items():
+        N = 2
+        shape = (N, lat.nt, lat.ny, lat.nx)
+        raw = (np.zeros(shape) if name == "signed_zero"
+               else rng.integers(0, 6000, shape)).astype(np.int32)
+        n_q = np.array([0, 0] if name == "nan" else [60, 41], np.int32)
+        if name == "nan":
+            raw[1] = 0                     # every response NaN
+        for dt in (torch.float32, torch.float64):
+            center = torch.as_tensor(np.concatenate(
+                [rng.uniform(-0.3, 0.3, (N, 2)), rng.uniform(-3, 3, (N, 1))], axis=1),
+                dtype=dt, device=dev)
+            raw_t, nq_t = torch.as_tensor(raw, device=dev), torch.as_tensor(n_q, device=dev)
+            out = []
+            for fn in (PK.score_reduce, PK.score_reduce_ref):
+                packed = torch.zeros((N, 2, 8), dtype=dt, device=dev)
+                stats = torch.zeros((N, 4), dtype=torch.int64, device=dev)
+                fn(raw_t, nq_t, center, center, packed, 0, lat, G=G, res=res, penalize=True,
+                   copy_fine=True, stats=stats)
+                out.append((packed[:, 0], stats))
+            (a, sa), (b, sb) = out
+            ulps, rel, _ = hold_reduce(f"score_reduce {name} {dt}", a, b, sa, sb)
+            rs = PK.reduce_shape(lat, dt)
+            rows.append(dict(case=f"{name}_{str(dt)[6:]}", lattice=[lat.nx, lat.ny, lat.nt],
+                             reduce_shape=rs._asdict(), max_abs_err=0.0,
+                             max_ulps=int(ulps.max()), max_rel=float(rel.max()),
+                             response=a[:, 0].tolist(), ties=sa[:, 3].tolist()))
+    return rows
 
 
 def zero_lattice(m, dev, penalty, karto):
@@ -909,24 +991,22 @@ def zero_lattice(m, dev, penalty, karto):
                 nan_moments=int(a[:, 0, 4:].isnan().sum()))
 
 
-def check_program(dev):
-    """Phase 3b: the matcher's program kernels (program_kernels.py,
-    csrc/match_program.cu) against their twins on the card at the main
-    path's batches, timed beside their bounds, and the kernels' cos / sin
-    bit-equal to torch's.  Returns {kernel: [case dicts]} (the first of
-    each kernel is its main-path case)."""
-    from yag_slam_tpu_torch import _build
+def program_cases(dev):
+    """Phase 3b's batches, as (name, matcher, jobs, n_pad, penalty,
+    do_fine): the tour's sequential match, the loop matcher's coarse batch,
+    the office batch (61 jobs padded to 64), and the sequential match in
+    float64, with OpenKarto's penalty, padded, and the loop batch with a
+    fine pass."""
     from yag_slam_tpu_torch.core.config import default_config, default_config_loop
     from yag_slam_tpu_torch.matching.matcher import CorrelativeScanMatcher as M
 
-    t0 = time.perf_counter()
     tour = tour_scans()
     office = bench_torch.build_stream()
     seq = [(tour[PROGRAM_SEQ_QUERY], tour[PROGRAM_SEQ_QUERY - 10:PROGRAM_SEQ_QUERY])]
     loop = [(tour[q], tour[q - 25:q - 15]) for q in PROGRAM_LOOP_QUERIES]
     x64 = bench_torch.batch_jobs(office)[:PROGRAM_X64_JOBS]
     karto_cfg = dict(default_config, use_karto_penalties=True)
-    cases = [
+    return [
         ("seq", M(default_config, device=dev), seq, None, True, True),
         ("loop", M(default_config_loop, loop=True, device=dev), loop, None, False, False),
         ("x64", M(bench_torch.CFG, device=dev), x64, 64, True, True),
@@ -935,6 +1015,18 @@ def check_program(dev):
         ("seq_padded", M(default_config, device=dev), seq, 3, True, True),
         ("loop_fine", M(default_config, device=dev), loop, None, False, True),
     ]
+
+
+def check_program(dev):
+    """Phase 3b: the matcher's program kernels (program_kernels.py,
+    csrc/match_program.cu) against their twins on the card at the main
+    path's batches, timed beside their bounds, and the kernels' cos / sin
+    bit-equal to torch's.  Returns {kernel: [case dicts]} (the first of
+    each kernel is its main-path case)."""
+    from yag_slam_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    cases = program_cases(dev)
     results = {"world_cells": [], "lattice_cells": [], "score_reduce": []}
     angles = []
     for name, m, jobs, n_pad, penalty, do_fine in cases:
@@ -946,8 +1038,12 @@ def check_program(dev):
             for r in rows[k]:
                 extra = (f", rows apart by an ulp {r['rows_apart']} of {r['rows']}"
                          if "rows_apart" in r else "")
+                if "reduce_shape" in r:
+                    extra += f"; shape {tuple(r['reduce_shape'].values())}"
+                parent = PARENT_MS.get(k, {}).get(r["case"])
+                was = f" (parent {parent:.4f} ms, PERF.md)" if parent else ""
                 log(f"phase 3b: {k} {r['case']}: err {r['max_abs_err']}{extra}; wrapper "
-                    f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, plain "
+                    f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms{was}, plain "
                     f"{r['plain_ms']:.4f} ms; bound {1e3 * r['bound_ms']:.3f} us by "
                     f"{r['bound_by']}, share {r['share']:.3f}")
     for m, penalty, karto in ((cases[0][1], True, None), (cases[0][1], False, None),
@@ -956,6 +1052,11 @@ def check_program(dev):
         z = zero_lattice(m, dev, penalty, karto)
         results["score_reduce"].append(dict(z, max_abs_err=0.0))
         log(f"phase 3b: score_reduce on an all-zero lattice {z}")
+    for z in reduce_cases(dev):
+        results["score_reduce"].append(z)
+        log(f"phase 3b: score_reduce {z['case']} lattice {z['lattice']}, shape "
+            f"{tuple(z['reduce_shape'].values())}: held to its twin, {z['max_ulps']} ulps, "
+            f"rel {z['max_rel']:.3g}, ties {z['ties']}")
 
     # the kernels' cos and sin against torch's on the card: every angle
     # above and a sweep of 2^20 over [-4 pi, 4 pi], float32 and float64
@@ -1246,6 +1347,8 @@ def run_slam(tmp, gpu, dev):
             raise AssertionError(f"card run drifted from the host {dtype} run")
 
     summary["render"] = render_phase(slam, dev, gpu)
+    summary["render_tour"] = render_phase(map_cell_tour(dev)[1], dev, gpu)
+    summary["render_trace_cases"] = trace_cases(dev)
 
     path = os.path.join(tmp, "map.graph")
     slam.to_file(path)
@@ -1304,6 +1407,78 @@ def render_waits(fn):
             torch.cuda.set_sync_debug_mode("default")
     return [str(w.message) for w in caught
             if str(w.message).startswith("called a synchronizing CUDA operation")]
+
+
+def map_cell_tour(dev, n=MAP_TOUR_SCANS):
+    """The map cell's building tour (two laps of 180-beam scans, seed 0, its
+    first n scans), each scan at its odometry pose, and a stand-in for a
+    SLAM pass over it as render_phase takes one: the vertices' scans and
+    make_occupancy_grid."""
+    from yag_slam_tpu_torch.io import (
+        carmen_to_localized_scans, generate_benchmark_log, load_carmen_log)
+    from yag_slam_tpu_torch.mapping import occupancy as O
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path, _, _ = generate_benchmark_log(os.path.join(tmp, "tour.clf"), step=0.4,
+                                                laps=2, n_beams=N_BEAMS, seed=0)
+        scans = carmen_to_localized_scans(load_carmen_log(log_path), range_threshold=20.0)[:n]
+    slam = types.SimpleNamespace(
+        graph=types.SimpleNamespace(vertices=[types.SimpleNamespace(obj=s) for s in scans]),
+        make_occupancy_grid=lambda res, rt: O.create_occupancy_grid(scans, res, rt, device=dev))
+    return scans, slam
+
+
+def trace_case(name, seed=0):
+    """Beams of one of TRACE_CASES, in scans of 180 around origins within
+    3 m of the frame's center (one origin for all in "one_origin"), up to
+    11.9 m long (some end outside the frame): seg (B, 4) float32, flag (B,)
+    uint8 (1 valid, 2 hit), and the frame (ox, oy, res, width, height,
+    max_steps) at 0.05 m; "clipped" takes max_steps 20."""
+    rng = np.random.default_rng(seed)
+    B, res = 4096, 0.05
+    scan = np.arange(B) // 180
+    origin = rng.uniform(-3.0, 3.0, (scan[-1] + 1, 2))[scan]
+    if name == "one_origin":
+        origin[:] = (0.013, -0.021)
+    length = rng.uniform(0.0, 6.0, B)
+    flag = np.where(rng.uniform(size=B) < 0.7, 3, 1)
+    max_steps = int(np.ceil(12.0 / res)) + 2
+    if name == "zero_steps":
+        length[::3] = 0.0                                # no step: the endpoint alone
+        length[1::3] = rng.uniform(0.0, 0.5 * res, len(length[1::3]))   # one step
+    elif name == "clipped":
+        length = rng.uniform(3.0, 11.9, B)
+        max_steps = 20
+    elif name == "mixed_warp":
+        length = np.where(np.arange(B) % 2 == 1, 11.9, rng.uniform(0.0, 0.1, B))
+        flag[::7] = 0
+    elif name != "one_origin":
+        raise ValueError(f"no trace case {name!r}")
+    ang = rng.uniform(-np.pi, np.pi, B)
+    end = origin + length[:, None] * np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    seg = np.concatenate([origin, end], axis=1).astype(np.float32)
+    frame = (-12.05, -12.05, res, 483, 483, max_steps)
+    return seg, flag.astype(np.uint8), frame
+
+
+def trace_cases(dev):
+    """Phase 5 (b): the trace kernel on each of TRACE_CASES, bit-equal to
+    its plain version on the card."""
+    from yag_slam_tpu_torch.mapping import render_kernel as R
+
+    rows = []
+    for name in TRACE_CASES:
+        seg, flag, frame = trace_case(name)
+        seg, flag = torch.as_tensor(seg, device=dev), torch.as_tensor(flag, device=dev)
+        counts = R.beam_counts(seg, flag, *frame)
+        want = R.beam_counts_ref(seg, flag, *frame)
+        if not torch.equal(counts, want):
+            raise AssertionError(f"trace case {name}: counts differ from the plain version's "
+                                 f"(max abs err {max_abs_err(counts, want)})")
+        rows.append(dict(case=name, beams=int(seg.shape[0]), passes=int(counts[0].sum()),
+                         hits=int(counts[1].sum()), max_abs_err=0))
+    log(f"phase 5: trace cases bit-equal to the plain version: {rows}")
+    return rows
 
 
 def render_phase(slam, dev, gpu):
@@ -1389,6 +1564,7 @@ def render_phase(slam, dev, gpu):
         done = torch.empty(1, dtype=torch.int32, device=dev)
         seg_p, flag_p, box_p = torch.empty_like(seg), torch.empty_like(flag), torch.empty_like(box)
         counts_p, image_p = torch.empty_like(counts), torch.empty_like(image)
+        cols_p = torch.empty((W, H), dtype=torch.int32, device=dev)
         stages = dict(
             render_endpoints=(
                 dict(**bound(64 * k + 8 * B + 17 * B + 32)),
@@ -1405,7 +1581,7 @@ def render_phase(slam, dev, gpu):
                 lambda: R.beam_counts_ref(seg, flag, *f32, W, H, max_steps),
                 lambda: ok(lib.yag_render_trace(
                     seg.data_ptr(), flag.data_ptr(), B, *f32, W, H, max_steps,
-                    counts_p.data_ptr(), stream()), "render_counts")),
+                    counts_p.data_ptr(), cols_p.data_ptr(), stream()), "render_counts")),
             render_classify=(
                 dict(**bound(9 * W * H, 4 * W * H)),
                 lambda: R.classify_cells(counts, mpt),
@@ -1431,9 +1607,12 @@ def render_phase(slam, dev, gpu):
 
         whole()
         wall[k] = statistics.median(whole() for _ in range(RENDER_TIMED))
+        parent = PARENT_MS["render_counts"].get(f"k={k}")
         log(f"phase 5: render k = {k} ({B} beams, {valid} valid, {steps} steps, grid "
-            f"{W}x{H}): each stage bit-equal to its plain version; ms kernel / wrapper / "
-            f"plain / bound: " + "; ".join(
+            f"{W}x{H}): each stage bit-equal to its plain version; "
+            + (f"render_counts kernel {cases['render_counts'][-1]['kernel_ms']:.4f} ms, parent "
+               f"{parent:.4f} ms (PERF.md); " if parent else "")
+            + "ms kernel / wrapper / plain / bound: " + "; ".join(
                 f"{name} {c[-1]['kernel_ms']:.4f} / {c[-1]['ms']:.4f} / "
                 f"{c[-1]['plain_ms']:.4f} / {c[-1]['bound_ms']:.5f}"
                 for name, c in cases.items())
@@ -1477,7 +1656,11 @@ def profile_window(scans, dev, tmp, gpu):
     tl.update(scans=[lo, hi], window_ms=window_ms,
               idle_share=1.0 - tl["busy_ms"] / window_ms,
               busy_ms_per_scan=tl["busy_ms"] / (hi - lo))
-    parts = ", ".join(f"{k} {v['ms']:.3f} ms x {v['count']}" for k, v in tl["parts"].items())
+    # each kernel's device us a launch: score_reduce's is the redesign's
+    # measure on the main path
+    parts = ", ".join(f"{k} {v['ms']:.3f} ms x {v['count']}"
+                      + (f" ({1e3 * v['ms'] / v['count']:.2f} us a launch)" if v["count"] else "")
+                      for k, v in tl["parts"].items())
     log(f"phase 6: scans {lo}-{hi - 1} traced: device busy {tl['busy_ms']:.3f} ms "
         f"of {window_ms:.3f} ms, idle share {tl['idle_share']:.4f}; {parts} ({gpu})")
     return tl

@@ -40,12 +40,17 @@ RTOL = 1e-12
 G, S, H, RES = 101, 64, 2, 0.05
 OFF = 0.5 * (G - 1) * RES
 KARTO = (0.3, 0.2, 0.5, 0.9)      # dist_var, ang_var, min_dist, min_ang
-# a coarse-like pass (stride 2) and a fine-like one (stride 1); the last
-# has more candidates than a score_reduce block has threads
+# a coarse-like pass (stride 2) and a fine-like one (stride 1); "wide" has
+# more candidates than 1024; then the main path's shapes: the tour's fine
+# pass (one warp a job), its coarse pass (640 threads a job) and the loop
+# matcher's coarse pass (1600 columns: two a thread)
 LATTICES = {
     "coarse": PK.PassLattice(9, 9, 5, 0.2, 0.1, 0.08, 0.04, 2),
     "fine": PK.PassLattice(4, 4, 5, 0.1, 0.05, 0.05, 0.02, 1),
     "wide": PK.PassLattice(15, 15, 5, 0.35, 0.05, 0.05, 0.02, 1),
+    "tour_fine": PK.PassLattice(4, 4, 10, 0.02, 0.01, 0.0175, 0.0035, 1),
+    "tour_coarse": PK.PassLattice(25, 25, 10, 0.25, 0.02, 0.1745, 0.0349, 2),
+    "loop_coarse": PK.PassLattice(40, 40, 10, 2.0, 0.1, 0.1745, 0.0349, 2),
 }
 WORLD_KEYS = ("lx", "ly", "anchor", "term", "has_run", "mask", "pose", "center", "vp", "sub")
 
@@ -213,6 +218,14 @@ def _raw_case(kind, lat, seed):
         raw = rng.integers(0, 6000, (3, *shape))
         raw[2] = 0
         n_q = np.array([61, 44, 52])
+    elif kind == "nan":         # no query point: sums / 0 are inf, 0 / 0 NaN
+        raw = rng.integers(0, 6000, (3, *shape))
+        raw[0, 0, 0, :3] = 0
+        raw[2] = 0
+        n_q = np.array([0, 50, 0])
+    elif kind == "signed_zero":  # all zero: a penalty below 0 makes -0
+        raw = np.zeros((2, *shape), np.int64)
+        n_q = np.array([60, 3])
     else:                       # "edges": the maximum on each face of the lattice
         faces = [(slice(None), slice(None), 0), (slice(None), slice(None), -1),
                  (slice(None), 0, slice(None)), (slice(None), -1, slice(None)),
@@ -291,24 +304,61 @@ def test_score_reduce_ref_matches_the_jax_reduction(kind, penalty):
 
 # -- score_reduce's own steps, emulated -------------------------------------------------
 
-def _block_sum(vals, threads=PK.REDUCE_THREADS):
-    """The kernel's float64 sum: thread t adds the values t, t + threads,
-    ... in turn, then the tree partial[t] += partial[t + s] for s =
-    threads / 2, ..., 1."""
-    vals = np.asarray(vals, dtype=np.float64)
-    rows = -(-len(vals) // threads) or 1
-    pad = np.zeros(rows * threads)
-    pad[:len(vals)] = vals
-    part = np.zeros(threads)
-    for row in pad.reshape(rows, threads):
-        part = part + row
-    s = threads // 2
+def _tree32(part):
+    """A butterfly over the last axis's 32 entries as lane 0 holds it: the
+    tree part[:s] += part[s:2s] for s = 16, ..., 1."""
+    part = part.copy()
+    s = 16
     while s:
-        part[:s] = part[:s] + part[s:2 * s]
+        part[..., :s] = part[..., :s] + part[..., s:2 * s]
         s //= 2
-    return part[0]
+    return part[..., 0]
 
 
+def _job_sum(terms):
+    """The kernel's float64 sum over a job: terms (job threads, L), row g
+    the terms thread g adds in turn from 0.0 (0 where it has none: a sum
+    is never -0, so adding +0 changes nothing); then a butterfly over each
+    warp's 32 lanes; then the warps' partials, lane l adding those of
+    warps l, l + 32, ... in turn from 0.0, and a butterfly over the
+    lanes."""
+    terms = np.asarray(terms, dtype=np.float64)
+    part = np.zeros(terms.shape[0])
+    for col in terms.T:
+        part = part + col
+    warps = _tree32(part.reshape(-1, 32))
+    lanes = np.zeros(32)
+    for w, p in enumerate(warps):
+        lanes[w % 32] = lanes[w % 32] + p
+    return _tree32(lanes)
+
+
+def _thread_terms(vals, shape, lat):
+    """(job threads, cols * NT): thread g's responses in the order it
+    meets them, its columns ji = g + c * job_threads and their angles,
+    from `vals` (NT, NY, NX); NaN where it has none; and where it has
+    one."""
+    TT = shape.job_threads
+    g = np.arange(TT)[:, None, None]
+    ji = g + np.arange(shape.cols)[None, :, None] * TT
+    q = np.arange(lat.nt)[None, None, :]
+    ok = np.broadcast_to(ji < lat.nx * lat.ny, (TT, shape.cols, lat.nt))
+    flat = vals.reshape(lat.nt, -1)
+    out = np.full((TT, shape.cols, lat.nt), np.nan, dtype=vals.dtype)
+    out[ok] = flat[np.broadcast_to(q, ok.shape)[ok], np.broadcast_to(ji, ok.shape)[ok]]
+    return out.reshape(TT, -1), ok.reshape(TT, -1)
+
+
+def _window_terms(terms, TT):
+    """Window cell w to thread w mod TT, each thread's in turn: (TT, L)."""
+    terms = np.asarray(terms, dtype=np.float64)
+    cols = -(-len(terms) // TT) or 1
+    out = np.zeros(cols * TT)
+    out[:len(terms)] = terms
+    return out.reshape(cols, TT).T
+
+
+@np.errstate(invalid="ignore", divide="ignore")
 def _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto, dtype, cuda_div):
     """score_reduce_kernel step by step in numpy (each operation rounded to
     `dtype`).  A division by a Python number: a product with its reciprocal
@@ -320,6 +370,8 @@ def _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto, dtype, cu
     def sdiv(a, c):
         return a * (T(1) / T(c)) if cuda_div else a / T(c)
 
+    shape = PK.reduce_shape(lat, dtype)
+    TT = shape.job_threads
     N = raw.shape[0]
     rows = np.empty((N, 8), T)
     stats = np.empty((N, 4), np.int64)
@@ -352,10 +404,13 @@ def _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto, dtype, cu
         m = int(np.argmax(flat))
         ii, jj, kk = m // (lat.ny * lat.nt), (m % (lat.ny * lat.nt)) // lat.nt, m % lat.nt
         response = flat[m]
-        tie = v >= response - T(1e-8)                         # memory order (q, j, i)
+        # the ties, over each thread's columns and angles in turn
+        got, ok = _thread_terms(v, shape, lat)
+        with np.errstate(invalid="ignore"):
+            tie = ok & (got >= response - T(1e-8))
         q3, j3, i3 = np.meshgrid(qq_, jj_, ii_, indexing="ij")
-        cnt = _block_sum(tie.reshape(-1).astype(np.float64))
-        sums = [_block_sum(np.where(tie, c, 0).reshape(-1).astype(np.float64))
+        cnt = _job_sum(tie)
+        sums = [_job_sum(np.where(tie, _thread_terms(c.astype(np.float64), shape, lat)[0], 0))
                 for c in (xv[i3], yv[j3], tv[q3])]
         bx, by, bt = (T(s / cnt) for s in sums)
         i0, i1 = max(0, ii - 5), min(lat.nx - 1, ii + 6)
@@ -365,11 +420,11 @@ def _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto, dtype, cu
         wi, wj = wi.reshape(-1), wj.reshape(-1)               # window order w = i * wj + j
         s = v[kk, wj, wi]
         ddx, ddy = xv[wi] - bx, yv[wj] - by
-        norm, XX, YY, XY = (_block_sum(a.astype(np.float64)) for a in (
+        norm, XX, YY, XY = (_job_sum(_window_terms(a, TT)) for a in (
             s, s * (ddx * ddx), s * (ddy * ddy), (s * ddx) * ddy))
         sq = v[q0:q1, jj, ii]
         dt = tv[q0:q1] - bt
-        thn, TH = _block_sum(sq.astype(np.float64)), _block_sum((sq * (dt * dt)).astype(np.float64))
+        thn, TH = (_job_sum(_window_terms(a, TT)) for a in (sq, sq * (dt * dt)))
         r = np.float64(response)
         with np.errstate(invalid="ignore", divide="ignore"):
             rows[n] = [response, bx, by, bt, T(XX / norm / r), T(YY / norm / r),
@@ -391,7 +446,9 @@ def _ulps(a, b):
 @pytest.mark.parametrize("penalty", list(PENALTIES))
 @pytest.mark.parametrize("kind,lattice", [("random", "coarse"), ("random", "wide"),
                                           ("ties", "fine"), ("edges", "wide"),
-                                          ("padded", "fine")])
+                                          ("padded", "fine"), ("random", "tour_fine"),
+                                          ("random", "tour_coarse"), ("edges", "loop_coarse"),
+                                          ("nan", "fine"), ("signed_zero", "loop_coarse")])
 def test_score_reduce_kernel_steps_emulated(kind, lattice, penalty, dtype):
     """The kernel's steps in numpy, with the CPU's division, equal the twin:
     every candidate's response bit for bit, the response, argmax and tie
@@ -427,10 +484,76 @@ def test_score_reduce_kernel_steps_emulated(kind, lattice, penalty, dtype):
         assert _ulps(rows, got).max() <= 1
     else:
         _close(rows, got)
+    if kind == "signed_zero" and penalty == "reference":
+        # +0 and -0 tie; the first in C order gives the response its sign
+        assert (values == 0).all() and np.signbit(values).any() and not np.signbit(values).all()
+    if kind == "nan":
+        assert np.isnan(rows[[0, 2], 0]).all() and (stats[[0, 2], 3] == 0).all()
     cuda_rows, cuda_stats, cuda_values = _emulate_score_reduce(
         raw, n_q, center, job, lat, penalize, karto, dtype, cuda_div=True)
-    scale = np.abs(values).max(initial=1.0)
+    scale = np.abs(values[np.isfinite(values)]).max(initial=1.0)
     np.testing.assert_allclose(cuda_values, values, rtol=0, atol=8 * np.finfo(T).eps * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lattice", sorted(LATTICES))
+def test_score_reduce_shape_follows_the_pass(lattice, dtype):
+    """A thread a lattice column where a block can have one each, in
+    multiples of 32 threads, at most 1024 a block; the job's threads cover
+    every column; its responses fit its blocks' shared memory."""
+    lat = LATTICES[lattice]
+    shape = PK.reduce_shape(lat, dtype)
+    nxy = lat.nx * lat.ny
+    es = 8 if dtype == torch.float64 else 4
+    assert shape.threads % 32 == 0 and shape.cluster in PK.REDUCE_CLUSTERS
+    assert shape.threads <= PK.REDUCE_MAX_THREADS
+    assert shape.cols == -(-nxy // (PK.REDUCE_MAX_THREADS * shape.cluster))
+    assert nxy <= shape.job_threads * shape.cols < nxy + 32 * shape.cluster * shape.cols
+    assert shape.in_shared and (PK._reduce_header_bytes(shape.job_threads // 32, es)
+                                + shape.cols * lat.nt * shape.threads * es
+                                <= PK.REDUCE_MAX_SMEM)
+
+
+def test_score_reduce_shape_spreads_what_one_block_cannot_hold():
+    """The tour's fine pass takes one warp, its coarse pass one block, the
+    loop's coarse pass a cluster of eight (REDUCE_CLUSTER_AT); responses
+    past one block's shared memory go to more blocks, and past eight
+    blocks' to scratch rows."""
+    f32, f64 = torch.float32, torch.float64
+    assert PK.reduce_shape(LATTICES["tour_fine"], f32) == (32, 1, 1, True)
+    assert PK.reduce_shape(LATTICES["tour_coarse"], f64) == (640, 1, 1, True)
+    assert PK.reduce_shape(LATTICES["loop_coarse"], f32) == (224, 8, 1, True)
+    big = PK.PassLattice(32, 32, 40, 0.5, 0.02, 0.1, 0.005, 1)     # 320 KB in float64
+    huge = PK.PassLattice(64, 64, 400, 0.5, 0.02, 0.1, 0.005, 1)   # 13 MB in float64
+    wide = PK.PassLattice(40, 40, 100, 0.5, 0.02, 0.1, 0.005, 1)   # 1.3 MB in float64
+    assert PK.reduce_shape(big, f64) == (128, 8, 1, True)
+    assert PK.reduce_shape(huge, f64) == (512, 8, 1, False)
+    assert PK.reduce_shape(wide, f64) == (224, 8, 1, True)
+    assert PK._reduce_header_bytes(5, 8) % 8 == 0
+    few = PK.PassLattice(20, 20, 30, 0.5, 0.02, 0.1, 0.005, 1)     # 96 KB in float64
+    assert PK.reduce_shape(few, f64) == (416, 1, 1, True)
+
+
+@pytest.mark.parametrize("cluster", [2, 8])
+@pytest.mark.parametrize("kind", ["random", "edges"])
+def test_score_reduce_kernel_steps_emulated_on_a_cluster(monkeypatch, kind, cluster):
+    """With the job spread over a cluster of blocks (more than 32 warps:
+    lane l of the last reduction adds warps l, l + 32, ...), the emulated
+    kernel still equals the twin: response, argmax and tie count
+    bit-equal, the rest within an ulp in float32."""
+    monkeypatch.setattr(PK, "REDUCE_CLUSTER_AT", {cluster: 0})
+    lat = LATTICES["loop_coarse"]
+    shape = PK.reduce_shape(lat, torch.float32)
+    assert shape.cluster == cluster and shape.job_threads > 1024 and shape.cols == 1
+    raw, n_q = _raw_case(kind, lat, 12)
+    center, job = _centers(13, raw.shape[0])
+    rows, stats, _ = _emulate_score_reduce(raw, n_q, center, job, lat, True, None,
+                                           torch.float32, cuda_div=False)
+    got, want_stats = _ref_reduce(raw, n_q, center, job, lat, True, None, torch.float32)
+    got = got.numpy()
+    np.testing.assert_array_equal(stats, want_stats.numpy())
+    np.testing.assert_array_equal(rows[:, 0].view(np.int32), got[:, 0].view(np.int32))
+    assert _ulps(rows, got).max() <= 1
 
 
 # -- _compute against the composition it replaced ------------------------------------------
@@ -574,8 +697,9 @@ def test_cuda_tensors_launch_the_kernels_and_never_the_twins(fake_card, dtype):
     # the fine pass's center: row 0 of the packed result, 16 elements apart
     assert l_name == "yag_lattice_cells" and lc[4] == 16 and lc[10:13] == (2, 5, 5)
     assert list(lc[13]) == [0.2, 0.1, 0.08, 0.04, RES, OFF, PK.FAR]
-    assert r_name == "yag_score_reduce" and r[3] == 16 and r[6] is None
-    assert r[7:14] == (1, 0, 2, 9, 9, 5, 2) and list(r[14])[-4:] == list(KARTO)
+    # no stats, no scratch rows; the coarse lattice's 81 columns: 96 threads
+    assert r_name == "yag_score_reduce" and r[3] == 16 and r[6] is None and r[7] is None
+    assert r[8:18] == (1, 0, 2, 9, 9, 5, 96, 1, 1, 2) and list(r[18])[-4:] == list(KARTO)
     fake_card(9)
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name} kernel launch failed: cudaError 9"):

@@ -383,19 +383,73 @@ def test_render_kernels_are_in_the_library_build():
 
 
 def test_render_kernels_tool_builds_its_variant_from_the_kernel_source():
-    """tools/render_kernels.py's warp-aggregated trace is csrc/render.cu
-    with the step atomic replaced and the trace's entry point renamed."""
+    """tools/render_kernels.py's stores variant is its probe (the trace's
+    one-thread-a-beam design, which the package's warp-a-beam kernel
+    replaced) with every atomic a plain store and the entry point
+    renamed."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "render_kernels", os.path.join(REPO, "tools", "render_kernels.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    src = (_build.CSRC_DIR / "render.cu").read_text()
+    src = open(tool.PROBE).read()
     out = tool.variant_source(src)
-    assert "__match_any_sync" in out and "__match_any_sync" not in src
-    assert 'extern "C" int yag_render_trace_aggregated(' in out
-    assert out.replace(tool.AGGREGATED, tool.STEP_ATOMIC).replace(
-        "yag_render_trace_aggregated(", "yag_render_trace(") == src
+    assert "atomicAdd(" in src and "atomicAdd(" not in out
+    assert 'extern "C" int yag_probe_trace_stores(' in out
+    assert out.replace(tool.STEP_STORE, tool.STEP_ATOMIC).replace(
+        tool.END_STORES, tool.END_ATOMICS).replace(
+        "yag_probe_trace_stores(", "yag_probe_trace(") == src
     with pytest.raises(RuntimeError, match="step atomic"):
         tool.variant_source(src.replace("atomicAdd(passes + (size_t)cy", "atomicAdd(passes + cy"))
+    kernel = (_build.CSRC_DIR / "render.cu").read_text()
+    assert "__shfl_up_sync" in kernel and "__shfl_up_sync" not in src
+
+
+def _smoke():
+    import importlib.util
+    import sys
+
+    if REPO not in sys.path:      # chip_smoke imports the root-level *_torch.py harnesses
+        sys.path.insert(0, REPO)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("name", ["one_origin", "zero_steps", "clipped", "mixed_warp"])
+def test_trace_cases_equal_the_numpy_twin(name):
+    """chip_smoke's trace cases (phase 5 holds the kernel to the plain
+    version on each): many beams from one cell, beams of 0 and 1 steps,
+    beams clipped at max_steps, long, short and invalid beams within each
+    warp's beams.  The plain version's passes and hits equal the numpy
+    twin's; the image is within JAX_CELL_TOL of the JAX package's."""
+    smoke = _smoke()
+    assert name in smoke.TRACE_CASES
+    seg_np, flag_np, frame = smoke.trace_case(name)
+    ox, oy, res, width, height, max_steps = frame
+    seg, flag = torch.as_tensor(seg_np), torch.as_tensor(flag_np)
+    counts = R.beam_counts(seg, flag, *frame)
+    passes, hits = counts.numpy()
+    valid = (flag_np & 1) > 0
+    s, f = seg_np[valid], flag_np[valid]
+    want_p, want_h = _numpy_counts(s[:, :2], s[:, 2:], (f & 2) > 0, ox, oy, res, width,
+                                   height, max_steps)
+    np.testing.assert_array_equal(passes, want_p)
+    np.testing.assert_array_equal(hits, want_h)
+    dx = np.abs(seg_np[:, 2] - seg_np[:, 0]) / np.float32(res)
+    dy = np.abs(seg_np[:, 3] - seg_np[:, 1]) / np.float32(res)
+    n = np.minimum(np.ceil(np.maximum(dx, dy)), max_steps)[valid]
+    assert 0 < hits.sum() < passes.sum() <= n.sum() + valid.sum()
+    if name == "one_origin":
+        assert len(np.unique(seg_np[:, :2], axis=0)) == 1 and passes.max() >= valid.sum()
+    if name == "zero_steps":
+        assert (n == 0).any() and (n == 1).any() and (n > 32).any()
+    if name == "clipped":
+        assert (n == max_steps).all()
+    if name == "mixed_warp":
+        assert not valid.all() and n.max() > 200 and n.min() <= 2
+    image = R.classify_cells(counts, 2).numpy()
+    jax_image = _jax_image(seg, flag, ox, oy, res, width, height, max_steps, 2)
+    assert (image != jax_image).mean() <= JAX_CELL_TOL

@@ -8,11 +8,16 @@ The building tour of the map cell (two laps, 833 scans of 180 beams, seed
 the render kernels' launches counted over ``create_occupancy_grid``, the
 waits of a render, every stage bit-equal to its plain version and timed
 (kernel, wrapper, plain, whole render) beside its bound at the prefixes
-k = 5, half and all.  Then ``render_trace_kernel`` of
-``csrc/render.cu`` against a warp-aggregated variant built here from the
-same source (the peers of a cell, found with ``__match_any_sync``, add
-their count with one ``atomicAdd``): counts equal, device ms by
-``device_ms`` in turns.  Needs a CUDA card and nvcc.
+k = 5, half and all.  Then, at half and all, the trace of
+``csrc/render.cu`` (a warp a beam) against the one-thread-a-beam design it
+replaced (``tools/render_trace_probe.cu``, built here), which runs as it
+is, with its atomics as plain stores (its counts then wrong: what the
+atomics cost), on the beams sorted by length within each scan (a warp's
+lanes then take about as many steps: what the longest beam costs), sorted
+by length over all scans (a warp's lanes then share no origin either),
+and sorted with stores: counts equal to the plain version's wherever the
+atomics add, device ms by ``device_ms`` in turns.  Needs a CUDA card and
+nvcc.
 """
 from __future__ import annotations
 
@@ -23,7 +28,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -31,59 +35,65 @@ if ROOT not in sys.path:
 
 import torch  # noqa: E402
 
-# the variant: the trace's step atomic, aggregated over the warp's lanes
-# that hit the same cell
-STEP_ATOMIC = '''    if (cx >= 0 && cx < width && cy >= 0 && cy < height)
-      atomicAdd(passes + (size_t)cy * width + cx, 1);'''
-AGGREGATED = '''    const bool in = cx >= 0 && cx < width && cy >= 0 && cy < height;
-    const unsigned m = __ballot_sync(__activemask(), in);
-    if (in) {
-      const int idx = cy * width + cx;
-      const unsigned peers = __match_any_sync(m, idx);
-      if ((threadIdx.x & 31) == __ffs(peers) - 1)
-        atomicAdd(passes + idx, __popc(peers));
-    }'''
+PROBE = os.path.join(ROOT, "tools", "render_trace_probe.cu")
+# the probe's atomics, and the plain stores of its "stores" variant
+STEP_ATOMIC = "      atomicAdd(passes + (size_t)cy * width + cx, 1);"
+STEP_STORE = "      passes[(size_t)cy * width + cx] = k;"
+END_ATOMICS = ("    atomicAdd(passes + i, 1);   // the endpoint is a visit too\n"
+               "    if (f & kHit) atomicAdd(hits + i, 1);")
+END_STORES = ("    passes[i] = n;\n"
+              "    if (f & kHit) hits[i] = 1;")
 
 
 def variant_source(src):
-    """csrc/render.cu with its trace kernel's step atomic aggregated and
-    its C entry point renamed yag_render_trace_aggregated."""
-    if STEP_ATOMIC not in src:
-        raise RuntimeError("csrc/render.cu's step atomic is not where the variant expects it")
-    return src.replace(STEP_ATOMIC, AGGREGATED).replace(
-        "yag_render_trace(", "yag_render_trace_aggregated(")
+    """The probe with its atomics as plain stores and its C entry point
+    renamed yag_probe_trace_stores."""
+    if STEP_ATOMIC not in src or END_ATOMICS not in src:
+        raise RuntimeError("the probe's step atomic is not where the variant expects it")
+    return src.replace(STEP_ATOMIC, STEP_STORE).replace(END_ATOMICS, END_STORES).replace(
+        "yag_probe_trace(", "yag_probe_trace_stores(")
 
 
-def tour_scans(n):
-    from yag_slam_tpu_torch.io import (
-        carmen_to_localized_scans, generate_benchmark_log, load_carmen_log)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        log, _, _ = generate_benchmark_log(os.path.join(tmp, "tour.clf"), step=0.4, laps=2,
-                                           n_beams=180, seed=0)
-        scans = carmen_to_localized_scans(load_carmen_log(log), range_threshold=20.0)
-    return scans[:n]
-
-
-def aggregated_library(tmp):
+def probe_library(tmp):
+    """The probe and its stores variant, built with the package's nvcc
+    flags into one library."""
     from yag_slam_tpu_torch import _build
 
-    src = os.path.join(tmp, "render_aggregated.cu")
-    with open(src, "w") as f:
-        f.write(variant_source((_build.CSRC_DIR / "render.cu").read_text()))
-    so = os.path.join(tmp, "librender_aggregated.so")
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, src],
+    with open(PROBE) as f:
+        src = f.read()
+    paths = [os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe_stores.cu")]
+    for path, text in zip(paths, (src, variant_source(src))):
+        with open(path, "w") as f:
+            f.write(text)
+    so = os.path.join(tmp, "libprobe.so")
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, *paths],
                    check=True)
     lib = ctypes.CDLL(so)
-    fn = lib.yag_render_trace_aggregated
-    fn.argtypes = list(_build._SIGNATURES["yag_render_trace"])
-    fn.restype = ctypes.c_int
+    P, L, F, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    for name in ("yag_probe_trace", "yag_probe_trace_stores"):
+        fn = getattr(lib, name)
+        fn.argtypes = [P, P, L, F, F, F, I, I, I, P, P]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def compare_trace(scans, dev, lib_agg, prefixes):
-    """The trace kernel and its aggregated variant on the same beams:
-    counts equal, device ms of each over four rounds in turns."""
+def beam_orders(table, seg, flag, res, max_steps):
+    """Permutations of the beams by length (steps; invalid beams first):
+    within each scan, and over all scans."""
+    x0, y0, x1, y1 = seg.unbind(1)
+    r = torch.tensor(res, dtype=torch.float32, device=seg.device)
+    n = torch.ceil(torch.maximum((x1 - x0).abs() / r, (y1 - y0).abs() / r)).clamp(0, max_steps)
+    n = torch.where((flag & 1) > 0, n.to(torch.int64), -1)
+    scan = torch.searchsorted(table[:, 7].to(torch.int64),
+                              torch.arange(seg.shape[0], device=seg.device), right=True) - 1
+    return dict(sorted_in_scans=torch.argsort(scan * (max_steps + 2) + n + 1, stable=True),
+                sorted=torch.argsort(n, stable=True))
+
+
+def compare_trace(scans, dev, probe, prefixes):
+    """The trace kernel and the probe's variants on the same beams: counts
+    equal to the plain version's where they add, device ms of each over
+    four rounds, the order turned each round."""
     from yag_slam_tpu_torch import _build
     from yag_slam_tpu_torch.mapping import occupancy as O
     from yag_slam_tpu_torch.mapping import render_kernel as R
@@ -98,26 +108,43 @@ def compare_trace(scans, dev, lib_agg, prefixes):
         f32 = O._f32(ox, oy, 0.05)
         B = ranges.shape[0]
         ref = R.beam_counts_ref(seg, flag, *f32, W, H, steps)
-        got = {v: torch.empty_like(ref) for v in ("kernel", "aggregated")}
-        fns = {"kernel": lib.yag_render_trace, "aggregated": lib_agg.yag_render_trace_aggregated}
+        beams = dict(given=(seg, flag), **{
+            name: (seg[o].contiguous(), flag[o].contiguous())
+            for name, o in beam_orders(table, seg, flag, 0.05, steps).items()})
+        # variant -> (C entry point, its beams, whether its counts add up)
+        variants = {
+            "kernel": (lib.yag_render_trace, "given", True),
+            "one_thread_a_beam": (probe.yag_probe_trace, "given", True),
+            "stores": (probe.yag_probe_trace_stores, "given", False),
+            "sorted_in_scans": (probe.yag_probe_trace, "sorted_in_scans", True),
+            "sorted": (probe.yag_probe_trace, "sorted", True),
+            "sorted_stores": (probe.yag_probe_trace_stores, "sorted", False),
+        }
+        got = {v: torch.empty_like(ref) for v in variants}
+        cols = torch.empty((W, H), dtype=torch.int32, device=dev)
 
         def launch(v):
-            err = fns[v](seg.data_ptr(), flag.data_ptr(), B, *f32, W, H, steps,
-                         got[v].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            fn, which, _ = variants[v]
+            s, f = beams[which]
+            scratch = (cols.data_ptr(),) if v == "kernel" else ()
+            err = fn(s.data_ptr(), f.data_ptr(), B, *f32, W, H, steps, got[v].data_ptr(),
+                     *scratch, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{v}: cudaError {err}")
 
-        times = {v: [] for v in fns}
-        for order in (("kernel", "aggregated"), ("aggregated", "kernel")) * 2:
-            for v in order:
+        names = list(variants)
+        times = {v: [] for v in names}
+        for r in range(4):
+            turn = names[r:] + names[:r]
+            for v in (turn if r % 2 == 0 else turn[::-1]):
                 times[v].append(device_ms(lambda v=v: launch(v), reps=50))
         torch.cuda.synchronize()
-        equal = {v: torch.equal(g, ref) for v, g in got.items()}
+        equal = {v: torch.equal(got[v], ref) for v, (_, _, adds) in variants.items() if adds}
         if not all(equal.values()):
             raise AssertionError(f"k = {k}: trace counts differ from the plain version {equal}")
         row = dict(k=k, beams=B, grid=[W, H], ms={v: sorted(t) for v, t in times.items()})
-        print(f"trace k = {k} ({B} beams, grid {W}x{H}): counts equal; device ms "
-              f"kernel {row['ms']['kernel']}, aggregated {row['ms']['aggregated']}", flush=True)
+        print(f"trace k = {k} ({B} beams, grid {W}x{H}): counts equal; device ms " + "; ".join(
+            f"{v} {t}" for v, t in row["ms"].items()), flush=True)
         out.append(row)
     return out
 
@@ -130,20 +157,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("render_kernels.py needs a CUDA card")
     import chip_smoke
-    from yag_slam_tpu_torch.mapping import occupancy as O
     from yag_slam_tpu_torch.utils.profiling import gpu_line
 
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
-    scans = tour_scans(args.scans)
-    # render_phase renders the vertices' scans: the tour at its odometry
-    # poses stands in for a SLAM pass's graph
-    slam = types.SimpleNamespace(
-        graph=types.SimpleNamespace(vertices=[types.SimpleNamespace(obj=s) for s in scans]),
-        make_occupancy_grid=lambda res, rt: O.create_occupancy_grid(scans, res, rt, device=dev))
+    scans, slam = chip_smoke.map_cell_tour(dev, args.scans)
     phase = chip_smoke.render_phase(slam, dev, gpu)
     with tempfile.TemporaryDirectory() as tmp:
-        trace = compare_trace(scans, dev, aggregated_library(tmp), (len(scans) // 2, len(scans)))
+        trace = compare_trace(scans, dev, probe_library(tmp), (len(scans) // 2, len(scans)))
     result = dict(gpu=gpu, scans=len(scans), render=phase, trace_variants=trace)
     if args.out:
         with open(args.out, "w") as f:

@@ -5,8 +5,15 @@
 //                            its valid / hit flag, and the bounding box of
 //                            the valid origins and ends (float64);
 //   render_trace_kernel      the dominant-axis DDA of every valid beam in
-//                            float32, its steps and its endpoint counted
-//                            into int32 passes / hits with atomicAdd;
+//                            float32, a warp a beam, its lanes over the
+//                            beam's steps; each run of lanes on one cell
+//                            adds its length with one atomicAdd, into
+//                            int32 passes (row-major) where the beam runs
+//                            along x, into a column-major scratch where it
+//                            runs along y; the endpoint's hit into hits;
+//   render_merge_kernel      the scratch's passes added into passes,
+//                            through 32 x 32 tiles transposed in shared
+//                            memory;
 //   render_classify_kernel   passes / hits -> the uint8 image (occupied 0,
 //                            unknown 200, free 255).
 //
@@ -22,12 +29,20 @@
 // for operation.  Integer counts are exact in any order, so the atomics
 // give the same passes and hits on every run.
 //
-// Bound: the trace's steps (~80 a beam at the tour's 0.05 m) are ~12 float32
-// operations and one atomic each; the bytes (the beams' 17 bytes, the
-// counts' 8 bytes a cell written once) are a few MB.  The card's limit in
-// practice is the atomics in L2: one thread per beam keeps a beam's steps
-// in one thread's registers, and the 180 beams of a scan, which start in
-// one cell, share warps.
+// Bound: the trace's steps (~66 a beam on the map cell's tour at 0.05 m)
+// are ~15 float32 operations and one count each; the bytes (the beams' 17
+// bytes, the counts' 8 bytes a cell written once) are a few MB.  What it
+// costs in practice is the counts' ~10 M scattered updates in L2 (the
+// one-thread-a-beam trace it replaced ran at ~66 G counts/s with atomics,
+// ~80 G with plain stores, and no faster on beams sorted by length: the
+// scattered updates, not the atomics or the longest beam, set its time;
+// tools/render_kernels.py).  So a warp walks one beam 32 steps at a
+// time, its updates on consecutive cells of one line, and a beam that runs
+// along y counts into a column-major copy, where its cells are
+// consecutive too: a warp's updates fall in a few sectors, not up to 32;
+// a run of lanes in one cell (a step shorter than a cell, the endpoint
+// after the last step) adds once.  The merge moves the copy's 4 bytes a
+// cell twice more.
 //
 // Layout contract (checked by the wrappers in mapping/render_kernel.py):
 //   table (k, 8) float64 rows [x, y, yaw, min_angle, angle_increment,
@@ -35,16 +50,23 @@
 //   float32 [x0, y0, x1, y1]; flag (B,) uint8 (bit 0 valid, bit 1 hit);
 //   part (k, 4) float64 scratch; done one uint32; box (4,) float64
 //   [min x, min y, max x, max y]; counts (2, H, W) int32 [passes, hits];
-//   image (H, W) uint8.
+//   cols (W, H) int32 scratch; image (H, W) uint8.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kCols = 8;
 constexpr int kEndThreads = 128;
-constexpr int kTraceThreads = 128;
+constexpr int kTraceThreads = 256;
+// blocks of the trace at most: 8192 x 8 warps, each dealt the beams b = w,
+// w + 65536, ...
+constexpr long long kTraceMaxBlocks = 8192;
+constexpr int kTile = 32, kMergeRows = 8;  // the merge's tile, and its block's rows
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kClassifyThreads = 256;
 constexpr uint8_t kValid = 1, kHit = 2;
 constexpr uint8_t kOccupied = 0, kUnknown = 200, kFree = 255;
@@ -142,37 +164,75 @@ __device__ __forceinline__ int cell_of(float p, float o, float res, int lim) {
   return (int)fminf(fmaxf(c, -1.0f), (float)lim);
 }
 
-// One thread a beam: its steps k < n at k / n of the way (k * (1 / n)),
-// strictly before the endpoint's cell, then the endpoint.
+// A warp a beam, the beams dealt out over the grid's warps: lane l takes
+// the beam's steps k = k0 + l for k0 = 0, 32, ...: the steps k < n at k / n
+// of the way (k * (1 / n)), strictly before the endpoint's cell, and at k =
+// n the endpoint.  A beam longer in y than in x counts its passes into
+// cols (width, height), column-major.  The lanes on one cell form runs (a
+// beam's cells are monotone along it); a run's first lane adds the run's
+// length.
 __global__ void render_trace_kernel(const float4* __restrict__ seg,
-                                    const uint8_t* __restrict__ flag,
-                                    long long n_beams, float ox, float oy, float res,
-                                    int width, int height, int max_steps,
-                                    int* __restrict__ passes, int* __restrict__ hits) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_beams) return;
-  const uint8_t f = flag[b];
-  if (!(f & kValid)) return;
-  const float4 q = seg[b];
-  const float dx = __fsub_rn(q.z, q.x);
-  const float dy = __fsub_rn(q.w, q.y);
-  const float adx = __fdiv_rn(fabsf(dx), res);
-  const float ady = __fdiv_rn(fabsf(dy), res);
-  const int n = (int)fminf(fmaxf(ceilf(fmaxf(adx, ady)), 0.0f), (float)max_steps);
-  const float inv = __fdiv_rn(1.0f, fmaxf((float)n, 1.0f));
-  for (int k = 0; k < n; ++k) {
-    const float t = __fmul_rn((float)k, inv);
-    const int cx = cell_of(__fadd_rn(q.x, __fmul_rn(dx, t)), ox, res, width);
-    const int cy = cell_of(__fadd_rn(q.y, __fmul_rn(dy, t)), oy, res, height);
-    if (cx >= 0 && cx < width && cy >= 0 && cy < height)
-      atomicAdd(passes + (size_t)cy * width + cx, 1);
+                                    const uint8_t* __restrict__ flag, long long n_beams,
+                                    float ox, float oy, float res, int width, int height,
+                                    int max_steps, int* __restrict__ passes,
+                                    int* __restrict__ hits, int* __restrict__ cols) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long b = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; b < n_beams;
+       b += warps) {
+    const uint8_t f = flag[b];
+    if (!(f & kValid)) continue;
+    const float4 q = seg[b];
+    const float dx = __fsub_rn(q.z, q.x);
+    const float dy = __fsub_rn(q.w, q.y);
+    const float adx = __fdiv_rn(fabsf(dx), res);
+    const float ady = __fdiv_rn(fabsf(dy), res);
+    const int n = (int)fminf(fmaxf(ceilf(fmaxf(adx, ady)), 0.0f), (float)max_steps);
+    const float inv = __fdiv_rn(1.0f, fmaxf((float)n, 1.0f));
+    const bool along_y = ady > adx;
+    int* const dst = along_y ? cols : passes;
+    // a cell's index in dst
+    auto at = [&](int cx, int cy) { return along_y ? cx * height + cy : cy * width + cx; };
+    const int ex = cell_of(q.z, ox, res, width);
+    const int ey = cell_of(q.w, oy, res, height);
+    const bool end_in = ex >= 0 && ex < width && ey >= 0 && ey < height;
+    for (int k0 = 0; k0 <= n; k0 += 32) {
+      const int k = k0 + lane;
+      int cell = -1;  // past the beam, or outside the grid
+      if (k < n) {
+        const float t = __fmul_rn((float)k, inv);
+        const int cx = cell_of(__fadd_rn(q.x, __fmul_rn(dx, t)), ox, res, width);
+        const int cy = cell_of(__fadd_rn(q.y, __fmul_rn(dy, t)), oy, res, height);
+        if (cx >= 0 && cx < width && cy >= 0 && cy < height) cell = at(cx, cy);
+      } else if (k == n && end_in) {
+        cell = at(ex, ey);  // the endpoint is a visit too
+      }
+      const int prev = __shfl_up_sync(kFull, cell, 1);
+      const bool first = lane == 0 || cell != prev;
+      const unsigned firsts = __ballot_sync(kFull, first);
+      if (first && cell >= 0) {
+        const unsigned later = lane == 31 ? 0u : firsts >> (lane + 1);
+        atomicAdd(dst + cell, later ? __ffs(later) : 32 - lane);
+      }
+      if (k == n && end_in && (f & kHit)) atomicAdd(hits + ey * width + ex, 1);
+    }
   }
-  const int ex = cell_of(q.z, ox, res, width);
-  const int ey = cell_of(q.w, oy, res, height);
-  if (ex >= 0 && ex < width && ey >= 0 && ey < height) {
-    const size_t i = (size_t)ey * width + ex;
-    atomicAdd(passes + i, 1);   // the endpoint is a visit too
-    if (f & kHit) atomicAdd(hits + i, 1);
+}
+
+// passes (height, width) += the transpose of cols (width, height), a 32 x 32
+// tile a block: read along cols' rows, written along passes' rows
+__global__ void render_merge_kernel(const int* __restrict__ cols, int* __restrict__ passes,
+                                    int width, int height) {
+  __shared__ int tile[kTile][kTile + 1];
+  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  for (int r = threadIdx.y; r < kTile; r += blockDim.y) {
+    const int x = x0 + r, y = y0 + threadIdx.x;
+    tile[r][threadIdx.x] = x < width && y < height ? cols[(size_t)x * height + y] : 0;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < kTile; r += blockDim.y) {
+    const int y = y0 + r, x = x0 + threadIdx.x;
+    if (x < width && y < height) passes[(size_t)y * width + x] += tile[threadIdx.x][r];
   }
 }
 
@@ -205,16 +265,26 @@ extern "C" int yag_render_endpoints(const void* table, const void* ranges, int k
 
 extern "C" int yag_render_trace(const void* seg, const void* flag, long long n_beams,
                                 float ox, float oy, float res, int width, int height,
-                                int max_steps, void* counts, void* stream) {
+                                int max_steps, void* counts, void* cols, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t cells = (size_t)width * height;
+  if (cells >= (1ull << 31)) return (int)cudaErrorInvalidValue;  // int cell indices
   cudaError_t err = cudaMemsetAsync(counts, 0, 2 * cells * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   if (n_beams == 0) return 0;
-  const unsigned blocks = (unsigned)((n_beams + kTraceThreads - 1) / kTraceThreads);
+  err = cudaMemsetAsync(cols, 0, cells * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  const long long per_block = kTraceThreads / 32;
+  const unsigned blocks =
+      (unsigned)std::min((n_beams + per_block - 1) / per_block, kTraceMaxBlocks);
   render_trace_kernel<<<blocks, kTraceThreads, 0, st>>>(
       (const float4*)seg, (const uint8_t*)flag, n_beams, ox, oy, res, width, height,
-      max_steps, (int*)counts, (int*)counts + cells);
+      max_steps, (int*)counts, (int*)counts + cells, (int*)cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 tiles((width + kTile - 1) / kTile, (height + kTile - 1) / kTile);
+  render_merge_kernel<<<tiles, dim3(kTile, kMergeRows), 0, st>>>((const int*)cols,
+                                                                  (int*)counts, width, height);
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,8 @@ KERNELS = {
     "render_endpoints": dict(source="yag_slam_tpu_torch/csrc/render.cu",
                              replaces=f"{_JAX}:122", symbols=("render_endpoints_kernel",)),
     "render_counts": dict(source="yag_slam_tpu_torch/csrc/render.cu",
-                          replaces=f"{_JAX}:53", symbols=("render_trace_kernel",)),
+                          replaces=f"{_JAX}:53",
+                          symbols=("render_trace_kernel", "render_merge_kernel")),
     "render_classify": dict(source="yag_slam_tpu_torch/csrc/render.cu",
                             replaces=f"{_JAX}:53", symbols=("render_classify_kernel",)),
 }
@@ -187,21 +188,27 @@ def beam_counts(seg, flag, ox: float, oy: float, res: float, width: int, height:
     outside the grid count nowhere.
 
     Replaces the JAX package's _render_counts' (beams, steps) arrays and
-    their scatter-adds: one thread a beam walks its steps and adds each
-    into the int32 counts with atomicAdd, exact in any order
-    (csrc/render.cu).
+    their scatter-adds: a warp a beam, its lanes over the beam's steps,
+    each run of lanes on one cell adding its length into the int32 counts
+    with one atomicAdd (exact in any order); a beam longer in y than in x
+    counts its passes into a column-major scratch, added into the passes
+    by a second kernel, so that a warp's adds fall on consecutive
+    addresses either way (csrc/render.cu).
     """
     if not _on_cuda(seg, flag):
         return beam_counts_ref(seg, flag, ox, oy, res, width, height, max_steps)
     B = seg.shape[0]
     _require(seg, torch.float32, (B, 4), "seg")
     _require(flag, torch.uint8, (B,), "flag")
-    counts = torch.empty((2, height, width), dtype=torch.int32, device=seg.device)
+    # the counts, and behind them in the same allocation the column-major
+    # scratch of the beams longer in y
+    buf = torch.empty((3, height, width), dtype=torch.int32, device=seg.device)
+    counts = buf[:2]
     if counts.numel() == 0:
         return counts
     err = _build.library().yag_render_trace(
         seg.data_ptr(), flag.data_ptr(), B, ox, oy, res, width, height, max_steps,
-        counts.data_ptr(), _stream(seg))
+        counts.data_ptr(), buf[2].data_ptr(), _stream(seg))
     LAUNCHES["render_counts"] += 1
     _check(err, "render_counts")
     return counts

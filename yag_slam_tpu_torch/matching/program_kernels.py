@@ -66,8 +66,15 @@ KERNELS = {
 # padded query lanes sit this far away (metres), as in the matcher
 FAR = 1.0e9
 
-# threads of a score_reduce block: one block a job
-REDUCE_THREADS = 1024
+# score_reduce: threads a block at most, the shared memory of a block at
+# most (an H100's 227 KB), the blocks a job may span (a cluster,
+# csrc/match_program.cu)
+REDUCE_MAX_THREADS = 1024
+REDUCE_MAX_SMEM = 232448
+REDUCE_CLUSTERS = (1, 2, 4, 8)
+# the fewest candidates at which a job takes a cluster of that many blocks
+# (measured on an H100 with tools/score_reduce_shapes.py: PERF.md)
+REDUCE_CLUSTER_AT = {8: 16000}
 
 
 class PassLattice(NamedTuple):
@@ -92,6 +99,59 @@ class PassLattice(NamedTuple):
     def make(cls, spec, xy_size, xy_res, ang_size, ang_res, grid_res):
         return cls(*spec, xy_size, xy_res, ang_size, ang_res,
                    C.lattice_stride(xy_res, grid_res))
+
+
+class ReduceShape(NamedTuple):
+    """How score_reduce lays a job out on the card: a cluster of `cluster`
+    blocks of `threads` threads; job thread g owns the lattice columns (i,
+    j) at j * nx + i = g, g + job_threads, ... (`cols` at most) and all
+    their angles; the responses stay in the blocks' shared memory where
+    `in_shared`, else in scratch rows in device memory."""
+
+    threads: int
+    cluster: int
+    cols: int
+    in_shared: bool
+
+    @property
+    def job_threads(self):
+        return self.threads * self.cluster
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _reduce_header_bytes(warps, es):
+    # ReduceShared<T>: per warp slot the float64 tie (4) and moment (6)
+    # partials, the argmax's value and index; 8-byte aligned
+    return (warps * (10 * 8 + es + 4) + 7) // 8 * 8
+
+
+def reduce_shape(lat: PassLattice, dtype) -> ReduceShape:
+    """score_reduce's launch shape for a pass's lattice and float dtype:
+    a cluster of c blocks where the lattice has REDUCE_CLUSTER_AT[c]
+    candidates or more, else one block; a thread a lattice column, at most
+    1024 a block (then several columns a thread), in multiples of 32; more
+    blocks where the responses do not fit one block's shared memory, and
+    scratch rows where they do not fit eight."""
+    es = torch.finfo(dtype).bits // 8
+    nxy = lat.nx * lat.ny
+    first = max(c for c in REDUCE_CLUSTERS
+                if c == 1 or nxy * lat.nt >= REDUCE_CLUSTER_AT.get(c, 1 << 62))
+
+    def layout(c):
+        # (threads a block, columns a thread) for a cluster of c blocks
+        cols = _ceil(nxy, REDUCE_MAX_THREADS * c)
+        return 32 * _ceil(_ceil(nxy, cols), 32 * c), cols
+
+    for c in REDUCE_CLUSTERS[REDUCE_CLUSTERS.index(first):]:
+        threads, cols = layout(c)
+        if (_reduce_header_bytes(c * threads // 32, es) + cols * lat.nt * threads * es
+                <= REDUCE_MAX_SMEM):
+            return ReduceShape(threads, c, cols, True)
+    threads, cols = layout(first)
+    return ReduceShape(threads, first, cols, False)
 
 
 def reset_launches():
@@ -273,6 +333,15 @@ def lattice_cells(qlx, qly, n_q, center, job_center, sub, lat: PassLattice, *,
 # Scores, the best pose and its moments
 # ---------------------------------------------------------------------------
 
+def reduce_params(lat: PassLattice, G: int, res: float, karto=None):
+    """score_reduce's float64 parameters: the lattice, the full grid's
+    origin offset and half extent, the reference penalty's variances times
+    the grid's resolution (correlation.lattice_scores' defaults 0.5 and
+    1.0, as the twin uses them) and OpenKarto's four where given."""
+    return _doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res, _origin_offset(G, res),
+                    G * res / 2.0, 0.5 * res, 1.0 * res, *(karto or (0.0,) * 4))
+
+
 def score_reduce_ref(raw, n_q, center, job_center, packed, row: int, lat: PassLattice, *,
                      G: int, res: float, penalize: bool, karto=None,
                      copy_fine: bool = False, stats=None):
@@ -323,12 +392,13 @@ def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattic
 
     Replaces the tail of the JAX package's score_lattice_patch_batched, its
     _lattice_penalty, and the vmapped reduce_best_pose of _make_core.  On
-    the card one block of REDUCE_THREADS threads per job reads the sums
-    three times (the argmax, the ties, the windows) and recomputes each
-    response; the (N, NX, NY, NT) responses never reach memory
-    (csrc/match_program.cu).  Its float64 sums run in the block's order,
-    not torch's: in float32 the pose and moments may come back an ulp
-    apart from the twin's.
+    the card a job is a cluster of blocks shaped by :func:`reduce_shape`:
+    each response is computed once into shared memory (the (N, NX, NY,
+    NT) responses never reach device memory unless they do not fit there),
+    then three warp-shuffle reductions, one barrier each
+    (csrc/match_program.cu).  Its float64 sums run in the job's fixed
+    order, not torch's: in float32 the pose and moments may come back an
+    ulp apart from the twin's.
     """
     if not _on_cuda(raw, n_q, center, job_center, packed):
         return score_reduce_ref(raw, n_q, center, job_center, packed, row, lat, G=G,
@@ -348,21 +418,16 @@ def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattic
         raise ValueError(f"row must be 0 or 1, got {row}")
     if N == 0:
         return packed
-    if not penalize:
-        mode, kv = 0, (0.0, 0.0, 0.0, 0.0)
-    elif karto is None:
-        mode, kv = 1, (0.0, 0.0, 0.0, 0.0)
-    else:
-        mode, kv = 2, tuple(karto)
-    # the reference penalty's variances times the grid's resolution, at
-    # correlation.lattice_scores' defaults (0.5 and 1.0), as the twin uses them
-    params = _doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res,
-                      _origin_offset(G, res), G * res / 2.0, 0.5 * res, 1.0 * res, *kv)
+    mode = 0 if not penalize else (1 if karto is None else 2)
+    shape = reduce_shape(lat, dt)
+    scratch = None if shape.in_shared else torch.empty(
+        (N, shape.cluster, shape.cols * lat.nt * shape.threads), dtype=dt, device=raw.device)
     err = _build.library().yag_score_reduce(
         raw.data_ptr(), n_q.data_ptr(), center.data_ptr(), center.stride(0),
         job_center.data_ptr(), packed.data_ptr(), None if stats is None else stats.data_ptr(),
-        row, int(copy_fine), N, lat.nx, lat.ny,
-        lat.nt, mode, params, is_double, _stream(raw))
+        None if scratch is None else scratch.data_ptr(), row, int(copy_fine), N, lat.nx,
+        lat.ny, lat.nt, shape.threads, shape.cluster, shape.cols, mode,
+        reduce_params(lat, G, res, karto), is_double, _stream(raw))
     K._count("score_reduce")
     _check(err, "score_reduce")
     return packed
