@@ -27,11 +27,12 @@ Phases, one line each; any failure raises (non-zero exit):
      its pose and moments within one ulp in float32 (rows apart counted)
      and 1e-12 relative in float64; the whole _compute equal to the
      kernels run in turn; each timed as wrapper, bare kernel and twin
-     beside its bound, score_reduce's launch shape and the parent's time
-     (PARENT_MS) printed beside it; score_reduce also on lattices the main
-     path does not give it (reduce_cases: a wide one on a cluster of
-     blocks, one past eight blocks' shared memory, ties at +0 / -0, NaN
-     and inf responses), each held to its twin the same way; the kernels'
+     beside its bound, score_reduce's launch shape and its first
+     draft's time (FIRST_DRAFT_MS) printed beside it; score_reduce also
+     on lattices the main path does not give it (reduce_cases: a wide one
+     on a cluster of blocks, one past eight blocks' shared memory, ties
+     at +0 / -0, NaN and inf responses), each held to its twin the same
+     way, its largest difference from the twin measured; the kernels'
      cos / sin bit-equal to torch.cos / torch.sin on the card over every
      angle met and a sweep of 2^20 (--kernels-only stops here);
  4a. the host ops (native/hostops.cpp, built into one library with the
@@ -68,7 +69,7 @@ Phases, one line each; any failure raises (non-zero exit):
      whole render's), timed as wrapper, bare kernel, plain version and
      the whole render (host wall to the image on the host) beside each
      stage's bound; the same over the map cell's two-lap tour at its
-     odometry poses (k = 5, 416, 833; render_counts beside the parent's
+     odometry poses (k = 5, 416, 833; render_counts beside its first draft's
      time); the trace on its own cases (TRACE_CASES: beams from one cell,
      of 0 and 1 steps, clipped at max_steps, long and short within a
      warp) bit-equal to its plain version; then round-trip a checkpoint
@@ -275,11 +276,12 @@ MAP_GRID_PATHS = ("localize",)
 PROGRAM_SEQ_QUERY = 120
 PROGRAM_LOOP_QUERIES = (150, 200, 250, 300)
 PROGRAM_X64_JOBS = 61
-# the earlier designs' bare-launch times as PERF.md section 6 records them
-# (NVIDIA H100 80GB HBM3, 700.00 W): score_reduce at one 1024-thread block
-# a job, the trace at one thread a beam (the map cell's tour at k = 833;
-# phase 5 at k = 408), printed beside this run's
-PARENT_MS = {
+# the bare-launch times of the designs these kernels replaced, as PERF.md
+# section 6 records them (NVIDIA H100 80GB HBM3, 700.00 W): score_reduce
+# at one 1024-thread block a job, the trace at one thread a beam (the map
+# cell's tour at k = 833, phase 5 at k = 408); fixed figures of those
+# first drafts, printed beside this run's
+FIRST_DRAFT_MS = {
     "score_reduce": {"seq_coarse": 0.0236, "seq_fine": 0.0135, "loop_coarse": 0.0387,
                      "x64_coarse": 0.0266},
     "render_counts": {"k=833": 0.1500, "k=408": 0.0921},
@@ -846,7 +848,7 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         PK.score_reduce(raw, n_q, center, jc, packed, r, lat, stats=stats, **rkw)
         PK.score_reduce_ref(raw_plain, n_q, center, jc, plain, r, lat, stats=stats_ref, **rkw)
         a, b = packed[:, r], plain[:, r]
-        ulps, rel, fin = hold_reduce(f"score_reduce {pname}", a, b, stats, stats_ref)
+        ulps, rel, err = hold_reduce(f"score_reduce {pname}", a, b, stats, stats_ref)
         cells_n = N * lat.nt * lat.ny * lat.nx
         ties = int(stats[:, 3].sum())
         win = sum(max(0, min(n - 1, int(c) + 6) - max(0, int(c) - 5))
@@ -854,9 +856,9 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         # per candidate: the division, the / 100 and, penalized, the
         # penalty's 24 operations and its product; per tie four float64 sums;
         # per window cell its moments (about 12)
-        row = dict(case=pname, **lshape, reduce_shape=PK.reduce_shape(lat, dt)._asdict(),
-                   max_abs_err=float(torch.where(
-                       fin, (a - b).abs(), 0.0).max()), max_ulps=int(ulps.max()),
+        rs = reduce_shape(PK, lat, dt, N, dev)
+        row = dict(case=pname, **lshape, reduce_shape=rs and rs._asdict(),
+                   max_abs_err=err, max_ulps=int(ulps.max()),
                    rows_apart=int((ulps > 0).any(dim=1).sum()), rows=N,
                    max_rel=float(rel.max()), ties=stats[:, 3].tolist(),
                    argmax=stats[:, :3].tolist(), library=PROGRAM_NO_LIBRARY["score_reduce"],
@@ -866,7 +868,6 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
             sparams = PK.reduce_params(lat, G, res, karto)
             spre = torch.empty_like(packed)
             mode = 0 if not penalty else (1 if karto is None else 2)
-            rs = PK.reduce_shape(lat, dt)
             if not rs.in_shared:
                 raise AssertionError(f"score_reduce {pname}: a main-path lattice in scratch")
             timings(row, lambda: PK.score_reduce(raw, n_q, center, jc, spre, r, lat, **rkw),
@@ -888,11 +889,19 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
     return out, trig
 
 
+def reduce_shape(PK, lat, dt, N, dev):
+    """score_reduce's launch shape for N jobs on the card `dev`; None on
+    the CPU, where the twin runs."""
+    dev = torch.device(dev)
+    return PK.reduce_shape(lat, dt, N, PK._sm_count(dev.index)) if dev.type == "cuda" else None
+
+
 def hold_reduce(what, a, b, stats, stats_ref):
     """score_reduce's rows `a` against its twin's `b`: argmax, tie count
     and response bit-equal, NaN in the same places, the rest within one
     ulp in float32 or 1e-12 relative in float64.  Raises at the first
-    difference; returns (ulps, relative gaps, where a is not NaN)."""
+    difference; returns (ulps, relative gaps, the largest absolute
+    difference: 0 where the bits agree or both are NaN)."""
     if not torch.equal(stats, stats_ref):
         raise AssertionError(f"{what}: argmax / ties {stats.tolist()} vs {stats_ref.tolist()}")
     if not torch.equal(bits(a[:, 0]), bits(b[:, 0])):
@@ -907,7 +916,8 @@ def hold_reduce(what, a, b, stats, stats_ref):
             raise AssertionError(f"{what}: float64 rel {float(rel.max())}")
     elif int(ulps.max()) > 1:
         raise AssertionError(f"{what}: {int(ulps.max())} ulps apart")
-    return ulps, rel, fin
+    same = (bits(a) == bits(b)) | (a.isnan() & b.isnan())
+    return ulps, rel, float(torch.where(same, 0.0, (a - b).abs()).max())
 
 
 def reduce_cases(dev):
@@ -948,10 +958,10 @@ def reduce_cases(dev):
                    copy_fine=True, stats=stats)
                 out.append((packed[:, 0], stats))
             (a, sa), (b, sb) = out
-            ulps, rel, _ = hold_reduce(f"score_reduce {name} {dt}", a, b, sa, sb)
-            rs = PK.reduce_shape(lat, dt)
+            ulps, rel, err = hold_reduce(f"score_reduce {name} {dt}", a, b, sa, sb)
+            rs = reduce_shape(PK, lat, dt, N, dev)
             rows.append(dict(case=f"{name}_{str(dt)[6:]}", lattice=[lat.nx, lat.ny, lat.nt],
-                             reduce_shape=rs._asdict(), max_abs_err=0.0,
+                             reduce_shape=rs and rs._asdict(), max_abs_err=err,
                              max_ulps=int(ulps.max()), max_rel=float(rel.max()),
                              response=a[:, 0].tolist(), ties=sa[:, 3].tolist()))
     return rows
@@ -976,18 +986,14 @@ def zero_lattice(m, dev, penalty, karto):
            penalize=penalty, karto=karto, copy_fine=True, stats=stats)
         outs.append((packed, stats))
     (a, sa), (b, sb) = outs
-    ulps = float_ulps(a, b)
-    fin = ~a.isnan()
-    rel = float(torch.where(fin, (a - b).abs() / b.abs().clamp_min(1e-300), 0.0).max())
-    close = rel <= 1e-12 if m.dtype == torch.float64 else int(ulps.max()) <= 1
-    if not (torch.equal(sa, sb) and torch.equal(bits(a[..., 0]), bits(b[..., 0]))
-            and torch.equal(a.isnan(), b.isnan()) and close
-            and int(sa[:, 3].min()) == lat.nx * lat.ny * lat.nt):
-        raise AssertionError(f"zero lattice (penalty {penalty}, karto {karto}): "
-                             f"{a.tolist()} vs {b.tolist()}, {sa.tolist()} vs {sb.tolist()}")
+    what = f"zero lattice (penalty {penalty}, karto {karto})"
+    # both rows of each job (the coarse one copied into the fine slot)
+    ulps, rel, err = hold_reduce(what, a.reshape(-1, 8), b.reshape(-1, 8), sa, sb)
+    if int(sa[:, 3].min()) != lat.nx * lat.ny * lat.nt:
+        raise AssertionError(f"{what}: ties {sa[:, 3].tolist()}, not every candidate")
     return dict(case=f"zero_{'karto' if karto else ('ref' if penalty else 'none')}",
-                dtype=str(m.dtype), max_ulps=int(ulps.max()), max_rel=rel,
-                response=a[:, 0, 0].tolist(),
+                dtype=str(m.dtype), max_abs_err=err, max_ulps=int(ulps.max()),
+                max_rel=float(rel.max()), response=a[:, 0, 0].tolist(),
                 nan_moments=int(a[:, 0, 4:].isnan().sum()))
 
 
@@ -1038,10 +1044,10 @@ def check_program(dev):
             for r in rows[k]:
                 extra = (f", rows apart by an ulp {r['rows_apart']} of {r['rows']}"
                          if "rows_apart" in r else "")
-                if "reduce_shape" in r:
+                if r.get("reduce_shape"):
                     extra += f"; shape {tuple(r['reduce_shape'].values())}"
-                parent = PARENT_MS.get(k, {}).get(r["case"])
-                was = f" (parent {parent:.4f} ms, PERF.md)" if parent else ""
+                was = FIRST_DRAFT_MS.get(k, {}).get(r["case"])
+                was = f" (first draft {was:.4f} ms, PERF.md)" if was else ""
                 log(f"phase 3b: {k} {r['case']}: err {r['max_abs_err']}{extra}; wrapper "
                     f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms{was}, plain "
                     f"{r['plain_ms']:.4f} ms; bound {1e3 * r['bound_ms']:.3f} us by "
@@ -1050,7 +1056,7 @@ def check_program(dev):
                               (cases[4][1], True, cases[4][1].config.karto_penalty_tuple()),
                               (cases[3][1], True, None)):
         z = zero_lattice(m, dev, penalty, karto)
-        results["score_reduce"].append(dict(z, max_abs_err=0.0))
+        results["score_reduce"].append(z)
         log(f"phase 3b: score_reduce on an all-zero lattice {z}")
     for z in reduce_cases(dev):
         results["score_reduce"].append(z)
@@ -1607,11 +1613,11 @@ def render_phase(slam, dev, gpu):
 
         whole()
         wall[k] = statistics.median(whole() for _ in range(RENDER_TIMED))
-        parent = PARENT_MS["render_counts"].get(f"k={k}")
+        was = FIRST_DRAFT_MS["render_counts"].get(f"k={k}")
         log(f"phase 5: render k = {k} ({B} beams, {valid} valid, {steps} steps, grid "
             f"{W}x{H}): each stage bit-equal to its plain version; "
-            + (f"render_counts kernel {cases['render_counts'][-1]['kernel_ms']:.4f} ms, parent "
-               f"{parent:.4f} ms (PERF.md); " if parent else "")
+            + (f"render_counts kernel {cases['render_counts'][-1]['kernel_ms']:.4f} ms, first "
+               f"draft {was:.4f} ms (PERF.md); " if was else "")
             + "ms kernel / wrapper / plain / bound: " + "; ".join(
                 f"{name} {c[-1]['kernel_ms']:.4f} / {c[-1]['ms']:.4f} / "
                 f"{c[-1]['plain_ms']:.4f} / {c[-1]['bound_ms']:.5f}"

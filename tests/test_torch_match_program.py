@@ -52,6 +52,8 @@ LATTICES = {
     "tour_coarse": PK.PassLattice(25, 25, 10, 0.25, 0.02, 0.1745, 0.0349, 2),
     "loop_coarse": PK.PassLattice(40, 40, 10, 2.0, 0.1, 0.1745, 0.0349, 2),
 }
+# an H100's SMs: the card the launch shapes are chosen on
+SMS = 132
 WORLD_KEYS = ("lx", "ly", "anchor", "term", "has_run", "mask", "pose", "center", "vp", "sub")
 
 
@@ -370,9 +372,9 @@ def _emulate_score_reduce(raw, n_q, center, job, lat, penalize, karto, dtype, cu
     def sdiv(a, c):
         return a * (T(1) / T(c)) if cuda_div else a / T(c)
 
-    shape = PK.reduce_shape(lat, dtype)
-    TT = shape.job_threads
     N = raw.shape[0]
+    shape = PK.reduce_shape(lat, dtype, N, SMS)
+    TT = shape.job_threads
     rows = np.empty((N, 8), T)
     stats = np.empty((N, 4), np.int64)
     values = np.empty(raw.shape, T)
@@ -500,12 +502,17 @@ def test_score_reduce_kernel_steps_emulated(kind, lattice, penalty, dtype):
 def test_score_reduce_shape_follows_the_pass(lattice, dtype):
     """A thread a lattice column where a block can have one each, in
     multiples of 32 threads, at most 1024 a block; the job's threads cover
-    every column; its responses fit its blocks' shared memory."""
+    every column; its responses fit its blocks' shared memory; one block or
+    a cluster of eight, whatever the batch."""
     lat = LATTICES[lattice]
-    shape = PK.reduce_shape(lat, dtype)
+    for jobs in (1, 4, 17, 64):
+        _check_shape(lat, dtype, PK.reduce_shape(lat, dtype, jobs, SMS))
+
+
+def _check_shape(lat, dtype, shape):
     nxy = lat.nx * lat.ny
     es = 8 if dtype == torch.float64 else 4
-    assert shape.threads % 32 == 0 and shape.cluster in PK.REDUCE_CLUSTERS
+    assert shape.threads % 32 == 0 and shape.cluster in (1, PK.REDUCE_CLUSTER)
     assert shape.threads <= PK.REDUCE_MAX_THREADS
     assert shape.cols == -(-nxy // (PK.REDUCE_MAX_THREADS * shape.cluster))
     assert nxy <= shape.job_threads * shape.cols < nxy + 32 * shape.cluster * shape.cols
@@ -515,45 +522,82 @@ def test_score_reduce_shape_follows_the_pass(lattice, dtype):
 
 
 def test_score_reduce_shape_spreads_what_one_block_cannot_hold():
-    """The tour's fine pass takes one warp, its coarse pass one block, the
-    loop's coarse pass a cluster of eight (REDUCE_CLUSTER_AT); responses
-    past one block's shared memory go to more blocks, and past eight
-    blocks' to scratch rows."""
+    """The tour's fine pass takes one warp, its coarse pass one block
+    (6,250 candidates, below REDUCE_CLUSTER_AT), the loop's coarse pass a
+    cluster of eight while the batch's blocks come to at most three a SM,
+    else one block of two columns a thread; responses past one block's
+    shared memory take a cluster whatever the batch, and past eight
+    blocks' scratch rows."""
     f32, f64 = torch.float32, torch.float64
-    assert PK.reduce_shape(LATTICES["tour_fine"], f32) == (32, 1, 1, True)
-    assert PK.reduce_shape(LATTICES["tour_coarse"], f64) == (640, 1, 1, True)
-    assert PK.reduce_shape(LATTICES["loop_coarse"], f32) == (224, 8, 1, True)
+    assert PK.reduce_shape(LATTICES["tour_fine"], f32, 1, SMS) == (32, 1, 1, True)
+    assert PK.reduce_shape(LATTICES["tour_coarse"], f32, 1, SMS) == (640, 1, 1, True)
+    assert PK.reduce_shape(LATTICES["tour_coarse"], f64, 64, SMS) == (640, 1, 1, True)
+    assert PK.reduce_shape(LATTICES["loop_coarse"], f32, 4, SMS) == (224, 8, 1, True)
+    assert PK.reduce_shape(LATTICES["loop_coarse"], f32, 49, SMS) == (224, 8, 1, True)
+    assert PK.reduce_shape(LATTICES["loop_coarse"], f32, 50, SMS) == (800, 1, 2, True)
+    assert PK.reduce_shape(LATTICES["loop_coarse"], f32, 50, 144) == (224, 8, 1, True)
     big = PK.PassLattice(32, 32, 40, 0.5, 0.02, 0.1, 0.005, 1)     # 320 KB in float64
     huge = PK.PassLattice(64, 64, 400, 0.5, 0.02, 0.1, 0.005, 1)   # 13 MB in float64
     wide = PK.PassLattice(40, 40, 100, 0.5, 0.02, 0.1, 0.005, 1)   # 1.3 MB in float64
-    assert PK.reduce_shape(big, f64) == (128, 8, 1, True)
-    assert PK.reduce_shape(huge, f64) == (512, 8, 1, False)
-    assert PK.reduce_shape(wide, f64) == (224, 8, 1, True)
+    assert PK.reduce_shape(big, f64, 1, SMS) == (128, 8, 1, True)
+    assert PK.reduce_shape(big, f64, 64, SMS) == (128, 8, 1, True)
+    assert PK.reduce_shape(big, f32, 64, SMS) == (1024, 1, 1, True)
+    assert PK.reduce_shape(huge, f64, 1, SMS) == (512, 8, 1, False)
+    assert PK.reduce_shape(wide, f64, 64, SMS) == (224, 8, 1, True)
     assert PK._reduce_header_bytes(5, 8) % 8 == 0
     few = PK.PassLattice(20, 20, 30, 0.5, 0.02, 0.1, 0.005, 1)     # 96 KB in float64
-    assert PK.reduce_shape(few, f64) == (416, 1, 1, True)
+    assert PK.reduce_shape(few, f64, 1, SMS) == (64, 8, 1, True)
+    assert PK.reduce_shape(few, f64, 64, SMS) == (416, 1, 1, True)
+    for lat in (big, huge, wide, few):
+        for dt in (f32, f64):
+            for jobs in (1, 64):
+                shape = PK.reduce_shape(lat, dt, jobs, SMS)
+                if shape.in_shared:
+                    _check_shape(lat, dt, shape)
 
 
-@pytest.mark.parametrize("cluster", [2, 8])
-@pytest.mark.parametrize("kind", ["random", "edges"])
-def test_score_reduce_kernel_steps_emulated_on_a_cluster(monkeypatch, kind, cluster):
-    """With the job spread over a cluster of blocks (more than 32 warps:
-    lane l of the last reduction adds warps l, l + 32, ...), the emulated
-    kernel still equals the twin: response, argmax and tie count
-    bit-equal, the rest within an ulp in float32."""
-    monkeypatch.setattr(PK, "REDUCE_CLUSTER_AT", {cluster: 0})
-    lat = LATTICES["loop_coarse"]
-    shape = PK.reduce_shape(lat, torch.float32)
-    assert shape.cluster == cluster and shape.job_threads > 1024 and shape.cols == 1
-    raw, n_q = _raw_case(kind, lat, 12)
-    center, job = _centers(13, raw.shape[0])
-    rows, stats, _ = _emulate_score_reduce(raw, n_q, center, job, lat, True, None,
-                                           torch.float32, cuda_div=False)
-    got, want_stats = _ref_reduce(raw, n_q, center, job, lat, True, None, torch.float32)
+def _emulated_equals_the_twin(raw, n_q, lat, seed, dtype):
+    center, job = _centers(seed, raw.shape[0])
+    rows, stats, _ = _emulate_score_reduce(raw, n_q, center, job, lat, True, None, dtype,
+                                           cuda_div=False)
+    got, want_stats = _ref_reduce(raw, n_q, center, job, lat, True, None, dtype)
     got = got.numpy()
     np.testing.assert_array_equal(stats, want_stats.numpy())
-    np.testing.assert_array_equal(rows[:, 0].view(np.int32), got[:, 0].view(np.int32))
-    assert _ulps(rows, got).max() <= 1
+    np.testing.assert_array_equal(rows[:, 0].view(got.dtype), got[:, 0])
+    if dtype == torch.float32:
+        assert _ulps(rows, got).max() <= 1
+    else:
+        _close(rows, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["random", "edges"])
+def test_score_reduce_kernel_steps_emulated_on_a_cluster(kind, dtype):
+    """With the job spread over a cluster of eight blocks (more than 32
+    warps: lane l of the last reduction adds warps l, l + 32, ...), the
+    emulated kernel still equals the twin: response, argmax and tie count
+    bit-equal, the rest within an ulp in float32 and 1e-12 relative in
+    float64."""
+    lat = LATTICES["loop_coarse"]
+    raw, n_q = _raw_case(kind, lat, 12)
+    shape = PK.reduce_shape(lat, dtype, raw.shape[0], SMS)
+    assert shape.cluster == 8 and shape.job_threads > 1024 and shape.cols == 1
+    _emulated_equals_the_twin(raw, n_q, lat, 13, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_score_reduce_kernel_steps_emulated_past_the_sms(dtype):
+    """A loop coarse batch of 50 jobs, whose clusters of eight would come to
+    more than three blocks a SM: one block a job, each thread two lattice
+    columns (its terms of both in turn); the emulated kernel equals the
+    twin."""
+    lat = LATTICES["loop_coarse"]
+    rng = np.random.default_rng(14)
+    raw = rng.integers(0, 6000, (50, lat.nt, lat.ny, lat.nx)).astype(np.int32)
+    n_q = rng.integers(40, 64, 50).astype(np.int32)
+    shape = PK.reduce_shape(lat, dtype, 50, SMS)
+    assert shape.cluster == 1 and shape.cols == 2
+    _emulated_equals_the_twin(raw, n_q, lat, 15, dtype)
 
 
 # -- _compute against the composition it replaced ------------------------------------------
@@ -647,6 +691,7 @@ def fake_card(monkeypatch):
     if it runs."""
     monkeypatch.setattr(PK, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(PK, "_stream", lambda t: 0)
+    monkeypatch.setattr(PK, "_sm_count", lambda index: SMS)
     for name in ("world_cells_ref", "lattice_cells_ref", "score_reduce_ref"):
         monkeypatch.setattr(PK, name, lambda *a, **k: pytest.fail("a plain twin ran"))
 

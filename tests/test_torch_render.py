@@ -382,28 +382,20 @@ def test_render_kernels_are_in_the_library_build():
         assert all(f"__global__ void {s}(" in src for s in info["symbols"])
 
 
-def test_render_kernels_tool_builds_its_variant_from_the_kernel_source():
-    """tools/render_kernels.py's stores variant is its probe (the trace's
-    one-thread-a-beam design, which the package's warp-a-beam kernel
-    replaced) with every atomic a plain store and the entry point
-    renamed."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "render_kernels", os.path.join(REPO, "tools", "render_kernels.py"))
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
-    src = open(tool.PROBE).read()
-    out = tool.variant_source(src)
-    assert "atomicAdd(" in src and "atomicAdd(" not in out
-    assert 'extern "C" int yag_probe_trace_stores(' in out
-    assert out.replace(tool.STEP_STORE, tool.STEP_ATOMIC).replace(
-        tool.END_STORES, tool.END_ATOMICS).replace(
-        "yag_probe_trace_stores(", "yag_probe_trace(") == src
-    with pytest.raises(RuntimeError, match="step atomic"):
-        tool.variant_source(src.replace("atomicAdd(passes + (size_t)cy", "atomicAdd(passes + cy"))
-    kernel = (_build.CSRC_DIR / "render.cu").read_text()
-    assert "__shfl_up_sync" in kernel and "__shfl_up_sync" not in src
+def test_map_cell_tour_renders_on_the_cpu():
+    """chip_smoke.map_cell_tour, which phase 5 and tools/render_kernels.py
+    render on the card: the map cell's tour cut to its first scans, each at
+    its odometry pose, and a stand-in SLAM pass whose vertices are those
+    scans and whose map is their render on the given device."""
+    smoke = _smoke()
+    scans, slam = smoke.map_cell_tour("cpu", 12)
+    assert len(scans) == 12 and [v.obj for v in slam.graph.vertices] == scans
+    assert all((s.corrected_pose.x, s.corrected_pose.y, s.corrected_pose.yaw)
+               == (s.odom_pose.x, s.odom_pose.y, s.odom_pose.yaw) for s in scans)
+    grid = slam.make_occupancy_grid(0.05, 12.0)
+    want = occupancy.create_occupancy_grid(scans, 0.05, 12.0, device="cpu")
+    assert (grid.width, grid.height) == (want.width, want.height) and grid.width > 50
+    np.testing.assert_array_equal(grid.image, want.image)
 
 
 def _smoke():

@@ -8,145 +8,22 @@ The building tour of the map cell (two laps, 833 scans of 180 beams, seed
 the render kernels' launches counted over ``create_occupancy_grid``, the
 waits of a render, every stage bit-equal to its plain version and timed
 (kernel, wrapper, plain, whole render) beside its bound at the prefixes
-k = 5, half and all.  Then, at half and all, the trace of
-``csrc/render.cu`` (a warp a beam) against the one-thread-a-beam design it
-replaced (``tools/render_trace_probe.cu``, built here), which runs as it
-is, with its atomics as plain stores (its counts then wrong: what the
-atomics cost), on the beams sorted by length within each scan (a warp's
-lanes then take about as many steps: what the longest beam costs), sorted
-by length over all scans (a warp's lanes then share no origin either),
-and sorted with stores: counts equal to the plain version's wherever the
-atomics add, device ms by ``device_ms`` in turns.  Needs a CUDA card and
+k = 5, half and all.  To time an earlier tree's kernels the same way, run
+its own copy of this tool in turns with this one.  Needs a CUDA card and
 nvcc.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
-import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
-
-PROBE = os.path.join(ROOT, "tools", "render_trace_probe.cu")
-# the probe's atomics, and the plain stores of its "stores" variant
-STEP_ATOMIC = "      atomicAdd(passes + (size_t)cy * width + cx, 1);"
-STEP_STORE = "      passes[(size_t)cy * width + cx] = k;"
-END_ATOMICS = ("    atomicAdd(passes + i, 1);   // the endpoint is a visit too\n"
-               "    if (f & kHit) atomicAdd(hits + i, 1);")
-END_STORES = ("    passes[i] = n;\n"
-              "    if (f & kHit) hits[i] = 1;")
-
-
-def variant_source(src):
-    """The probe with its atomics as plain stores and its C entry point
-    renamed yag_probe_trace_stores."""
-    if STEP_ATOMIC not in src or END_ATOMICS not in src:
-        raise RuntimeError("the probe's step atomic is not where the variant expects it")
-    return src.replace(STEP_ATOMIC, STEP_STORE).replace(END_ATOMICS, END_STORES).replace(
-        "yag_probe_trace(", "yag_probe_trace_stores(")
-
-
-def probe_library(tmp):
-    """The probe and its stores variant, built with the package's nvcc
-    flags into one library."""
-    from yag_slam_tpu_torch import _build
-
-    with open(PROBE) as f:
-        src = f.read()
-    paths = [os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe_stores.cu")]
-    for path, text in zip(paths, (src, variant_source(src))):
-        with open(path, "w") as f:
-            f.write(text)
-    so = os.path.join(tmp, "libprobe.so")
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, *paths],
-                   check=True)
-    lib = ctypes.CDLL(so)
-    P, L, F, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
-    for name in ("yag_probe_trace", "yag_probe_trace_stores"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, L, F, F, F, I, I, I, P, P]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def beam_orders(table, seg, flag, res, max_steps):
-    """Permutations of the beams by length (steps; invalid beams first):
-    within each scan, and over all scans."""
-    x0, y0, x1, y1 = seg.unbind(1)
-    r = torch.tensor(res, dtype=torch.float32, device=seg.device)
-    n = torch.ceil(torch.maximum((x1 - x0).abs() / r, (y1 - y0).abs() / r)).clamp(0, max_steps)
-    n = torch.where((flag & 1) > 0, n.to(torch.int64), -1)
-    scan = torch.searchsorted(table[:, 7].to(torch.int64),
-                              torch.arange(seg.shape[0], device=seg.device), right=True) - 1
-    return dict(sorted_in_scans=torch.argsort(scan * (max_steps + 2) + n + 1, stable=True),
-                sorted=torch.argsort(n, stable=True))
-
-
-def compare_trace(scans, dev, probe, prefixes):
-    """The trace kernel and the probe's variants on the same beams: counts
-    equal to the plain version's where they add, device ms of each over
-    four rounds, the order turned each round."""
-    from yag_slam_tpu_torch import _build
-    from yag_slam_tpu_torch.mapping import occupancy as O
-    from yag_slam_tpu_torch.mapping import render_kernel as R
-    from yag_slam_tpu_torch.utils.profiling import device_ms
-
-    lib = _build.library()
-    out = []
-    for k in prefixes:
-        table, ranges = O._gather(scans[:k], dev)
-        seg, flag, box = R.beam_endpoints(table, ranges, 12.0)
-        ox, oy, W, H, steps = O._frame(box.tolist(), 0.05, 12.0)
-        f32 = O._f32(ox, oy, 0.05)
-        B = ranges.shape[0]
-        ref = R.beam_counts_ref(seg, flag, *f32, W, H, steps)
-        beams = dict(given=(seg, flag), **{
-            name: (seg[o].contiguous(), flag[o].contiguous())
-            for name, o in beam_orders(table, seg, flag, 0.05, steps).items()})
-        # variant -> (C entry point, its beams, whether its counts add up)
-        variants = {
-            "kernel": (lib.yag_render_trace, "given", True),
-            "one_thread_a_beam": (probe.yag_probe_trace, "given", True),
-            "stores": (probe.yag_probe_trace_stores, "given", False),
-            "sorted_in_scans": (probe.yag_probe_trace, "sorted_in_scans", True),
-            "sorted": (probe.yag_probe_trace, "sorted", True),
-            "sorted_stores": (probe.yag_probe_trace_stores, "sorted", False),
-        }
-        got = {v: torch.empty_like(ref) for v in variants}
-        cols = torch.empty((W, H), dtype=torch.int32, device=dev)
-
-        def launch(v):
-            fn, which, _ = variants[v]
-            s, f = beams[which]
-            scratch = (cols.data_ptr(),) if v == "kernel" else ()
-            err = fn(s.data_ptr(), f.data_ptr(), B, *f32, W, H, steps, got[v].data_ptr(),
-                     *scratch, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"{v}: cudaError {err}")
-
-        names = list(variants)
-        times = {v: [] for v in names}
-        for r in range(4):
-            turn = names[r:] + names[:r]
-            for v in (turn if r % 2 == 0 else turn[::-1]):
-                times[v].append(device_ms(lambda v=v: launch(v), reps=50))
-        torch.cuda.synchronize()
-        equal = {v: torch.equal(got[v], ref) for v, (_, _, adds) in variants.items() if adds}
-        if not all(equal.values()):
-            raise AssertionError(f"k = {k}: trace counts differ from the plain version {equal}")
-        row = dict(k=k, beams=B, grid=[W, H], ms={v: sorted(t) for v, t in times.items()})
-        print(f"trace k = {k} ({B} beams, grid {W}x{H}): counts equal; device ms " + "; ".join(
-            f"{v} {t}" for v, t in row["ms"].items()), flush=True)
-        out.append(row)
-    return out
 
 
 def main(argv=None):
@@ -163,15 +40,12 @@ def main(argv=None):
     gpu = gpu_line()
     scans, slam = chip_smoke.map_cell_tour(dev, args.scans)
     phase = chip_smoke.render_phase(slam, dev, gpu)
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = compare_trace(scans, dev, probe_library(tmp), (len(scans) // 2, len(scans)))
-    result = dict(gpu=gpu, scans=len(scans), render=phase, trace_variants=trace)
+    result = dict(gpu=gpu, scans=len(scans), render=phase)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(gpu)
-    print(json.dumps(dict(whole_render_ms=phase["whole_render_ms"], launches=phase["launches"],
-                          trace_variants=trace)))
+    print(json.dumps(dict(whole_render_ms=phase["whole_render_ms"], launches=phase["launches"])))
 
 
 if __name__ == "__main__":

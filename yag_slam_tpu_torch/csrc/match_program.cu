@@ -13,8 +13,8 @@
 //                         first candidate and rounded into its subgrid
 //                         cell, the window sum's (sgy0, sgx0); and per job
 //                         the point count;
-//   score_reduce_kernel   a cluster of blocks per job (one block where that
-//                         is fastest) over the pass's window sums: each
+//   score_reduce_kernel   a block per job, or a cluster of eight where the
+//                         lattice is large, over the pass's window sums: each
 //                         candidate's response (sum / points, times the
 //                         penalty, over 100) computed once into shared
 //                         memory, the first maximum in C order over (x, y,
@@ -47,7 +47,7 @@
 // in shared memory, the reductions are warp shuffles with one barrier
 // each (three a launch), the block is sized to the pass (a thread a
 // lattice column, a multiple of 32 threads, at most 1024 a block) and a
-// large lattice spreads over a cluster of blocks on neighbouring SMs,
+// large lattice spreads over a cluster of eight blocks on neighbouring SMs,
 // which reach each other's responses through distributed shared memory
 // (program_kernels.reduce_shape picks the shape).
 //
@@ -649,13 +649,11 @@ extern "C" int yag_score_reduce(const void* raw, const void* n_q, const void* ce
                       (const T*)center, cstride, (const T*)jc, (T*)packed,               \
                       (long long*)stats, (T*)scratch, row, copy_fine, NX, NY, NT, cols,  \
                       mode, prm)
-#define YAG_REDUCE_C(T)                                            \
-  switch (cluster) {                                               \
-    case 1: err = YAG_REDUCE(T, 1); break;                         \
-    case 2: err = YAG_REDUCE(T, 2); break;                         \
-    case 4: err = YAG_REDUCE(T, 4); break;                         \
-    case 8: err = YAG_REDUCE(T, 8); break;                         \
-    default: return (int)cudaErrorInvalidValue;                    \
+#define YAG_REDUCE_C(T)                         \
+  switch (cluster) {                            \
+    case 1: err = YAG_REDUCE(T, 1); break;      \
+    case 8: err = YAG_REDUCE(T, 8); break;      \
+    default: return (int)cudaErrorInvalidValue; \
   }
   cudaError_t err;
   if (is_double) {

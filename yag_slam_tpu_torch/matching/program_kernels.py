@@ -31,6 +31,7 @@ CUDA graphs count at each replay.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -67,14 +68,17 @@ KERNELS = {
 FAR = 1.0e9
 
 # score_reduce: threads a block at most, the shared memory of a block at
-# most (an H100's 227 KB), the blocks a job may span (a cluster,
-# csrc/match_program.cu)
+# most (an H100's 227 KB); a job takes a cluster of REDUCE_CLUSTER blocks
+# (csrc/match_program.cu) where its lattice has REDUCE_CLUSTER_AT
+# candidates or more and the batch's blocks come to at most
+# REDUCE_BLOCKS_PER_SM a SM, or where one block's shared memory cannot
+# hold its responses (measured on an H100 with
+# tools/score_reduce_shapes.py: PERF.md)
 REDUCE_MAX_THREADS = 1024
 REDUCE_MAX_SMEM = 232448
-REDUCE_CLUSTERS = (1, 2, 4, 8)
-# the fewest candidates at which a job takes a cluster of that many blocks
-# (measured on an H100 with tools/score_reduce_shapes.py: PERF.md)
-REDUCE_CLUSTER_AT = {8: 16000}
+REDUCE_CLUSTER = 8
+REDUCE_CLUSTER_AT = 7000
+REDUCE_BLOCKS_PER_SM = 3
 
 
 class PassLattice(NamedTuple):
@@ -128,30 +132,36 @@ def _reduce_header_bytes(warps, es):
     return (warps * (10 * 8 + es + 4) + 7) // 8 * 8
 
 
-def reduce_shape(lat: PassLattice, dtype) -> ReduceShape:
-    """score_reduce's launch shape for a pass's lattice and float dtype:
-    a cluster of c blocks where the lattice has REDUCE_CLUSTER_AT[c]
-    candidates or more, else one block; a thread a lattice column, at most
-    1024 a block (then several columns a thread), in multiples of 32; more
-    blocks where the responses do not fit one block's shared memory, and
-    scratch rows where they do not fit eight."""
-    es = torch.finfo(dtype).bits // 8
+def _layout(lat: PassLattice, es: int, c: int) -> ReduceShape:
+    # a cluster of c blocks: a thread a lattice column, at most 1024 a
+    # block (then several columns a thread), in multiples of 32
     nxy = lat.nx * lat.ny
-    first = max(c for c in REDUCE_CLUSTERS
-                if c == 1 or nxy * lat.nt >= REDUCE_CLUSTER_AT.get(c, 1 << 62))
+    cols = _ceil(nxy, REDUCE_MAX_THREADS * c)
+    threads = 32 * _ceil(_ceil(nxy, cols), 32 * c)
+    smem = _reduce_header_bytes(c * threads // 32, es) + cols * lat.nt * threads * es
+    return ReduceShape(threads, c, cols, smem <= REDUCE_MAX_SMEM)
 
-    def layout(c):
-        # (threads a block, columns a thread) for a cluster of c blocks
-        cols = _ceil(nxy, REDUCE_MAX_THREADS * c)
-        return 32 * _ceil(_ceil(nxy, cols), 32 * c), cols
 
-    for c in REDUCE_CLUSTERS[REDUCE_CLUSTERS.index(first):]:
-        threads, cols = layout(c)
-        if (_reduce_header_bytes(c * threads // 32, es) + cols * lat.nt * threads * es
-                <= REDUCE_MAX_SMEM):
-            return ReduceShape(threads, c, cols, True)
-    threads, cols = layout(first)
-    return ReduceShape(threads, first, cols, False)
+def reduce_shape(lat: PassLattice, dtype, n_jobs: int, sms: int) -> ReduceShape:
+    """score_reduce's launch shape for a pass's lattice and float dtype, a
+    batch of `n_jobs` jobs and a card of `sms` SMs: one block a job, or a
+    cluster of REDUCE_CLUSTER blocks where the lattice has
+    REDUCE_CLUSTER_AT candidates or more and the batch's clusters come to
+    at most REDUCE_BLOCKS_PER_SM blocks a SM, or where one block cannot
+    hold the responses; scratch rows in device memory where the cluster
+    cannot hold them either."""
+    es = torch.finfo(dtype).bits // 8
+    one = _layout(lat, es, 1)
+    wide = (lat.nx * lat.ny * lat.nt >= REDUCE_CLUSTER_AT
+            and n_jobs * REDUCE_CLUSTER <= REDUCE_BLOCKS_PER_SM * sms)
+    if one.in_shared and not wide:
+        return one
+    return _layout(lat, es, REDUCE_CLUSTER)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches():
@@ -419,7 +429,7 @@ def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattic
     if N == 0:
         return packed
     mode = 0 if not penalize else (1 if karto is None else 2)
-    shape = reduce_shape(lat, dt)
+    shape = reduce_shape(lat, dt, N, _sm_count(raw.device.index))
     scratch = None if shape.in_shared else torch.empty(
         (N, shape.cluster, shape.cols * lat.nt * shape.threads), dtype=dt, device=raw.device)
     err = _build.library().yag_score_reduce(
