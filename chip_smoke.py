@@ -15,20 +15,26 @@ Phases, one line each; any failure raises (non-zero exit):
      operations at the published peak); both smears also on a grid of tour
      scans; then both smears on {0,1} grids at three densities and
      window_sum at other point counts, bit-equal;
- 3b. the matcher's program kernels (csrc/match_program.cu,
-     matching/program_kernels.py: world_cells, lattice_cells, score_reduce)
-     against their plain twins on the card at the main path's batches, run
-     by real matchers on the building tour's scans at odometry poses: the
-     sequential coarse and fine passes (1 job, 10 base scans), the loop
-     matcher's coarse batch (4 jobs, 40^2 lattice), the benchmark's office
-     batch (61 jobs padded to 64), float64, OpenKarto's penalty, padded
-     rows and an all-zero lattice; world_cells and lattice_cells
-     bit-equal; score_reduce's response, argmax and tie count bit-equal,
+ 3b. the matcher's program kernels (matching/program_kernels.py:
+     world_scatter, the scatter_cells kernel fed by the base points in
+     csrc/grid_build.cu; lattice_window_sum, the window_sum kernel fed by
+     the query points in csrc/window_sum.cu; score_reduce in
+     csrc/match_program.cu) against their plain twins on the card at the
+     main path's batches, run by real matchers on the building tour's
+     scans at odometry poses: the sequential coarse and fine passes (1
+     job, 10 base scans), the loop matcher's coarse batch (4 jobs, 40^2
+     lattice), the benchmark's office batch (61 jobs padded to 64),
+     float64, OpenKarto's penalty, padded rows and an all-zero lattice;
+     world_scatter's grid and limits and lattice_window_sum's sums
+     bit-equal (the bare world_scatter writing over a grid of garbage);
+     score_reduce's response, argmax and tie count bit-equal,
      its pose and moments within one ulp in float32 (rows apart counted)
      and 1e-12 relative in float64; the whole _compute equal to the
      kernels run in turn; each timed as wrapper, bare kernel and twin
-     beside its bound, score_reduce's launch shape and its first
-     draft's time (FIRST_DRAFT_MS) printed beside it; score_reduce also
+     beside its bound, score_reduce's launch shape printed beside it;
+     the fused kernels also on their edge cases (fused_cases: no base
+     slot in use, more base scans than a block stages, points outside the
+     grid, no query point, a count past the lanes); score_reduce also
      on lattices the main path does not give it (reduce_cases: a wide one
      on a cluster of blocks, one past eight blocks' shared memory, ties
      at +0 / -0, NaN and inf responses), each held to its twin the same
@@ -53,9 +59,11 @@ Phases, one line each; any failure raises (non-zero exit):
      native host solve (native.CALLS["spa_lm"] equal to the solves), each
      solve's ms printed; report the graphs' keys,
      eager runs, captures and replays, and record each key's first
-     arguments for phase 15; every path that launches window_sum also
-     launches lattice_cells and score_reduce, every one that launches
-     scatter_cells world_cells (counted from 0 before each path); then hold
+     arguments for phase 15; on every path but the map conversion's each
+     scatter_cells launch is a world_scatter and each window_sum launch a
+     lattice_window_sum, each followed by a score_reduce (counted from 0
+     before each path), and the map conversion keeps its table-fed
+     scatter; then hold
      the tour's first 300 scans against the plain path on the host CPU in
      float32, and its first 50 in float64, pose by pose;
   5. render the occupancy grid: make_occupancy_grid and the tour's
@@ -69,8 +77,7 @@ Phases, one line each; any failure raises (non-zero exit):
      whole render's), timed as wrapper, bare kernel, plain version and
      the whole render (host wall to the image on the host) beside each
      stage's bound; the same over the map cell's two-lap tour at its
-     odometry poses (k = 5, 416, 833; render_counts beside its first draft's
-     time); the trace on its own cases (TRACE_CASES: beams from one cell,
+     odometry poses (k = 5, 416, 833); the trace on its own cases (TRACE_CASES: beams from one cell,
      of 0 and 1 steps, clipped at max_steps, long and short within a
      warp) bit-equal to its plain version; then round-trip a checkpoint
      file and continue 5 scans on the restored instance;
@@ -261,14 +268,18 @@ STREAM_PREFIX = 300          # phase 9 is held to phase 4 after these scans
 SNAPSHOTS = {n for _, n, _, _ in HOST_RUNS} | {STREAM_PREFIX}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the kernels of GraphSlam.process_scan (phase 4), besides the program
-# kernels below; smear_grid runs on the meta, scan-set and localize paths
-# (phases 7 and 8)
+# kernels below (scatter_cells and window_sum count the launches of their
+# kernels fed by points, world_scatter's and lattice_window_sum's, too);
+# smear_grid runs on the meta, scan-set and localize paths (phases 7 and 8)
 SLAM_KERNELS = ("scatter_cells", "smear_quantize", "window_sum")
-# the program kernels, and the kernel each follows on every path
-PROGRAM_AFTER = {"world_cells": "scatter_cells", "lattice_cells": "window_sum",
-                 "score_reduce": "window_sum"}
+# the program kernels, and the kernel each pairs with on every matcher
+# path: each scatter fed by the base points, each window sum fed by the
+# query points and followed by its reduction
+PROGRAM_AFTER = {"world_scatter": "scatter_cells", "lattice_window_sum": "window_sum",
+                 "score_reduce": "lattice_window_sum"}
 PROGRAM_KERNELS = tuple(PROGRAM_AFTER)
-# paths whose scatter_cells builds a saved map's grid, not a matcher's
+# paths whose scatter_cells builds a saved map's grid from its cells, not a
+# matcher's from its points
 MAP_GRID_PATHS = ("localize",)
 # phase 3b: the tour's sequential match (this scan against the 10 before
 # it), the loop matcher's batch (these scans against chains of 10 further
@@ -276,20 +287,14 @@ MAP_GRID_PATHS = ("localize",)
 PROGRAM_SEQ_QUERY = 120
 PROGRAM_LOOP_QUERIES = (150, 200, 250, 300)
 PROGRAM_X64_JOBS = 61
-# the bare-launch times of the designs these kernels replaced, as PERF.md
-# section 6 records them (NVIDIA H100 80GB HBM3, 700.00 W): score_reduce
-# at one 1024-thread block a job, the trace at one thread a beam (the map
-# cell's tour at k = 833, phase 5 at k = 408); fixed figures of those
-# first drafts, printed beside this run's
-FIRST_DRAFT_MS = {
-    "score_reduce": {"seq_coarse": 0.0236, "seq_fine": 0.0135, "loop_coarse": 0.0387,
-                     "x64_coarse": 0.0266},
-    "render_counts": {"k=833": 0.1500, "k=408": 0.0921},
-}
+# fused_cases: base scans of a job, past the 128 whose poses a block of the
+# fused scatter stages in shared memory
+FUSED_MANY_BASES = 200
 PROGRAM_NO_LIBRARY = {
-    "world_cells": "none: no single PyTorch call takes points to world, tests runs and "
-                   "rounds cells",
-    "lattice_cells": "none: no single PyTorch call turns and rounds the lattice's points",
+    "world_scatter": "none: no single PyTorch call takes points to world, tests runs, "
+                     "rounds cells and scatters them",
+    "lattice_window_sum": "none: no single PyTorch call turns and rounds the lattice's "
+                          "points and sums the grid's windows at them",
     "score_reduce": "none: no single PyTorch call scores, penalizes and reduces a lattice",
 }
 H0_S, H0_G = 1024, 1100     # the one-tap (h = 0) smear case of phase 3
@@ -738,26 +743,27 @@ def hold_equal(what, got, want):
 
 def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
     """One batch of the matcher's main path through the three program kernels
-    and, beside them, a chain of plain twins only (world_cells_ref, the
-    plain grid build, lattice_cells_ref, window_sum_ref, score_reduce_ref;
-    the fine pass of both centered on the kernels' coarse result).
-    world_cells, lattice_cells, the grid and the window sums bit-equal to
-    the plain chain's; score_reduce's response, argmax and tie count
+    and, beside them, a chain of plain twins only (world_scatter_ref, the
+    plain smear, lattice_window_sum_ref, score_reduce_ref; the fine pass of
+    both centered on the kernels' coarse result).  world_scatter's grid and
+    limits, the smeared grid and lattice_window_sum's sums bit-equal to the
+    plain chain's; score_reduce's response, argmax and tie count
     bit-equal, its pose and moments within one ulp in float32 (rows apart
     counted) or 1e-12 relative in float64; the bare launches' outputs equal
-    to the wrappers'; the whole packed result equal to _compute's.  Raises
-    at the first difference.  Returns ({kernel: [case dicts]}, the angles
-    the kernels took cos and sin of); timed where `timing` (on the card)."""
+    to the wrappers' (the bare world_scatter writes over a grid of
+    garbage); the whole packed result equal to _compute's.  Raises at the
+    first difference.  Returns ({kernel: [case dicts]}, the angles the
+    kernels took cos and sin of); timed where `timing` (on the card)."""
     from yag_slam_tpu_torch import _build
-    from yag_slam_tpu_torch.matching import correlation as C
     from yag_slam_tpu_torch.matching import kernels as K
     from yag_slam_tpu_torch.matching import program_kernels as PK
-    from yag_slam_tpu_torch.utils.profiling import F32_OPS_PER_S, F64_OPS_PER_S
+    from yag_slam_tpu_torch.utils.profiling import F32_OPS_PER_S, F64_OPS_PER_S, window_cells
 
     offset = m.config.coarse_search_angle_offset
     args, _, S = m._prepare(jobs, n_pad=n_pad)
     st = m._stage(args)
     G, h, res = m.grid_size, m._half, m.config.resolution
+    R = S + 2 * h
     karto = m.config.karto_penalty_tuple()
     N, B, P = st["lx"].shape
     dt = st["lx"].dtype
@@ -779,69 +785,77 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
                  karto=karto is not None, padded=0 if n_pad is None else n_pad - len(jobs))
     out = {}
 
-    # world_cells
+    # world_scatter
     w_in = [st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose",
                             "center", "vp", "sub")]
     kw = dict(G=G, S=S, h=h, res=res)
-    got = PK.world_cells(*w_in, **kw)
-    want = PK.world_cells_ref(*w_in, **kw)
-    hold_equal(f"world_cells {name}", got, want)
+    got = PK.world_scatter(*w_in, **kw)
+    want = PK.world_scatter_ref(*w_in, **kw)
+    hold_equal(f"world_scatter {name}", got, want)
     tested = int((st["has_run"] & st["mask"][..., None]).sum())
-    # per point: its world point (8), its two cells (2 x sub, div, round);
-    # per point tested for its run: the anchor's and terminal's world points
-    # (16) and the cross product (7); per base scan: cos and sin
-    row = dict(case=name, **shape, max_abs_err=0, library=PROGRAM_NO_LIBRARY["world_cells"],
+    # read: per lane its point (2 T), anchor, term (8), has_run (1); per
+    # base slot mask (1) and pose (3 T); per job center, viewpoint (5 T) and
+    # subgrid origin (8); written: the grid and the limits.  Per lane its
+    # world point (8 ops), its two cells (2 x sub, div, round, 3 more); per
+    # lane tested for its run the anchor's and terminal's world points (16)
+    # and the cross product (7); per base slot cos and sin
+    row = dict(case=name, **shape, max_abs_err=0, library=PROGRAM_NO_LIBRARY["world_scatter"],
                **bound(N * B * P * (2 * es + 9) + N * B * (1 + 3 * es) + N * (5 * es + 8)
-                       + 8 * N * B * P + 8 * N,
+                       + N * R * R + 8 * N,
                        14 * N * B * P + 23 * tested + 2 * N * B, rate))
     if timing:
-        pre = [torch.empty_like(t) for t in got]
+        pre = [torch.full_like(got[0], 0xAB), torch.full_like(got[1], -7)]
         wparams = PK._doubles(res, PK._origin_offset(G, res))
-        timings(row, lambda: PK.world_cells(*w_in, **kw), lambda: PK.world_cells_ref(*w_in, **kw),
-                lambda: ok(lib.yag_world_cells(*ptrs(w_in), *ptrs(pre), N, B, P, G, S, h,
-                                               wparams, is_double, stream), "world_cells"))
-        hold_equal(f"world_cells {name}, bare launch", pre, want)
-    out["world_cells"] = [row]
-    sy, sx, lim = got
-    q2d, _ = C.grid_from_cells(sy, sx, lim, S=S, h=h, taps=st["taps"])
-    sy, sx, lim = want
-    q2d_plain = K.smear_quantize_ref(K.scatter_cells_ref(sy, sx, S + 2 * h), lim, st["taps"],
-                                     S, h)
-    hold_equal(f"{name}: the grid of world_cells' cells", [q2d], [q2d_plain])
+        timings(row, lambda: PK.world_scatter(*w_in, **kw),
+                lambda: PK.world_scatter_ref(*w_in, **kw),
+                lambda: ok(lib.yag_world_scatter(*ptrs(w_in), *ptrs(pre), N, B, P, G, S, h,
+                                                 wparams, is_double, stream), "world_scatter"))
+        hold_equal(f"world_scatter {name}, bare launch", pre, want)
+    out["world_scatter"] = [row]
+    (occ, lim), (occ_plain, lim_plain) = got, want
+    q2d = K.smear_quantize(occ, lim, st["taps"], S, h)
+    q2d_plain = K.smear_quantize_ref(occ_plain, lim_plain, st["taps"], S, h)
+    hold_equal(f"{name}: the grid of world_scatter's occupancy", [q2d], [q2d_plain])
 
     packed = torch.full((N, 2, 8), float("nan"), dtype=dt, device=dev)
     plain = torch.full((N, 2, 8), float("nan"), dtype=dt, device=dev)
     center = jc
-    out["lattice_cells"], out["score_reduce"] = [], []
+    out["lattice_window_sum"], out["score_reduce"] = [], []
     for r, lat in enumerate(m._lattices(offset)[:1 + bool(do_fine)]):
         pname = f"{name}_{'fine' if r else 'coarse'}"
         lshape = dict(shape, lattice=[lat.nx, lat.ny, lat.nt], stride=lat.stride)
         largs = (st["qlx"], st["qly"], n_q, center, jc, sub, lat)
-        cells = PK.lattice_cells(*largs, G=G, res=res)
-        cells_plain = PK.lattice_cells_ref(*largs, G=G, res=res)
-        hold_equal(f"lattice_cells {pname}", cells, cells_plain)
+        raw = PK.lattice_window_sum(q2d, *largs, G=G, res=res)
+        raw_plain = PK.lattice_window_sum_ref(q2d_plain, *largs, G=G, res=res)
+        hold_equal(f"lattice_window_sum {pname}", [raw], [raw_plain])
+        gy0, gx0, _ = PK.lattice_cells_ref(*largs, G=G, res=res)
+        live = [max(0, min(int(c), P)) for c in n_q.tolist()]
+        distinct = sum(window_cells(q2d[j:j + 1], gy0[j:j + 1], gx0[j:j + 1], live[j],
+                                    lat.ny, lat.nx, lat.stride) for j in range(N))
+        # read: the distinct grid cells the windows touch, the live query
+        # points (2 T), the counts, the pass's and the jobs' centers, the
+        # subgrid origins; written: the sums.  Per (angle, live point) its
+        # turn (6 ops) and its two cells (8); per (job, angle) the angle and
+        # its cos and sin
         row = dict(case=pname, **lshape, max_abs_err=0,
-                   library=PROGRAM_NO_LIBRARY["lattice_cells"],
-                   **bound(N * P * 2 * es + 4 * N + 2 * 3 * es * N + 8 * N
-                           + 8 * N * lat.nt * P + 4 * N,
-                           14 * N * lat.nt * P + 4 * N * lat.nt, rate))
+                   library=PROGRAM_NO_LIBRARY["lattice_window_sum"],
+                   **bound(distinct + 2 * es * sum(live) + 4 * N + 2 * 3 * es * N + 8 * N
+                           + 4 * raw.numel(),
+                           14 * lat.nt * sum(live) + 4 * N * lat.nt, rate))
         if timing:
-            lpre = [torch.empty_like(t) for t in cells]
+            lpre = torch.full_like(raw, -7)
             lparams = PK._doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res, res,
-                                  PK._origin_offset(G, res), PK.FAR)
-            timings(row, lambda: PK.lattice_cells(*largs, G=G, res=res),
-                    lambda: PK.lattice_cells_ref(*largs, G=G, res=res),
-                    lambda: ok(lib.yag_lattice_cells(
-                        st["qlx"].data_ptr(), st["qly"].data_ptr(), n_q.data_ptr(),
-                        center.data_ptr(), center.stride(0), jc.data_ptr(), sub.data_ptr(),
-                        *ptrs(lpre), N, lat.nt, P, lparams, is_double, stream),
-                        "lattice_cells"))
-            hold_equal(f"lattice_cells {pname}, bare launch", lpre, cells_plain)
-        out["lattice_cells"].append(row)
+                                  PK._origin_offset(G, res))
+            timings(row, lambda: PK.lattice_window_sum(q2d, *largs, G=G, res=res),
+                    lambda: PK.lattice_window_sum_ref(q2d, *largs, G=G, res=res),
+                    lambda: ok(lib.yag_lattice_window_sum(
+                        q2d.data_ptr(), st["qlx"].data_ptr(), st["qly"].data_ptr(),
+                        n_q.data_ptr(), center.data_ptr(), center.stride(0), jc.data_ptr(),
+                        sub.data_ptr(), lpre.data_ptr(), N, S, lat.nt, P, lat.ny, lat.nx,
+                        lat.stride, lparams, is_double, stream), "lattice_window_sum"))
+            hold_equal(f"lattice_window_sum {pname}, bare launch", [lpre], [raw_plain])
+        out["lattice_window_sum"].append(row)
 
-        raw = K.window_sum(q2d, *cells, lat.ny, lat.nx, lat.stride)
-        raw_plain = K.window_sum_ref(q2d_plain, *cells_plain, lat.ny, lat.nx, lat.stride)
-        hold_equal(f"{pname}: the window sums of lattice_cells' cells", [raw], [raw_plain])
         stats = torch.empty((N, 4), dtype=torch.int64, device=dev)
         stats_ref = torch.empty_like(stats)
         rkw = dict(G=G, res=res, penalize=penalty, karto=karto, copy_fine=not do_fine)
@@ -887,6 +901,79 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
         raise AssertionError(f"{name}: _compute differs from the kernels run in turn")
     trig = torch.cat([st["pose"][..., 2].reshape(-1), jc[:, 2], packed[:, 0, 3]])
     return out, trig
+
+
+def fused_cases(dev):
+    """world_scatter and lattice_window_sum on inputs the main path's
+    batches do not give them, each bit-equal to its twin in float32 and
+    float64: no base slot in use; more base scans than a block stages
+    (FUSED_MANY_BASES); points far outside the full grid with subgrids
+    past its edges; query counts of 0, of every lane and past the lanes,
+    the centers a strided view; and no job for each.  Returns case rows."""
+    from yag_slam_tpu_torch.matching import program_kernels as PK
+
+    rng = np.random.default_rng(5)
+    G, S, h, res = 881, 512, 6, 0.05
+    lat = PK.PassLattice(40, 40, 10, 2.0, 0.1, 0.1745, 0.0349, 2)
+    rows = []
+
+    def world(N, B, P, dt, reach, unused=False):
+        ang = rng.uniform(-np.pi, np.pi, (N, B, P))
+        r = rng.uniform(0.3, reach, (N, B, P))
+        mask = rng.uniform(size=(N, B)) > (1.1 if unused else 0.2)
+        sub = rng.integers(0, G - S, (N, 2))
+        sub[::2, 0] = G - S + 20          # subgrids past the grid's high edge
+        sub[1::3, 1] = G - S + 7
+        f = dict(dtype=dt, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        return [torch.as_tensor(r * np.cos(ang), **f), torch.as_tensor(r * np.sin(ang), **f),
+                torch.as_tensor(rng.integers(0, P, (N, B, P)), **i32),
+                torch.as_tensor(rng.integers(0, P, (N, B, P)), **i32),
+                torch.as_tensor(rng.uniform(size=(N, B, P)) > 0.2, device=dev),
+                torch.as_tensor(mask, device=dev),
+                torch.as_tensor(np.concatenate([rng.uniform(-3, 3, (N, B, 2)),
+                                                rng.uniform(-4, 4, (N, B, 1))], -1), **f),
+                torch.as_tensor(np.concatenate([rng.uniform(-1, 1, (N, 2)),
+                                                rng.uniform(-4, 4, (N, 1))], -1), **f),
+                torch.as_tensor(rng.uniform(-1, 1, (N, 2)), **f), torch.as_tensor(sub, **i32)]
+
+    for dt in (torch.float32, torch.float64):
+        for case, (N, B, P, reach, unused) in {
+                "unused_base": (3, 16, 256, 20.0, True),
+                "many_bases": (2, FUSED_MANY_BASES, 128, 20.0, False),
+                "outside": (4, 8, 256, 60.0, False),
+                "no_job": (0, 8, 128, 20.0, False)}.items():
+            w = world(N, B, P, dt, reach, unused)
+            got = PK.world_scatter(*w, G=G, S=S, h=h, res=res)
+            want = PK.world_scatter_ref(*w, G=G, S=S, h=h, res=res)
+            hold_equal(f"world_scatter {case} {dt}", got, want)
+            ones = int(got[0].sum())
+            if (ones == 0) != (unused or N == 0):
+                raise AssertionError(f"world_scatter {case} {dt}: {ones} cells")
+            rows.append(dict(kernel="world_scatter", case=f"{case}_{str(dt)[6:]}",
+                             shape=[N, B, P, S], cells=ones, max_abs_err=0))
+        for case, counts in {"counts": [0, 181, 256, 300], "no_job": []}.items():
+            N, P = len(counts), 256
+            f = dict(dtype=dt, device=dev)
+            q = torch.as_tensor(rng.integers(0, 101, (N, S, S)), dtype=torch.uint8,
+                                device=dev)
+            packed = torch.zeros((N, 2, 8), **f)
+            packed[:, 0, 1:4] = torch.as_tensor(np.concatenate(
+                [rng.uniform(-1, 1, (N, 2)), rng.uniform(-4, 4, (N, 1))], -1), **f)
+            largs = (torch.as_tensor(rng.uniform(-15, 15, (N, P)), **f),
+                     torch.as_tensor(rng.uniform(-15, 15, (N, P)), **f),
+                     torch.as_tensor(counts, dtype=torch.int32, device=dev),
+                     packed[:, 0, 1:4], packed[:, 0, 1:4].contiguous(),
+                     torch.as_tensor(rng.integers(0, G - S, (N, 2)), dtype=torch.int32,
+                                     device=dev), lat)
+            raw = PK.lattice_window_sum(q, *largs, G=G, res=res)
+            hold_equal(f"lattice_window_sum {case} {dt}", [raw],
+                       [PK.lattice_window_sum_ref(q, *largs, G=G, res=res)])
+            if N and (int(raw[0].abs().sum()) != 0 or int(raw[1:].sum()) == 0):
+                raise AssertionError(f"lattice_window_sum {case} {dt}: sums {raw.sum()}")
+            rows.append(dict(kernel="lattice_window_sum", case=f"{case}_{str(dt)[6:]}",
+                             shape=[N, P, S], points=counts, max_abs_err=0))
+    return rows
 
 
 def reduce_shape(PK, lat, dt, N, dev):
@@ -1024,34 +1111,36 @@ def program_cases(dev):
 
 
 def check_program(dev):
-    """Phase 3b: the matcher's program kernels (program_kernels.py,
-    csrc/match_program.cu) against their twins on the card at the main
-    path's batches, timed beside their bounds, and the kernels' cos / sin
-    bit-equal to torch's.  Returns {kernel: [case dicts]} (the first of
-    each kernel is its main-path case)."""
+    """Phase 3b: the matcher's program kernels (program_kernels.py; the
+    fused scatter and window sum, csrc/grid_build.cu and csrc/window_sum.cu,
+    and score_reduce, csrc/match_program.cu) against their twins on the
+    card at the main path's batches, timed beside their bounds, then on
+    their edge cases; and the kernels' cos / sin bit-equal to torch's.
+    Returns {kernel: [case dicts]} (the first of each kernel is its
+    main-path case)."""
     from yag_slam_tpu_torch import _build
 
     t0 = time.perf_counter()
     cases = program_cases(dev)
-    results = {"world_cells": [], "lattice_cells": [], "score_reduce": []}
+    results = {"world_scatter": [], "lattice_window_sum": [], "score_reduce": []}
     angles = []
     for name, m, jobs, n_pad, penalty, do_fine in cases:
         rows, trig = program_case(name, m, jobs, n_pad, penalty, do_fine, dev)
         angles.append(trig.double())
         for k, v in rows.items():
             results[k] += v
-        for k in ("world_cells", "lattice_cells", "score_reduce"):
-            for r in rows[k]:
+            for r in v:
                 extra = (f", rows apart by an ulp {r['rows_apart']} of {r['rows']}"
                          if "rows_apart" in r else "")
                 if r.get("reduce_shape"):
                     extra += f"; shape {tuple(r['reduce_shape'].values())}"
-                was = FIRST_DRAFT_MS.get(k, {}).get(r["case"])
-                was = f" (first draft {was:.4f} ms, PERF.md)" if was else ""
                 log(f"phase 3b: {k} {r['case']}: err {r['max_abs_err']}{extra}; wrapper "
-                    f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms{was}, plain "
+                    f"{r['ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.4f} ms; bound {1e3 * r['bound_ms']:.3f} us by "
                     f"{r['bound_by']}, share {r['share']:.3f}")
+    for z in fused_cases(dev):
+        results[z["kernel"]].append(z)
+        log(f"phase 3b: {z['kernel']} {z['case']}: bit-equal to its twin {z}")
     for m, penalty, karto in ((cases[0][1], True, None), (cases[0][1], False, None),
                               (cases[4][1], True, cases[4][1].config.karto_penalty_tuple()),
                               (cases[3][1], True, None)):
@@ -1613,11 +1702,8 @@ def render_phase(slam, dev, gpu):
 
         whole()
         wall[k] = statistics.median(whole() for _ in range(RENDER_TIMED))
-        was = FIRST_DRAFT_MS["render_counts"].get(f"k={k}")
         log(f"phase 5: render k = {k} ({B} beams, {valid} valid, {steps} steps, grid "
             f"{W}x{H}): each stage bit-equal to its plain version; "
-            + (f"render_counts kernel {cases['render_counts'][-1]['kernel_ms']:.4f} ms, first "
-               f"draft {was:.4f} ms (PERF.md); " if was else "")
             + "ms kernel / wrapper / plain / bound: " + "; ".join(
                 f"{name} {c[-1]['kernel_ms']:.4f} / {c[-1]['ms']:.4f} / "
                 f"{c[-1]['plain_ms']:.4f} / {c[-1]['bound_ms']:.5f}"
@@ -1654,8 +1740,8 @@ def profile_window(scans, dev, tmp, gpu):
     prof.export_chrome_trace(path)
     with open(path) as f:
         tl = device_timeline(json.load(f)["traceEvents"],
-                             {k: v["symbols"] for k, v in (*K.KERNELS.items(),
-                                                           *PK.KERNELS.items())})
+                             {k: v["symbols"] for k, v in (*PK.KERNELS.items(),
+                                                           *K.KERNELS.items())})
     if tl["parts"]["other_kernels"]["count"] + sum(
             tl["parts"][k]["count"] for k in (*K.KERNELS, *PK.KERNELS)) == 0:
         raise AssertionError("the trace holds no kernel on the card")
@@ -2963,7 +3049,8 @@ def replay_nodes(key, rec, runs=5):
     from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.graphs import GRAPHS
 
-    symbols = {k: v["symbols"] for k, v in (*K.KERNELS.items(), *PK.KERNELS.items())}
+    # the fused instances first: their names hold their kernels' names too
+    symbols = {k: v["symbols"] for k, v in (*PK.KERNELS.items(), *K.KERNELS.items())}
 
     def traced(fn):
         fn()
@@ -3245,13 +3332,18 @@ def kernel_lines(K, checks, slam):
         for k in SLAM_KERNELS + PROGRAM_KERNELS:
             if paths[path][k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
-    # every matcher grid build runs world_cells, every window sum its
-    # lattice cells and its reduction: as many launches as the kernel each
-    # follows, on every path but the map conversion's (phase 8 scatters the
-    # map's own cells, and matches by the element path)
+    # every matcher grid build is one scatter fed by the base points, every
+    # pass one window sum fed by the query points and one reduction: as
+    # many launches as the kernel each pairs with, on every path but the
+    # map conversion's, which scatters the map's own cells through the
+    # table-fed scatter (phase 8; it matches by the element path)
     for path, n in paths.items():
+        if path in MAP_GRID_PATHS:
+            if n["scatter_cells"] <= n["world_scatter"]:
+                raise AssertionError(f"no table-fed scatter_cells on the {path} path: {n}")
+            continue
         for k, after in PROGRAM_AFTER.items():
-            if path not in MAP_GRID_PATHS and n[k] != n[after]:
+            if n[k] != n[after]:
                 raise AssertionError(f"{n[after]} {after} but {n[k]} {k} launches on the "
                                      f"{path} path")
     kernels = []

@@ -11,18 +11,19 @@ it, at the benchmark's configuration (G = 4051), float32, penalty and fine
 pass on.  The stages are those of ``CorrelativeScanMatcher._run``:
 
   inputs          library gathers (``_stage``);
-  world_cells     base points to world, the keep mask and their scatter
-                  cells (the ``world_cells`` kernel);
-  occupancy       the ``scatter_cells`` kernel;
+  occupancy       base points to world, the keep mask, their cells and the
+                  occupancy grid of those cells (``world_scatter``: the
+                  ``scatter_cells`` kernel fed by the points);
   smear_quantize  the ``smear_quantize`` kernel;
   staged          the staged route instead: ``smear_grid`` then
                   ``quantize_mask`` (what ``_run`` runs with meta; its
                   grid must equal smear_quantize's bit for bit);
-  coarse_lattice  the coarse lattice's origin cells (``lattice_cells``);
-  coarse_score    its window sums (``window_sum`` at stride 2);
+  coarse_score    the coarse lattice's window sums at the query points'
+                  origin cells (``lattice_window_sum``: the ``window_sum``
+                  kernel at stride 2, fed by the points);
   coarse_reduce   its scores and best pose (``score_reduce``);
-  fine_lattice    the fine lattice around the coarse poses (stride 1);
-  fine_score      its window sums;
+  fine_score      the fine lattice's window sums around the coarse poses
+                  (stride 1);
   fine_reduce     its scores and best pose;
   end_to_end      the whole ``_run`` (on the card: staging, one CUDA
                   graph replay, the clone of its output).
@@ -37,7 +38,7 @@ of the stage that make the host wait for the card (torch.cuda's sync
 debug mode).  The bound is ``utils.profiling.bound``: the stage's inputs
 read once and outputs written once at 3.35 TB/s, or its float32
 operations at 67 TFLOP/s, whichever is larger; the kernels' stages count
-their bytes and operations as ``chip_smoke.py`` phase 3 does (a score
+their bytes and operations as ``chip_smoke.py`` phase 3b does (a score
 stage reads only the distinct grid cells its windows touch), the other
 stages their tensors' bytes.  The end-to-end bound is the sum of the
 route's stage bounds (every stage but ``staged``), beside the sum of the
@@ -66,9 +67,8 @@ CFG = {
     "smear_deviation": 0.05,
 }
 N_BASE = 10
-STAGES = ("inputs", "world_cells", "occupancy", "smear_quantize", "staged",
-          "coarse_lattice", "coarse_score", "coarse_reduce", "fine_lattice", "fine_score",
-          "fine_reduce")
+STAGES = ("inputs", "occupancy", "smear_quantize", "staged", "coarse_score",
+          "coarse_reduce", "fine_score", "fine_reduce")
 ROUTE = tuple(s for s in STAGES if s != "staged")
 # the spin before each timed stage: longer than any stage's host launches
 STAGE_SPIN = 20_000_000
@@ -129,10 +129,9 @@ def compose(ctx):
         return out[name]
 
     st = stage("inputs", lambda: m._stage(args))
-    sy, sx, lim = stage("world_cells", lambda: PK.world_cells(
+    occ, lim = stage("occupancy", lambda: PK.world_scatter(
         *(st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose", "center",
                           "vp", "sub")), G=G, S=S, h=h, res=res))
-    occ = stage("occupancy", lambda: K.scatter_cells(sy, sx, S + 2 * h))
     q2d = stage("smear_quantize", lambda: K.smear_quantize(occ, lim, taps, S, h))
     staged = stage("staged", lambda: K.quantize_mask(K.smear_grid(occ, taps, S, h), lim))
     if not torch.equal(staged, q2d):
@@ -141,10 +140,8 @@ def compose(ctx):
     packed = torch.empty((n_q.shape[0], 2, 8), dtype=m.dtype, device=n_q.device)
     for row, (name, lat) in enumerate(zip(("coarse", "fine"), m._lattices(offset))):
         center = jc if row == 0 else packed[:, 0, 1:4]
-        cells = stage(f"{name}_lattice", lambda c=center, lat=lat: PK.lattice_cells(
-            st["qlx"], st["qly"], n_q, c, jc, st["sub"], lat, G=G, res=res))
-        raw = stage(f"{name}_score", lambda c=cells, lat=lat: K.window_sum(
-            q2d, *c, lat.ny, lat.nx, lat.stride))
+        raw = stage(f"{name}_score", lambda c=center, lat=lat: PK.lattice_window_sum(
+            q2d, st["qlx"], st["qly"], n_q, c, jc, st["sub"], lat, G=G, res=res))
         stage(f"{name}_reduce", lambda c=center, r=raw, row=row, lat=lat: PK.score_reduce(
             r, n_q, c, jc, packed, row, lat, G=G, res=res, penalize=True,
             karto=m.config.karto_penalty_tuple()))
@@ -164,30 +161,12 @@ def nbytes(*xs):
     return total
 
 
-def _window_args(fn):
-    """fn() with kernels.window_sum recorded: the arguments of its call."""
-    from yag_slam_tpu_torch.matching import kernels as K
-
-    real, calls = K.window_sum, []
-
-    def recording(*a):
-        calls.append(a)
-        return real(*a)
-
-    K.window_sum = recording
-    try:
-        fn()
-    finally:
-        K.window_sum = real
-    (call,) = calls
-    return call
-
-
 def stage_work(ctx, out, fns):
     """{stage: (bytes, ops)} that each stage must move and compute."""
+    from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.utils.profiling import smear_bytes, smear_ops, window_cells
 
-    m, args, N, B, P, S, h = (ctx[k] for k in ("m", "args", "N", "B", "P", "S", "h"))
+    m, args, N, B, P, S, G, h = (ctx[k] for k in ("m", "args", "N", "B", "P", "S", "G", "h"))
     lib = m.library.fields
     row = sum(lib[k].element_size() for k in ("lx", "ly", "anchor", "term", "has_run"))
     st = out["inputs"]
@@ -198,19 +177,20 @@ def stage_work(ctx, out, fns):
         # library rows of the base and query scans, the job arrays, the outputs
         "inputs": (N * B * P * row + N * (2 * P * lib["lx"].element_size() + 4)
                    + nbytes(args, world, queries), 0),
-        "world_cells": (nbytes(world, out["world_cells"]), 0),
-        "occupancy": (nbytes(out["world_cells"][:2], out["occupancy"]), 0),
+        "occupancy": (nbytes(world, out["occupancy"]), 0),
         "smear_quantize": (smear_bytes(N, S, h, 1) + 8 * N, 0),
         # the staged route also writes the float32 grid (the meta grid)
         "staged": (smear_bytes(N, S, h, 1 + 4) + 8 * N, smear_ops(N, S, h)),
     }
-    for name in ("coarse", "fine"):
-        work[f"{name}_lattice"] = (nbytes(queries, st["center"], out[f"{name}_lattice"]), 0)
-        q, gy0, gx0, n_pts, ny, nx, stride = _window_args(fns[f"{name}_score"])
-        cells = sum(window_cells(q[j:j + 1], gy0[j:j + 1], gx0[j:j + 1], int(n_pts[j]),
-                                 ny, nx, stride) for j in range(N))
-        work[f"{name}_score"] = (cells + nbytes(out[f"{name}_lattice"],
-                                                out[f"{name}_score"]), 0)
+    q, n_q = out["smear_quantize"], st["n_q"]
+    # the fine pass's centers: row 0 of the packed result
+    centers = (st["center"], out["fine_reduce"][:, 0, 1:4])
+    for name, lat, center in zip(("coarse", "fine"), m._lattices(ctx["offset"]), centers):
+        gy0, gx0, _ = PK.lattice_cells_ref(st["qlx"], st["qly"], n_q, center, st["center"],
+                                           st["sub"], lat, G=G, res=m.config.resolution)
+        cells = sum(window_cells(q[j:j + 1], gy0[j:j + 1], gx0[j:j + 1], int(n_q[j]),
+                                 lat.ny, lat.nx, lat.stride) for j in range(N))
+        work[f"{name}_score"] = (cells + nbytes(queries, center, out[f"{name}_score"]), 0)
         # the sums read, one row of the result written
         work[f"{name}_reduce"] = (nbytes(out[f"{name}_score"], st["n_q"])
                                   + out[f"{name}_reduce"].nbytes // 2, 0)

@@ -97,7 +97,9 @@ def _run_summary(zero=None):
         launches=n("slam", smear_grid=0),
         matcher_api=dict(launches=dict(meta=n("meta"), scan_sets=n("scan_sets"),
                                        mega=n("mega", smear_grid=0))),
-        localize=dict(launches=n("localize"), smear_case=dict(case, case="tour_map")),
+        localize=dict(launches=n("localize", world_scatter=0, lattice_window_sum=0,
+                                 window_sum=0, score_reduce=0),
+                      smear_case=dict(case, case="tour_map")),
         stream=dict(launches=n("stream", smear_grid=0),
                     modes=dict(launches=n("pipeline", smear_grid=0))),
         entry_points=dict(launches=dict(cli=n("cli", smear_grid=0),
@@ -422,22 +424,35 @@ def test_program_case_holds_the_kernels_to_an_all_plain_chain(program_jobs):
     with a row per kernel and pass."""
     m, jobs = program_jobs
     rows, trig = smoke.program_case("room", m, jobs, 4, True, True, "cpu", timing=False)
-    assert [len(rows[k]) for k in ("world_cells", "lattice_cells", "score_reduce")] == [1, 2, 2]
+    assert [len(rows[k]) for k in ("world_scatter", "lattice_window_sum",
+                                   "score_reduce")] == [1, 2, 2]
     assert all(r["max_abs_err"] == 0 for v in rows.values() for r in v)
     assert all(r["rows_apart"] == 0 and r["max_ulps"] == 0 for r in rows["score_reduce"])
     assert trig.numel() > 0
 
 
-def _spoil_world_cells(result, row):
-    sy, sx, lim = result
-    sy = sy.clone()
-    sy[sy >= 0] = -1        # drop every kept point
-    return sy, sx, lim
+def test_fused_cases_hold_the_fused_wrappers_to_their_twins_on_the_cpu():
+    """Phase 3b's edge cases of the fused wrappers on the CPU (each runs its
+    twin): a row per kernel, case and dtype, the cells where there are
+    any."""
+    rows = smoke.fused_cases("cpu")
+    cases = {(r["kernel"], r["case"]) for r in rows}
+    assert len(rows) == len(cases) == 12
+    assert {r["case"] for r in rows if r["kernel"] == "world_scatter"} == {
+        f"{c}_{d}" for c in ("unused_base", "many_bases", "outside", "no_job")
+        for d in ("float32", "float64")}
+    cells = {r["case"]: r["cells"] for r in rows if r["kernel"] == "world_scatter"}
+    assert cells["unused_base_float32"] == cells["no_job_float64"] == 0
+    assert cells["many_bases_float32"] > 0 and cells["outside_float64"] > 0
 
 
-def _spoil_lattice_cells(result, row):
-    sgy0, sgx0, n_int = result
-    return sgy0, sgx0 + 1, n_int
+def _spoil_world_scatter(result, row):
+    occ, lim = result
+    return occ * 0, lim      # drop every kept point
+
+
+def _spoil_lattice_window_sum(result, row):
+    return result + 1
 
 
 def _spoil_score_reduce(result, row):
@@ -446,8 +461,8 @@ def _spoil_score_reduce(result, row):
 
 
 @pytest.mark.parametrize("kernel,spoil,match", [
-    ("world_cells", _spoil_world_cells, "world_cells room"),
-    ("lattice_cells", _spoil_lattice_cells, "lattice_cells room_coarse"),
+    ("world_scatter", _spoil_world_scatter, "world_scatter room"),
+    ("lattice_window_sum", _spoil_lattice_window_sum, "lattice_window_sum room_coarse"),
     ("score_reduce", _spoil_score_reduce, "score_reduce room_coarse"),
 ])
 def test_program_case_fails_when_a_kernel_differs_from_its_twin(program_jobs, monkeypatch,

@@ -18,6 +18,7 @@ from yag_slam_tpu_torch.matching import kernels as K
 from yag_slam_tpu_torch.matching.matcher import _LIBRARY_INITIAL_CAP, CorrelativeScanMatcher
 
 from test_matching import TEST_CFG, make_room_scan
+from test_torch_match_program import _score_pass
 from test_torch_matcher import _assert_same
 
 # the launches one emulated capture records
@@ -102,12 +103,12 @@ def _seed_run(m, args, P, penalty, do_fine, coarse_offset, S, queries=None):
         grid0 = grid[0]
     else:
         q2d = C.build_quantized_grid(*points, **build)
-    coarse = C.reduce_best_pose(*m._score_pass(q2d, inp, (cx, cy, ct), False, penalty,
-                                               coarse_offset))
+    coarse = C.reduce_best_pose(*_score_pass(m, q2d, inp, (cx, cy, ct), False, penalty,
+                                             coarse_offset))
     fine = coarse
     if do_fine:
-        fine = C.reduce_best_pose(*m._score_pass(
-            q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True, penalty,
+        fine = C.reduce_best_pose(*_score_pass(
+            m, q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True, penalty,
             coarse_offset))
     return torch.stack([coarse, fine], dim=1), grid0
 

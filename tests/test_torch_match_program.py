@@ -8,7 +8,11 @@ There is no card here, so each wrapper runs its plain twin (``*_ref``):
   its block's threads and tree) emulated in numpy against its twin:
   response, argmax and tie count bit-equal, pose and moments within an ulp
   in float32 and 1e-12 relative in float64;
-- ``_compute`` bit-equal to the composition it replaced (kept here);
+- the fused wrappers (world_scatter, lattice_window_sum) on the CPU equal
+  to their twins' composition and to the JAX package's cells, scattered or
+  summed in numpy;
+- ``_compute`` bit-equal to the composition it replaced (kept here, with
+  its pass scorer ``_score_pass``);
 - the CUDA dispatch with a fake library: the kernel launches, counts
   through ``kernels._count`` (captures included), raises on an error, and
   never runs the twin.
@@ -202,6 +206,140 @@ def test_lattice_cells_ref_matches_the_jax_offsets(name, seed, N, P):
         far = np.maximum(np.abs(sgx0[n, :, k:].numpy() + sub[n, 0]),
                          np.abs(sgy0[n, :, k:].numpy() + sub[n, 1]))
         assert (far >= 10 ** 7).all()
+
+
+# -- the fused wrappers on the CPU ----------------------------------------------------
+
+def _scatter_np(sy, sx, R):
+    """(N, R, R) uint8, 1 at each job's cells (sy >= 0), in numpy."""
+    occ = np.zeros((sy.shape[0], R, R), np.uint8)
+    for n in range(sy.shape[0]):
+        ok = sy[n] >= 0
+        occ[n, sy[n][ok], sx[n][ok]] = 1
+    return occ
+
+
+def _world_args(inp, dtype):
+    return [_t(inp[k], dtype if np.asarray(inp[k]).dtype == np.float64 else None)
+            for k in WORLD_KEYS]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed,N,B,P", [(20, 1, 4, 64), (21, 4, 3, 37), (22, 64, 2, 16)])
+def test_world_scatter_scatters_the_world_cells(seed, N, B, P, dtype):
+    """world_scatter's CPU route is world_cells_ref's cells scattered, lim
+    included; in float64 the grid of the JAX program's cells.  Some kept
+    points fall outside the subgrid, and the last job's subgrid overhangs
+    the full grid."""
+    inp = _world_inputs(seed, N, B, P)
+    args = _world_args(inp, dtype)
+    R = S + 2 * H
+    occ, lim = PK.world_scatter(*args, G=G, S=S, h=H, res=RES)
+    sy, sx, lim_twin = PK.world_cells_ref(*args, G=G, S=S, h=H, res=RES)
+    assert occ.dtype == torch.uint8 and occ.shape == (N, R, R) and lim.dtype == torch.int32
+    assert torch.equal(occ, K.scatter_cells_ref(sy, sx, R)) and torch.equal(lim, lim_twin)
+    assert torch.equal(occ, torch.as_tensor(_scatter_np(sy.numpy(), sx.numpy(), R)))
+    assert 0 < int(occ.sum()) and int((sy >= 0).sum()) < N * B * P
+    if dtype == torch.float64:
+        want_sy, want_sx, want_lim, _ = _jax_world_cells(inp)
+        np.testing.assert_array_equal(occ.numpy(), _scatter_np(want_sy, want_sx, R))
+        np.testing.assert_array_equal(lim.numpy(), want_lim)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_world_scatter_of_an_unused_base_and_of_no_job(dtype):
+    """No base slot in use: an all-zero grid, lim still (G - soy, G - sox);
+    no job: empty outputs."""
+    inp = _world_inputs(23, 3, 2, 16)
+    inp["mask"][:] = False
+    occ, lim = PK.world_scatter(*_world_args(inp, dtype), G=G, S=S, h=H, res=RES)
+    assert occ.shape == (3, S + 2 * H, S + 2 * H) and int(occ.sum()) == 0
+    np.testing.assert_array_equal(lim.numpy(), np.stack([G - inp["sub"][:, 1],
+                                                         G - inp["sub"][:, 0]], axis=1))
+    none = {k: v[:0] for k, v in inp.items()}
+    occ, lim = PK.world_scatter(*_world_args(none, dtype), G=G, S=S, h=H, res=RES)
+    assert occ.shape == (0, S + 2 * H, S + 2 * H) and lim.shape == (0, 2)
+
+
+def _window_np(q, gy0, gx0, n, ny, nx, stride):
+    """The window sums of cells (N, K, P) over q (N, S, S) in numpy: each
+    job's first n[j] points, reads off the grid 0."""
+    N, Sq, _ = q.shape
+    out = np.zeros((N, gy0.shape[1], ny, nx), np.int64)
+    for j in range(N):
+        for k in range(gy0.shape[1]):
+            for p in range(max(0, min(int(n[j]), gy0.shape[2]))):
+                y = gy0[j, k, p] + stride * np.arange(ny)[:, None]
+                x = gx0[j, k, p] + stride * np.arange(nx)[None, :]
+                ok = (y >= 0) & (y < Sq) & (x >= 0) & (x < Sq)
+                out[j, k] += np.where(ok, q[j, np.clip(y, 0, Sq - 1), np.clip(x, 0, Sq - 1)], 0)
+    return out.astype(np.int32)
+
+
+def _lattice_case(seed, N, P, n_q=None):
+    """A pass's inputs: query points (n_q (N,) where given), centers, and a
+    quantized grid of random scores (N, S, S) uint8."""
+    qlx, qly, nq, center, job, sub = _query_inputs(seed, N, P)
+    q = np.random.default_rng(seed + 100).integers(0, 101, (N, S, S)).astype(np.uint8)
+    return q, qlx, qly, nq if n_q is None else np.asarray(n_q, np.int32), center, job, sub
+
+
+@pytest.mark.parametrize("name", ["coarse", "fine"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed,N,P", [(24, 1, 64), (25, 4, 29), (26, 64, 16)])
+def test_lattice_window_sum_sums_the_lattice_cells(name, dtype, seed, N, P):
+    """lattice_window_sum's CPU route is window_sum_ref over
+    lattice_cells_ref's cells, padded lanes and all; in float64 the numpy
+    sum over the JAX package's cells.  The fine pass's center is a strided
+    view, as the matcher passes it (columns 1-3 of the packed result)."""
+    lat = LATTICES[name]
+    q, qlx, qly, n_q, center, job, sub = _lattice_case(seed, N, P)
+    args = [_t(qlx, dtype), _t(qly, dtype), _t(n_q)]
+    c = _t(center, dtype)
+    if name == "fine":
+        packed = torch.zeros((N, 2, 8), dtype=dtype)
+        packed[:, 0, 1:4] = c
+        c = packed[:, 0, 1:4]
+        assert c.stride(0) == 16
+    rest = [_t(job, dtype), _t(sub)]
+    raw = PK.lattice_window_sum(_t(q), *args, c, *rest, lat, G=G, res=RES)
+    cells = PK.lattice_cells_ref(*args, c, *rest, lat, G=G, res=RES)
+    assert raw.dtype == torch.int32 and raw.shape == (N, lat.nt, lat.ny, lat.nx)
+    assert torch.equal(raw, K.window_sum_ref(_t(q), *cells, lat.ny, lat.nx, lat.stride))
+    assert raw.sum() > 0
+    if dtype == torch.float64:
+        wy, wx = _jax_lattice_cells(qlx, qly, n_q, center, job, sub, lat)
+        np.testing.assert_array_equal(
+            raw.numpy(), _window_np(q, wy, wx, n_q, lat.ny, lat.nx, lat.stride))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lattice_window_sum_of_no_point_and_of_no_job(dtype):
+    """n_q = 0 sums nothing; a count past the capacity sums every lane; no
+    job gives an empty result."""
+    lat = LATTICES["coarse"]
+    q, qlx, qly, _, center, job, sub = _lattice_case(27, 3, 20, n_q=[0, 20, 31])
+    n_q = np.array([0, 20, 31], np.int32)
+    f = [_t(a, dtype) for a in (qlx, qly)]
+    raw = PK.lattice_window_sum(_t(q), *f, _t(n_q), _t(center, dtype), _t(job, dtype),
+                                _t(sub), lat, G=G, res=RES)
+    assert int(raw[0].abs().sum()) == 0
+    full = PK.lattice_window_sum(_t(q), *f, _t(np.full(3, 20, np.int32)), _t(center, dtype),
+                                 _t(job, dtype), _t(sub), lat, G=G, res=RES)
+    assert torch.equal(raw[1:], full[1:]) and int(full[1:].sum()) > 0
+    none = PK.lattice_window_sum(_t(q[:0]), *(t[:0] for t in f), _t(n_q[:0]),
+                                 _t(center[:0], dtype), _t(job[:0], dtype), _t(sub[:0]), lat,
+                                 G=G, res=RES)
+    assert none.shape == (0, lat.nt, lat.ny, lat.nx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_point_counts_round_to_themselves(dtype):
+    """The plain chain counts rint((T) n_q) points where the fused window
+    sum counts n_q: the same for every count up to 2^24, far past any point
+    capacity."""
+    n = torch.arange(0, 2 ** 24 + 1, dtype=torch.int32)
+    assert torch.equal(torch.round(n.to(dtype)).to(torch.int32), n)
 
 
 # -- score_reduce against JAX ---------------------------------------------------------
@@ -605,6 +743,22 @@ def test_score_reduce_kernel_steps_emulated_past_the_sms(dtype):
 _FAR = 1.0e9
 
 
+def _score_pass(m, q2d, inp, center, fine, penalty, coarse_offset):
+    """One pass of matcher `m` as plain tensor code (correlation.score_lattice)
+    around `center` = (cx, cy, ct), each (N,): the coarse pass, or with
+    `fine` the fine one.  `inp` holds the padded query lanes (qx, qy), their
+    counts n_pts, the full-grid origins (ox, oy) and the subgrid origins
+    (sox, soy).  Returns score_lattice's (out, xvals, yvals, tvals);
+    reduce_best_pose of them is what ``_compute``'s lattice_window_sum and
+    score_reduce give for the pass."""
+    lat = m._lattices(coarse_offset)[int(bool(fine))]
+    return TC.score_lattice(
+        q2d, inp["qx"], inp["qy"], inp["n_pts"], *center, inp["ox"], inp["oy"], inp["sox"],
+        inp["soy"], grid_size=m.grid_size, grid_res=m.config.resolution, penalize=penalty,
+        karto_penalties=m.config.karto_penalty_tuple(), spec=lat.spec, xy_size=lat.xy_size,
+        xy_res=lat.xy_res, ang_size=lat.ang_size, ang_res=lat.ang_res)
+
+
 def _pre_change_compute(m, st, S, penalty, do_fine, coarse_offset):
     """CorrelativeScanMatcher._compute as it was before the program kernels:
     _world_points, build_quantized_grid / build_grid_staged, _score_pass and
@@ -633,12 +787,12 @@ def _pre_change_compute(m, st, S, penalty, do_fine, coarse_offset):
         grid0 = grid[0]
     else:
         q2d = TC.build_quantized_grid(*points, **build)
-    coarse = TC.reduce_best_pose(*m._score_pass(q2d, inp, (cx, cy, ct), False, penalty,
-                                                coarse_offset))
+    coarse = TC.reduce_best_pose(*_score_pass(m, q2d, inp, (cx, cy, ct), False, penalty,
+                                              coarse_offset))
     fine = coarse
     if do_fine:
-        fine = TC.reduce_best_pose(*m._score_pass(
-            q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True, penalty,
+        fine = TC.reduce_best_pose(*_score_pass(
+            m, q2d, inp, (coarse[:, 1], coarse[:, 2], coarse[:, 3]), True, penalty,
             coarse_offset))
     return torch.stack([coarse, fine], dim=1), grid0
 
@@ -680,7 +834,7 @@ class _FakeLibrary:
         self.err, self.calls = err, []
 
     def __getattr__(self, name):
-        if name not in ("yag_world_cells", "yag_lattice_cells", "yag_score_reduce"):
+        if name not in ("yag_world_scatter", "yag_lattice_window_sum", "yag_score_reduce"):
             raise AttributeError(name)
         return lambda *args: self.calls.append((name, args)) or self.err
 
@@ -692,7 +846,8 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(PK, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(PK, "_stream", lambda t: 0)
     monkeypatch.setattr(PK, "_sm_count", lambda index: SMS)
-    for name in ("world_cells_ref", "lattice_cells_ref", "score_reduce_ref"):
+    for name in ("world_scatter_ref", "lattice_window_sum_ref", "score_reduce_ref",
+                 "world_cells_ref", "lattice_cells_ref"):
         monkeypatch.setattr(PK, name, lambda *a, **k: pytest.fail("a plain twin ran"))
 
     def use(err):
@@ -706,18 +861,18 @@ def fake_card(monkeypatch):
 def _calls(dtype=torch.float32):
     """One call of each wrapper at small shapes (N 2, B 3, P 5; coarse)."""
     inp = _world_inputs(10, 2, 3, 5)
-    w = [_t(inp[k], dtype if np.asarray(inp[k]).dtype == np.float64 else None)
-         for k in WORLD_KEYS]
+    w = _world_args(inp, dtype)
     lat = LATTICES["coarse"]
     q = [_t(inp["lx"][:, 0], dtype), _t(inp["ly"][:, 0], dtype),
          _t(np.array([5, 3], dtype=np.int32))]
     center = _t(inp["center"], dtype)
     packed = torch.zeros((2, 2, 8), dtype=dtype)
+    grid = torch.zeros((2, S, S), dtype=torch.uint8)
     raw = torch.zeros((2, lat.nt, lat.ny, lat.nx), dtype=torch.int32)
     return dict(
-        world_cells=lambda: PK.world_cells(*w, G=G, S=S, h=H, res=RES),
-        lattice_cells=lambda: PK.lattice_cells(*q, packed[:, 0, 1:4], center, w[-1], lat,
-                                               G=G, res=RES),
+        world_scatter=lambda: PK.world_scatter(*w, G=G, S=S, h=H, res=RES),
+        lattice_window_sum=lambda: PK.lattice_window_sum(grid, *q, packed[:, 0, 1:4], center,
+                                                         w[-1], lat, G=G, res=RES),
         score_reduce=lambda: PK.score_reduce(raw, q[2], packed[:, 0, 1:4], center, packed, 1,
                                              lat, G=G, res=RES, penalize=True, karto=KARTO))
 
@@ -728,20 +883,23 @@ def test_cuda_tensors_launch_the_kernels_and_never_the_twins(fake_card, dtype):
     PK.reset_launches()
     K.reset_launches()
     calls = _calls(dtype)
-    sy, sx, lim = calls["world_cells"]()
-    assert sy.shape == sx.shape == (2, 15) and lim.shape == (2, 2) and sy.dtype == torch.int32
-    sgy0, sgx0, n_int = calls["lattice_cells"]()
-    assert sgy0.shape == sgx0.shape == (2, 5, 5) and n_int.shape == (2,)
+    occ, lim = calls["world_scatter"]()
+    assert occ.shape == (2, S + 2 * H, S + 2 * H) and occ.dtype == torch.uint8
+    assert lim.shape == (2, 2) and lim.dtype == torch.int32
+    raw = calls["lattice_window_sum"]()
+    assert raw.shape == (2, 5, 9, 9) and raw.dtype == torch.int32
     calls["score_reduce"]()
     assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 1)
-    assert all(v == 0 for v in K.LAUNCHES.values())
+    # the fused launches are launches of scatter_cells' and window_sum's kernel
+    assert K.LAUNCHES == dict(dict.fromkeys(K.LAUNCHES, 0), scatter_cells=1, window_sum=1)
     (w_name, w), (l_name, lc), (r_name, r) = lib.calls
     is_double = int(dtype == torch.float64)
-    assert w_name == "yag_world_cells" and w[13:19] == (2, 3, 5, G, S, H) and w[-2] == is_double
-    assert list(w[19]) == [RES, OFF]
+    assert w_name == "yag_world_scatter" and w[12:18] == (2, 3, 5, G, S, H)
+    assert w[-2] == is_double and list(w[18]) == [RES, OFF]
     # the fine pass's center: row 0 of the packed result, 16 elements apart
-    assert l_name == "yag_lattice_cells" and lc[4] == 16 and lc[10:13] == (2, 5, 5)
-    assert list(lc[13]) == [0.2, 0.1, 0.08, 0.04, RES, OFF, PK.FAR]
+    assert l_name == "yag_lattice_window_sum" and lc[5] == 16
+    assert lc[9:16] == (2, S, 5, 5, 9, 9, 2) and lc[-2] == is_double
+    assert list(lc[16]) == [0.2, 0.1, 0.08, 0.04, RES, OFF]
     # no stats, no scratch rows; the coarse lattice's 81 columns: 96 threads
     assert r_name == "yag_score_reduce" and r[3] == 16 and r[6] is None and r[7] is None
     assert r[8:18] == (1, 0, 2, 9, 9, 5, 96, 1, 1, 2) and list(r[18])[-4:] == list(KARTO)
@@ -755,7 +913,7 @@ def test_cuda_tensors_launch_the_kernels_and_never_the_twins(fake_card, dtype):
 def test_captured_launches_count_at_each_replay(fake_card):
     """A launch inside a capture counts into the capture, not into
     LAUNCHES; each replay adds the capture's counts to the program
-    kernels' own table."""
+    kernels' own table and to the kernels' the fused ones launch."""
     fake_card(0)
     PK.reset_launches()
     K.reset_launches()
@@ -765,15 +923,15 @@ def test_captured_launches_count_at_each_replay(fake_card):
             call()
         K._count("window_sum")
     assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 0)
-    assert counts == dict(dict.fromkeys(K.LAUNCHES, 0), window_sum=1,
+    assert counts == dict(dict.fromkeys(K.LAUNCHES, 0), window_sum=2, scatter_cells=1,
                           **dict.fromkeys(PK.LAUNCHES, 1))
     for _ in range(3):
         K.add_launches(counts)
-    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 3) and K.LAUNCHES["window_sum"] == 3
+    assert PK.LAUNCHES == dict.fromkeys(PK.LAUNCHES, 3) and K.LAUNCHES["window_sum"] == 6
     PK.reset_launches()
     K.reset_launches()
     with pytest.raises(ValueError, match="already counted"):
-        K.register_launches({"world_cells": 0})
+        K.register_launches({"world_scatter": 0})
 
 
 def test_cuda_wrappers_check_their_inputs(fake_card):
@@ -783,34 +941,44 @@ def test_cuda_wrappers_check_their_inputs(fake_card):
     bad = list(w)
     bad[2] = bad[2].long()
     with pytest.raises(TypeError, match="anchor"):
-        PK.world_cells(*bad, G=G, S=S, h=H, res=RES)
+        PK.world_scatter(*bad, G=G, S=S, h=H, res=RES)
     with pytest.raises(TypeError, match="float32 or float64"):
-        PK.world_cells(*(t.half() if t.dtype == torch.float64 else t for t in w),
-                       G=G, S=S, h=H, res=RES)
+        PK.world_scatter(*(t.half() if t.dtype == torch.float64 else t for t in w),
+                         G=G, S=S, h=H, res=RES)
     lat = LATTICES["fine"]
     raw = torch.zeros((1, lat.nt, lat.ny, lat.nx + 1), dtype=torch.int32)
     packed = torch.zeros((1, 2, 8), dtype=torch.float64)
     with pytest.raises(ValueError, match="raw"):
         PK.score_reduce(raw, _t(np.array([3], np.int32)), w[7], w[7], packed, 0, lat,
                         G=G, res=RES, penalize=False)
+    grid = torch.zeros((1, S, S), dtype=torch.uint8)
     with pytest.raises(ValueError, match="center"):
-        PK.lattice_cells(w[0][:, 0], w[1][:, 0], _t(np.array([3], np.int32)),
-                         w[7][:, :2], w[7], w[9], lat, G=G, res=RES)
+        PK.lattice_window_sum(grid, w[0][:, 0], w[1][:, 0], _t(np.array([3], np.int32)),
+                              w[7][:, :2], w[7], w[9], lat, G=G, res=RES)
+    with pytest.raises(TypeError, match="q: expected torch.uint8"):
+        PK.lattice_window_sum(grid.int(), w[0][:, 0], w[1][:, 0], _t(np.array([3], np.int32)),
+                              w[7], w[7], w[9], lat, G=G, res=RES)
     assert not lib.calls
 
 
 def test_cuda_program_kernels_without_a_card_raise(monkeypatch):
-    """No card and no nvcc here: a CUDA tensor's world_cells raises at the
-    kernels' build, and never runs its twin."""
+    """No card and no nvcc here: a CUDA tensor's world_scatter and
+    lattice_window_sum raise at the kernels' build, and never run their
+    twins."""
     monkeypatch.setattr(PK, "_on_cuda", lambda *ts: True)
-    monkeypatch.setattr(PK, "world_cells_ref", lambda *a, **k: pytest.fail("twin ran"))
+    for name in ("world_scatter_ref", "lattice_window_sum_ref"):
+        monkeypatch.setattr(PK, name, lambda *a, **k: pytest.fail("twin ran"))
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "_library_path", lambda *a: _build.BUILD_DIR / "absent.so")
     monkeypatch.setattr(_build, "find_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found: the CUDA kernels cannot be built")))
     inp = _world_inputs(12, 1, 2, 4)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        PK.world_cells(*(_t(inp[k]) for k in WORLD_KEYS), G=G, S=S, h=H, res=RES)
+        PK.world_scatter(*(_t(inp[k]) for k in WORLD_KEYS), G=G, S=S, h=H, res=RES)
+    q, qlx, qly, n_q, center, job, sub = _lattice_case(12, 1, 8)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        PK.lattice_window_sum(_t(q), _t(qlx), _t(qly), _t(n_q), _t(center), _t(job), _t(sub),
+                              LATTICES["coarse"], G=G, res=RES)
 
 
 def test_wrappers_dispatch_only_by_device():
@@ -834,10 +1002,17 @@ def test_program_kernels_name_what_they_replace():
     are declared, and every "file:line" a kernel replaces is the JAX line
     it stands for."""
     assert "match_program.cu" in {p.name for p in _build._sources()[0]}
-    for name in ("yag_world_cells", "yag_lattice_cells", "yag_score_reduce"):
+    assert "program_math.cuh" in {p.name for p in _build._sources()[1]}
+    for name in ("yag_world_scatter", "yag_lattice_window_sum", "yag_score_reduce"):
         assert name in _build._SIGNATURES
+    text = "".join(p.read_text() for p in _build._sources()[0])
+    for name in ("yag_world_cells", "yag_lattice_cells", "world_cells_kernel",
+                 "lattice_cells_kernel"):
+        assert name not in _build._SIGNATURES and name not in text
     assert set(PK.KERNELS) == set(PK.LAUNCHES) and not set(PK.KERNELS) & set(K.KERNELS)
-    starts = {"yag_slam_tpu/matching/matcher.py:661": "pc = jnp.cos(",
+    starts = {"yag_slam_tpu/matching/pallas_kernels.py:931": "def scatter_occupancy_pallas(",
+              "yag_slam_tpu/matching/pallas_kernels.py:578": "def score_windows_pallas(",
+              "yag_slam_tpu/matching/matcher.py:661": "pc = jnp.cos(",
               "yag_slam_tpu/matching/matcher.py:666": "keep = C.keep_mask_for_viewpoint(",
               "yag_slam_tpu/matching/matcher.py:722": "qx = jnp.where(",
               "yag_slam_tpu/matching/matcher.py:792": "jax.vmap(C.reduce_best_pose)",

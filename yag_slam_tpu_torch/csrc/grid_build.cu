@@ -9,13 +9,21 @@
 // smear_quantize_pallas (the two-stage strip build), and smear_grid_pallas
 // (the float32 smear of the staged build).
 //
-// Layout contract (the wrappers in matching/kernels.py check it):
+// Layout contract (the wrappers in matching/kernels.py and
+// matching/program_kernels.py check it):
 //   occ  (N, R, R) uint8, R = S + 2h, every value 0 or 1 (scatter_cells
 //        writes the whole grid: zeros, and ones at the cells): cell (row,
 //        col) of the subgrid lives at occ[n, row + h, col + h]; the h-wide
 //        border is the smear halo.
-//   sy, sx (N, M) int32 scatter cells in that layout; sy < 0 marks a lane
-//        with no cell.  Cells outside [0, R) are dropped.
+//   the scatter's lanes, from one of two sources (a template argument):
+//   CellLists  sy, sx (N, M) int32 scatter cells in that layout; sy < 0
+//        marks a lane with no cell.  Cells outside [0, R) are dropped.
+//   BasePoints<T>  the base scans' points (program_kernels.world_scatter):
+//        lx, ly (N, B, P) float or double, anchor, term (N, B, P) int32,
+//        has_run (N, B, P) and mask (N, B) bool, pose (N, B, 3), center
+//        (N, 3), vp (N, 2), sub (N, 2) int32; M = B P lanes, each turned to
+//        world, kept or not and rounded to its cell in the kernel; and lim
+//        written.
 //   lim  (N, 2) int32 = (G - soy, G - sox): subgrid rows/cols at or past
 //        these carry a full-grid index >= G and are zeroed.
 //   taps (2h + 1,) float32 symmetric, positive and non-increasing away from
@@ -33,6 +41,7 @@
 #include <algorithm>
 
 #include "device.cuh"
+#include "program_math.cuh"
 
 namespace {
 
@@ -42,37 +51,200 @@ namespace {
 // Each block owns a band of consecutive rows of one job's (R, R) grid, whose
 // bytes are contiguous: it zeroes them with 16-byte stores (byte stores at
 // the ragged ends: R need not be a multiple of 16), waits at a barrier, then
-// walks the job's M lanes, reading sy coalesced and sx only for lanes whose
-// row falls in its band, and stores 1.  No other block writes the band, so
-// there are no races and no atomics, and the barrier orders the block's
-// zeros before its ones.  Bound by the fill's N R^2 bytes.  Every block also
-// reads its job's 4M bytes of sy through L2, and the rows of its first lanes
-// load before the fill, so their latency hides behind it.  On the H100 two
-// blocks per SM measured faster than one, than 1024 threads per block, and
-// than fewer blocks that re-read less: at 4096 lanes 264 blocks re-read
-// 4.3 MB, more than a 1812^2 grid's 3.3 MB fill, and still win there.
+// walks the job's M lanes, taking each lane's row and, only for lanes whose
+// row falls in its band, its column, and stores 1.  No other block writes
+// the band, so there are no races and no atomics, and the barrier orders
+// the block's zeros before its ones.  Bound by the fill's N R^2 bytes.  The
+// rows of a thread's first lanes load before the fill, so their latency
+// hides behind it.  On the H100 two blocks per SM measured faster than
+// one, than 1024 threads per block, and than fewer blocks that re-read
+// less: at 4096 lanes 264 blocks re-read 4.3 MB of sy, more than a 1812^2
+// grid's 3.3 MB fill, and still win there.
+//
+// From the base points (BasePoints), a lane's row is its point's y taken to
+// world at its scan's pose and rounded (world_cells_ref's arithmetic step
+// for step, program_math.cuh), which needs its two coordinates and the
+// scan's (x, y, cos, sin), staged once a block in shared memory; the column
+// and the back-face keep test (the run's anchor and terminal taken to world
+// too, the cross product) run only for the lanes in the band, about M /
+// bands a block.  So the fused launch reads 2 T a lane a block where the
+// table's read one int32, and the pass no longer writes the (sy, sx)
+// tables and reads them back in a second launch.
 constexpr int kScatterThreads = 512;
 constexpr int kScatterBlocksPerSm = 2;
 constexpr int kScatterAhead = 8;   // lanes per thread whose rows load first
+// base scans whose poses a block stages in shared memory; a job with more
+// reads the rest from device memory (the same bits: cos and sin are the
+// same calls)
+constexpr int kStagedBases = 128;
 
-__global__ void __launch_bounds__(kScatterThreads)
-scatter_cells_kernel(const int32_t* __restrict__ sy,
-                     const int32_t* __restrict__ sx,
-                     uint8_t* __restrict__ occ, int M, int R, int band_rows,
+// Lanes given as (sy, sx) tables.
+struct CellLists {
+  const int32_t* sy;
+  const int32_t* sx;
+  int M;
+
+  struct Shared {};
+  using Pre = int32_t;
+  struct Job {
+    const int32_t* ys;
+    const int32_t* xs;
+    __device__ Pre load(int t) const { return __ldg(ys + t); }
+    __device__ int row(int, Pre y) const { return y; }
+    __device__ int col(int t) const { return __ldg(xs + t); }
+  };
+  static constexpr bool kStages = false;
+  __device__ Job job(int n, int, Shared&, bool) const {
+    return {sy + (size_t)n * M, sx + (size_t)n * M};
+  }
+};
+
+struct WorldParams {
+  double res, off;  // grid resolution; the full grid's origin below its center
+};
+
+// Lanes computed from the base scans' points (world_cells_ref): lane t =
+// b P + p is point p of base slot b.  row() is the cell's row in the halo
+// layout, or -1 where the point falls outside the full grid's rows; col()
+// its column, or -1 where it is not kept or falls outside the full grid or
+// the padded subgrid.
+template <typename T>
+struct BasePoints {
+  const T* lx;
+  const T* ly;
+  const int32_t* anchor;
+  const int32_t* term;
+  const uint8_t* has_run;
+  const uint8_t* mask;
+  const T* pose;
+  const T* center;
+  const T* vp;
+  const int32_t* subo;
+  int32_t* lim;
+  int B, P, G, h;
+  WorldParams prm;
+
+  struct Pose {
+    T x, y, c, s;
+  };
+  struct Shared {
+    Pose pose[kStagedBases];
+  };
+  struct Pre {
+    T a, b;
+  };
+  static constexpr bool kStages = true;
+
+  struct Job {
+    const T* lx;
+    const T* ly;
+    const int32_t* anchor;
+    const int32_t* term;
+    const uint8_t* has_run;
+    const uint8_t* mask;
+    const T* pose;
+    const Pose* staged;
+    T ox, oy, vx, vy, res;
+    int sox, soy, P, G, R, h;
+
+    __device__ Pose base(int b) const {
+      if (b < kStagedBases) return staged[b];
+      const T pt = pose[3 * b + 2];
+      return {pose[3 * b], pose[3 * b + 1], cos_(pt), sin_(pt)};
+    }
+    // pose_x + pc * lx - ps * ly and pose_y + ps * lx + pc * ly, PyTorch's
+    // order of the plain version
+    __device__ T world_x(const Pose& q, T a, T b) const {
+      return sub(add(q.x, mul(q.c, a)), mul(q.s, b));
+    }
+    __device__ T world_y(const Pose& q, T a, T b) const {
+      return add(add(q.y, mul(q.s, a)), mul(q.c, b));
+    }
+    __device__ Pre load(int t) const { return {lx[t], ly[t]}; }
+    __device__ int row(int t, Pre v) const {
+      const int gy = grid_idx(world_y(base(t / P), v.a, v.b), oy, res);
+      return gy >= 0 && gy < G ? gy - soy + h : -1;
+    }
+    __device__ int col(int t) const {
+      const int b = t / P;
+      if (!has_run[t] || !mask[b]) return -1;
+      const Pose q = base(b);
+      const int gx = grid_idx(world_x(q, lx[t], ly[t]), ox, res);
+      const int sx = gx - sox + h;
+      if (gx < 0 || gx >= G || sx < 0 || sx >= R) return -1;
+      const int row0 = b * P;
+      const int ia = row0 + anchor[t], it = row0 + term[t];
+      const T ax = world_x(q, lx[ia], ly[ia]), ay = world_y(q, lx[ia], ly[ia]);
+      const T tx = world_x(q, lx[it], ly[it]), ty = world_y(q, lx[it], ly[it]);
+      const T ss = sub(mul(sub(tx, ax), sub(vy, ay)), mul(sub(ty, ay), sub(vx, ax)));
+      return ss > (T)0 ? sx : -1;
+    }
+  };
+
+  // the job's pointers and scalars for a grid of R rows; its poses staged
+  // (the caller waits at a barrier before a lane reads them); the first
+  // band's block writes lim
+  __device__ Job job(int n, int R, Shared& sh, bool first) const {
+    const int sox = subo[2 * n], soy = subo[2 * n + 1];
+    const size_t nb = (size_t)n * B;
+    for (int b = threadIdx.x; b < B && b < kStagedBases; b += blockDim.x) {
+      const T* p = pose + 3 * (nb + b);
+      sh.pose[b] = {p[0], p[1], cos_(p[2]), sin_(p[2])};
+    }
+    if (first && threadIdx.x == 0) {
+      lim[2 * n] = G - soy;
+      lim[2 * n + 1] = G - sox;
+    }
+    const T off = (T)prm.off;
+    Job j;
+    j.lx = lx + nb * P;
+    j.ly = ly + nb * P;
+    j.anchor = anchor + nb * P;
+    j.term = term + nb * P;
+    j.has_run = has_run + nb * P;
+    j.mask = mask + nb;
+    j.pose = pose + 3 * nb;
+    j.staged = sh.pose;
+    j.ox = sub(center[3 * n], off);
+    j.oy = sub(center[3 * n + 1], off);
+    j.vx = vp[2 * n];
+    j.vy = vp[2 * n + 1];
+    j.res = (T)prm.res;
+    j.sox = sox;
+    j.soy = soy;
+    j.P = P;
+    j.G = G;
+    j.R = R;
+    j.h = h;
+    return j;
+  }
+};
+
+template <class Lanes>
+__global__ void __launch_bounds__(kScatterThreads, kScatterBlocksPerSm)
+scatter_cells_kernel(Lanes lanes, uint8_t* __restrict__ occ, int M, int R, int band_rows,
                      int bands) {
+  __shared__ typename Lanes::Shared sh;
   const int n = blockIdx.x / bands;
-  const int r_lo = (blockIdx.x - n * bands) * band_rows;
+  const int band = blockIdx.x - n * bands;
+  const int r_lo = band * band_rows;
   const int r_hi = min(R, r_lo + band_rows);
   const int tid = threadIdx.x;
   uint8_t* grid = occ + (size_t)n * R * R;
-  const int32_t* ys = sy + (size_t)n * M;
-  const int32_t* xs = sx + (size_t)n * M;
+  const typename Lanes::Job job = lanes.job(n, R, sh, band == 0);
 
+  typename Lanes::Pre pre[kScatterAhead];
+#pragma unroll
+  for (int i = 0; i < kScatterAhead; ++i) {
+    const int t = tid + i * kScatterThreads;
+    if (t < M) pre[i] = job.load(t);
+  }
+  if constexpr (Lanes::kStages) __syncthreads();
   int y_ahead[kScatterAhead];
 #pragma unroll
   for (int i = 0; i < kScatterAhead; ++i) {
     const int t = tid + i * kScatterThreads;
-    y_ahead[i] = t < M ? __ldg(ys + t) : -1;
+    y_ahead[i] = t < M ? job.row(t, pre[i]) : -1;
   }
 
   // 1. zero the band's bytes [a, b): a head up to 16-byte alignment, the
@@ -89,9 +261,9 @@ scatter_cells_kernel(const int32_t* __restrict__ sy,
   for (size_t t = tid; t < n16; t += kScatterThreads) body[t] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
-  // 2. the ones of the lanes whose row is in the band (sy < 0: no cell)
+  // 2. the ones of the lanes whose row is in the band (row < 0: no cell)
   auto mark = [&](int t, int y) {
-    const int x = __ldg(xs + t);
+    const int x = job.col(t);
     if (x >= 0 && x < R) grid[(size_t)y * R + x] = 1;
   };
 #pragma unroll
@@ -99,7 +271,7 @@ scatter_cells_kernel(const int32_t* __restrict__ sy,
     if (y_ahead[i] >= r_lo && y_ahead[i] < r_hi) mark(tid + i * kScatterThreads, y_ahead[i]);
 #pragma unroll 4
   for (int t = tid + kScatterAhead * kScatterThreads; t < M; t += kScatterThreads) {
-    const int y = __ldg(ys + t);
+    const int y = job.row(t, job.load(t));
     if (y >= r_lo && y < r_hi) mark(t, y);
   }
 }
@@ -489,18 +661,49 @@ int launch_chain(const void* occ, const void* taps, Store store, int N, int S,
 
 extern "C" int yag_smear_smem_bytes(int h) { return smear_smem_bytes(h); }
 
-extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
-                                 int N, int M, int R, void* stream) {
+namespace {
+
+template <class Lanes>
+int launch_scatter(Lanes lanes, void* occ, int N, int M, int R, void* stream) {
   // about kScatterBlocksPerSm blocks per SM, every job at least one band
   const long long rows_total = (long long)N * R;
   const long long blocks = (long long)kScatterBlocksPerSm * sm_count();
   const int band_rows = (int)std::min<long long>(
       R, std::max<long long>(1, (rows_total + blocks - 1) / blocks));
   const int bands = (R + band_rows - 1) / band_rows;
-  scatter_cells_kernel<<<(unsigned)((long long)N * bands), kScatterThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)sy, (const int32_t*)sx, (uint8_t*)occ, M, R, band_rows, bands);
+  scatter_cells_kernel<Lanes><<<(unsigned)((long long)N * bands), kScatterThreads, 0,
+                                (cudaStream_t)stream>>>(lanes, (uint8_t*)occ, M, R,
+                                                        band_rows, bands);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
+                                 int N, int M, int R, void* stream) {
+  return launch_scatter(CellLists{(const int32_t*)sy, (const int32_t*)sx, M}, occ, N, M, R,
+                        stream);
+}
+
+// params: res and the full grid's origin offset, as doubles
+extern "C" int yag_world_scatter(const void* lx, const void* ly, const void* anchor,
+                                 const void* term, const void* has_run, const void* mask,
+                                 const void* pose, const void* center, const void* vp,
+                                 const void* subo, void* occ, void* lim, int N, int B, int P,
+                                 int G, int S, int h, const void* params, int is_double,
+                                 void* stream) {
+  const double* d = (const double*)params;
+  const WorldParams prm{d[0], d[1]};
+  const int R = S + 2 * h;
+#define YAG_WORLD(T)                                                                       \
+  launch_scatter(                                                                          \
+      BasePoints<T>{(const T*)lx, (const T*)ly, (const int32_t*)anchor,                    \
+                    (const int32_t*)term, (const uint8_t*)has_run, (const uint8_t*)mask,   \
+                    (const T*)pose, (const T*)center, (const T*)vp, (const int32_t*)subo,  \
+                    (int32_t*)lim, B, P, G, h, prm},                                       \
+      occ, N, B * P, R, stream)
+  return is_double ? YAG_WORLD(double) : YAG_WORLD(float);
+#undef YAG_WORLD
 }
 
 // The identity kernel's 128-row x 256-column tiles hold a long chain per

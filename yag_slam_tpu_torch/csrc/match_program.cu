@@ -1,18 +1,8 @@
-// The matcher's device program around its grid and window kernels, in
-// three launches (matching/program_kernels.py):
+// The matcher's device program after its grid and window kernels, one
+// launch a search pass (matching/program_kernels.py); the points' cells
+// before them are computed inside those kernels (grid_build.cu's fused
+// scatter, window_sum.cu's fused window sum):
 //
-//   world_cells_kernel    one thread per base point: the point to world at
-//                         its scan's pose, the back-face keep test (its
-//                         run's anchor and terminal taken to world the same
-//                         way), its cell in the full grid and in the
-//                         subgrid's halo layout, the scatter's (sy, sx);
-//                         and per job the full-grid limits (G - soy,
-//                         G - sox) of the smear's mask;
-//   lattice_cells_kernel  one thread per (job, angle, query point): the
-//                         point turned by the angle, moved to the lattice's
-//                         first candidate and rounded into its subgrid
-//                         cell, the window sum's (sgy0, sgx0); and per job
-//                         the point count;
 //   score_reduce_kernel   a block per job, or a cluster of eight where the
 //                         lattice is large, over the pass's window sums: each
 //                         candidate's response (sum / points, times the
@@ -23,23 +13,23 @@
 //                         warp-shuffle reduction and one barrier; one row
 //                         of the packed (N, 2, 8) result.
 //
-// Replaces what the JAX package's matcher compiles with its Pallas kernels
-// into one XLA program (yag_slam_tpu/matching/matcher.py _make_core: the
-// world transform, correlation.keep_mask_for_viewpoint, world_to_grid_idx,
-// the lattice offsets of score_lattice_patch_batched, _lattice_penalty and
-// the vmapped reduce_best_pose), which the port ran as ~400 PyTorch ops.
+// With the fused scatter and window sum, replaces what the JAX package's
+// matcher compiles with its Pallas kernels into one XLA program
+// (yag_slam_tpu/matching/matcher.py _make_core: the world transform,
+// correlation.keep_mask_for_viewpoint, world_to_grid_idx, the lattice
+// offsets of score_lattice_patch_batched, _lattice_penalty and the vmapped
+// reduce_best_pose), which the port ran as ~400 PyTorch ops; this file
+// holds the tail from the window sums on.
 //
-// Rounding: the plain versions are PyTorch ops on the card, each rounding
-// its result.  So every product, sum and quotient here is an explicit
-// round-to-nearest intrinsic (nvcc fuses nothing into an FMA); a division
-// by a Python number is a product with its reciprocal, rounded in the
+// Rounding (program_math.cuh): the plain versions are PyTorch ops on the
+// card, each rounding its result, and so is every step here; a division by
+// a Python number is a product with its reciprocal, rounded in the
 // tensors' dtype, as PyTorch's CUDA division by a CPU scalar is; a
 // division by a tensor is exact; Python constants are rounded to the dtype
-// once; torch.round is rint (half to even); cos and sin are the CUDA math
-// library's, which PyTorch's kernels call too.  The float64 sums of the
-// reduction run in the job's fixed order (each thread's terms in turn,
-// then trees over the lanes and over the warps), not torch's: a float32
-// pose or moment rounded from them may come out an ulp apart.
+// once.  The float64 sums of the reduction run in the job's fixed order
+// (each thread's terms in turn, then trees over the lanes and over the
+// warps), not torch's: a float32 pose or moment rounded from them may come
+// out an ulp apart.
 //
 // score_reduce's bound is a few hundred ns of bytes or operations; what it
 // costs is latency: the loads of the window sums, the dependent chain of
@@ -51,25 +41,23 @@
 // which reach each other's responses through distributed shared memory
 // (program_kernels.reduce_shape picks the shape).
 //
-// Layout contract (checked by the wrappers in program_kernels.py): T is
-// float or double for every float tensor; lx, ly, anchor, term, has_run
-// (N, B, P), mask (N, B), pose (N, B, 3), center (N, 3), vp (N, 2), sub
-// (N, 2) int32; sy, sx (N, B * P) int32, lim (N, 2) int32; qlx, qly (N,
-// P), n_q (N,) int32, a pass's center rows (N, 3) at a row stride; sgy0,
-// sgx0 (N, NT, P) int32, n_int (N,) int32; raw (N, NT, NY, NX) int32;
-// packed (N, 2, 8); score_reduce's scratch, where given, (N, C, K * NT *
-// threads) of T.
+// Layout contract (checked by the wrapper in program_kernels.py): T is
+// float or double for every float tensor; raw (N, NT, NY, NX) int32; n_q
+// (N,) int32; a pass's center rows (N, 3) at a row stride; job centers (N,
+// 3); packed (N, 2, 8); score_reduce's scratch, where given, (N, C, K * NT
+// * threads) of T.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "program_math.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kPointThreads = 256;
-constexpr float kIdxClamp = 1073741824.0f;  // 2^30, correlation._IDX_CLAMP
 constexpr unsigned kFull = 0xffffffffu;
 // score_reduce: threads a block at most (program_kernels.REDUCE_MAX_THREADS);
 // shared memory a block has without asking, and at most
@@ -83,133 +71,6 @@ constexpr int kLoadBatch = 8;  // window sums a thread loads at once
 // (program_kernels._reduce_header_bytes)
 __host__ __device__ constexpr size_t reduce_header_bytes(int WT, size_t es) {
   return ((size_t)WT * (10 * sizeof(double) + es + sizeof(int)) + 7) / 8 * 8;
-}
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float round_even(float a) { return rintf(a); }
-__device__ __forceinline__ float cos_(float a) { return cosf(a); }
-__device__ __forceinline__ float sin_(float a) { return sinf(a); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ double round_even(double a) { return rint(a); }
-__device__ __forceinline__ double cos_(double a) { return cos(a); }
-__device__ __forceinline__ double sin_(double a) { return sin(a); }
-
-// correlation.world_to_grid_idx: round((w - origin) / res), clamped to
-// +-2^30 in floating point, as int32
-template <typename T>
-__device__ __forceinline__ int grid_idx(T w, T origin, T res) {
-  T g = round_even(div(sub(w, origin), res));
-  g = g < (T)-kIdxClamp ? (T)-kIdxClamp : g;
-  g = g > (T)kIdxClamp ? (T)kIdxClamp : g;
-  return (int)g;
-}
-
-// ---------------------------------------------------------------------------
-// world_cells
-// ---------------------------------------------------------------------------
-
-struct WorldParams {
-  double res, off;  // grid resolution; the full grid's origin below its center
-};
-
-template <typename T>
-__global__ void world_cells_kernel(const T* __restrict__ lx, const T* __restrict__ ly,
-                                   const int* __restrict__ anchor,
-                                   const int* __restrict__ term,
-                                   const uint8_t* __restrict__ has_run,
-                                   const uint8_t* __restrict__ mask,
-                                   const T* __restrict__ pose, const T* __restrict__ center,
-                                   const T* __restrict__ vp, const int* __restrict__ subo,
-                                   int* __restrict__ sy_out, int* __restrict__ sx_out,
-                                   int* __restrict__ lim, int N, int B, int P, int G, int S,
-                                   int h, WorldParams prm) {
-  const long long total = (long long)N * B * P;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int p = (int)(t % P);
-  const long long nb = t / P;  // n * B + b
-  const int n = (int)(nb / B);
-  const long long row = nb * P;
-  const int sox = subo[2 * n], soy = subo[2 * n + 1];
-  if (p == 0 && nb == (long long)n * B) {
-    lim[2 * n] = G - soy;
-    lim[2 * n + 1] = G - sox;
-  }
-  const T px = pose[3 * nb], py = pose[3 * nb + 1], pt = pose[3 * nb + 2];
-  const T pc = cos_(pt), ps = sin_(pt);
-  // pose_x + pc * lx - ps * ly and pose_y + ps * lx + pc * ly, PyTorch's
-  // order of the plain version
-  auto world = [&](long long i, T& wx, T& wy) {
-    const T a = lx[i], b = ly[i];
-    wx = sub(add(px, mul(pc, a)), mul(ps, b));
-    wy = add(add(py, mul(ps, a)), mul(pc, b));
-  };
-  T wx, wy;
-  world(row + p, wx, wy);
-  bool keep = has_run[row + p] != 0 && mask[nb] != 0;
-  if (keep) {
-    T ax, ay, tx, ty;
-    world(row + anchor[row + p], ax, ay);
-    world(row + term[row + p], tx, ty);
-    const T vx = vp[2 * n], vy = vp[2 * n + 1];
-    const T ss = sub(mul(sub(tx, ax), sub(vy, ay)), mul(sub(ty, ay), sub(vx, ax)));
-    keep = ss > (T)0;
-  }
-  const T res = (T)prm.res, off = (T)prm.off;
-  const int gx = grid_idx(wx, sub(center[3 * n], off), res);
-  const int gy = grid_idx(wy, sub(center[3 * n + 1], off), res);
-  const int R = S + 2 * h;
-  const int sx = gx - sox + h, sy = gy - soy + h;
-  const bool ok = keep && gx >= 0 && gx < G && gy >= 0 && gy < G && sx >= 0 && sx < R &&
-                  sy >= 0 && sy < R;
-  sy_out[t] = ok ? sy : -1;
-  sx_out[t] = ok ? sx : 0;
-}
-
-// ---------------------------------------------------------------------------
-// lattice_cells
-// ---------------------------------------------------------------------------
-
-struct LatticeParams {
-  double xy_size, xy_res, ang_size, ang_res, res, off, far;
-};
-
-template <typename T>
-__global__ void lattice_cells_kernel(const T* __restrict__ qlx, const T* __restrict__ qly,
-                                     const int* __restrict__ n_q, const T* __restrict__ center,
-                                     long long cstride, const T* __restrict__ jc,
-                                     const int* __restrict__ subo, int* __restrict__ sgy0,
-                                     int* __restrict__ sgx0, int* __restrict__ n_int, int N,
-                                     int NT, int P, LatticeParams prm) {
-  const long long total = (long long)N * NT * P;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int p = (int)(t % P);
-  const int k = (int)((t / P) % NT);
-  const int n = (int)(t / ((long long)P * NT));
-  const int nq = n_q[n];
-  if (k == 0 && p == 0) n_int[n] = (int)round_even((T)nq);
-  const T* c = center + n * cstride;
-  const T off = (T)prm.off, res = (T)prm.res;
-  const T ox = sub(jc[3 * n], off), oy = sub(jc[3 * n + 1], off);
-  const T qx = p < nq ? qlx[(long long)n * P + p] : (T)prm.far;
-  const T qy = p < nq ? qly[(long long)n * P + p] : (T)prm.far;
-  // correlation.lattice_values at candidate 0 of x and y, candidate k of
-  // theta: (center - size) + index * step
-  const T x0 = add(sub(c[0], (T)prm.xy_size), mul((T)0, (T)prm.xy_res));
-  const T y0 = add(sub(c[1], (T)prm.xy_size), mul((T)0, (T)prm.xy_res));
-  const T tv = add(sub(c[2], (T)prm.ang_size), mul((T)k, (T)prm.ang_res));
-  const T cs = cos_(tv), sn = sin_(tv);
-  const T rx = sub(mul(cs, qx), mul(sn, qy));
-  const T ry = add(mul(sn, qx), mul(cs, qy));
-  sgx0[t] = grid_idx(add(x0, rx), ox, res) - subo[2 * n];
-  sgy0[t] = grid_idx(add(y0, ry), oy, res) - subo[2 * n + 1];
 }
 
 // ---------------------------------------------------------------------------
@@ -575,54 +436,6 @@ unsigned blocks_for(long long n, int threads) {
 }
 
 }  // namespace
-
-extern "C" int yag_world_cells(const void* lx, const void* ly, const void* anchor,
-                               const void* term, const void* has_run, const void* mask,
-                               const void* pose, const void* center, const void* vp,
-                               const void* subo, void* sy, void* sx, void* lim, int N, int B,
-                               int P, int G, int S, int h, const void* params, int is_double,
-                               void* stream) {
-  const long long total = (long long)N * B * P;
-  if (total == 0) return 0;
-  const double* d = (const double*)params;
-  const WorldParams prm{d[0], d[1]};
-  const unsigned blocks = blocks_for(total, kPointThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-#define YAG_WORLD(T)                                                                   \
-  world_cells_kernel<T><<<blocks, kPointThreads, 0, st>>>(                             \
-      (const T*)lx, (const T*)ly, (const int*)anchor, (const int*)term,                \
-      (const uint8_t*)has_run, (const uint8_t*)mask, (const T*)pose, (const T*)center, \
-      (const T*)vp, (const int*)subo, (int*)sy, (int*)sx, (int*)lim, N, B, P, G, S, h, prm)
-  if (is_double)
-    YAG_WORLD(double);
-  else
-    YAG_WORLD(float);
-#undef YAG_WORLD
-  return (int)cudaGetLastError();
-}
-
-extern "C" int yag_lattice_cells(const void* qlx, const void* qly, const void* n_q,
-                                 const void* center, long long cstride, const void* jc,
-                                 const void* subo, void* sgy0, void* sgx0, void* n_int, int N,
-                                 int NT, int P, const void* params, int is_double,
-                                 void* stream) {
-  const long long total = (long long)N * NT * P;
-  if (total == 0) return 0;
-  const double* d = (const double*)params;
-  const LatticeParams prm{d[0], d[1], d[2], d[3], d[4], d[5], d[6]};
-  const unsigned blocks = blocks_for(total, kPointThreads);
-  cudaStream_t st = (cudaStream_t)stream;
-#define YAG_LATTICE(T)                                                                 \
-  lattice_cells_kernel<T><<<blocks, kPointThreads, 0, st>>>(                           \
-      (const T*)qlx, (const T*)qly, (const int*)n_q, (const T*)center, cstride,        \
-      (const T*)jc, (const int*)subo, (int*)sgy0, (int*)sgx0, (int*)n_int, N, NT, P, prm)
-  if (is_double)
-    YAG_LATTICE(double);
-  else
-    YAG_LATTICE(float);
-#undef YAG_LATTICE
-  return (int)cudaGetLastError();
-}
 
 extern "C" int yag_score_reduce(const void* raw, const void* n_q, const void* center,
                                 long long cstride, const void* jc, void* packed, void* stats,

@@ -13,13 +13,33 @@
 // for the TPU's lane alignment; here the stride is a runtime argument and q
 // is read in place.
 //
-// Layout contract (checked by the wrapper in matching/kernels.py):
-//   q (N, S, S) uint8; gy0, gx0 (N, K, P) int32 subgrid cells of each
-//   point at the lattice origin; n_pts (N,) int32; out (N, K, NY, NX) int32.
+// Where a block's origin cells come from (a template argument of both
+// kernels):
+//   CellTable        the (N, K, P) tables gy0, gx0 of the window_sum
+//                    wrapper (matching/kernels.py), and n_pts;
+//   LatticeCells<T>  the query points themselves (program_kernels.
+//                    lattice_window_sum): the block turns its points by its
+//                    angle, moves them to the lattice's first candidate and
+//                    rounds them into their subgrid cells as it stages them,
+//                    the arithmetic of program_kernels.lattice_cells_ref
+//                    step for step (program_math.cuh).  This replaces a
+//                    launch that wrote the (N, K, P) cells to device memory
+//                    for these kernels to read back: a block already owns
+//                    one (angle, job) and stages that pair's points, so it
+//                    pays one cos and sin and P / threads rotations a
+//                    thread, and the pass one launch fewer.
+//
+// Layout contract (checked by the wrappers):
+//   q (N, S, S) uint8; CellTable: gy0, gx0 (N, K, P) int32 subgrid cells of
+//   each point at the lattice origin, n_pts (N,) int32; LatticeCells: qlx,
+//   qly (N, P) float or double query points, n_q (N,) int32, the pass's
+//   centers (N, 3) at a row stride, the jobs' centers (N, 3), the subgrid
+//   origins (N, 2) int32; out (N, K, NY, NX) int32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device.cuh"
+#include "program_math.cuh"
 
 namespace {
 
@@ -28,18 +48,100 @@ constexpr int kThreads = 256;        // outputs per block of the per-output kern
 constexpr int kMaxOutsPerWarp = 4;   // outputs one warp of the split kernel sums
 constexpr int kMaxWarps = 8;
 
+__device__ __forceinline__ int clamp_points(int n, int P) { return n < 0 ? 0 : (n > P ? P : n); }
+
+// The origin cells of the window_sum wrapper's tables.
+struct CellTable {
+  const int32_t* gy0;
+  const int32_t* gx0;
+  const int32_t* n_pts;
+  int K, P;
+
+  struct Block {
+    const int32_t* py;
+    const int32_t* px;
+    __device__ void cell(int p, int& y, int& x) const {
+      y = py[p];
+      x = px[p];
+    }
+  };
+  __device__ int count(int n) const { return clamp_points(n_pts[n], P); }
+  __device__ Block block(int n, int k) const {
+    const size_t row = ((size_t)n * K + k) * P;
+    return {gy0 + row, gx0 + row};
+  }
+};
+
+// the lattice's scalars: its x / y and theta extents and steps, the grid's
+// resolution, the full grid's origin below the job's center
+struct LatticeParams {
+  double xy_size, xy_res, ang_size, ang_res, res, off;
+};
+
+// The origin cells computed from the query points: the block's angle's cos
+// and sin once, then per point its turn, its move to the lattice's first
+// candidate and its rounding, as program_kernels.lattice_cells_ref does it.
+// The point count is n_q itself: the plain chain counts rint((T)n_q)
+// points, which is n_q for every count up to 2^24, far past any point
+// capacity, and the count is clamped to P anyway.  Lanes at or past n_q
+// (the plain chain's far-away padding) are never staged.
+template <typename T>
+struct LatticeCells {
+  const T* qlx;
+  const T* qly;
+  const int32_t* n_q;
+  const T* center;     // the pass's centers, rows cstride apart
+  long long cstride;
+  const T* jc;         // the jobs' centers (the full grid's)
+  const int32_t* subo; // the subgrids' origins (sox, soy)
+  int P;
+  LatticeParams prm;
+
+  struct Block {
+    const T* lx;
+    const T* ly;
+    T x0, y0, ox, oy, cs, sn, res;
+    int sox, soy;
+    __device__ void cell(int p, int& y, int& x) const {
+      const T qx = lx[p], qy = ly[p];
+      const T rx = sub(mul(cs, qx), mul(sn, qy));
+      const T ry = add(mul(sn, qx), mul(cs, qy));
+      x = grid_idx(add(x0, rx), ox, res) - sox;
+      y = grid_idx(add(y0, ry), oy, res) - soy;
+    }
+  };
+  __device__ int count(int n) const { return clamp_points(n_q[n], P); }
+  __device__ Block block(int n, int k) const {
+    const T* c = center + n * cstride;
+    const T off = (T)prm.off;
+    // correlation.lattice_values at candidate 0 of x and y, candidate k of
+    // theta: (center - size) + index * step
+    const T tv = add(sub(c[2], (T)prm.ang_size), mul((T)k, (T)prm.ang_res));
+    Block b;
+    b.lx = qlx + (size_t)n * P;
+    b.ly = qly + (size_t)n * P;
+    b.x0 = add(sub(c[0], (T)prm.xy_size), mul((T)0, (T)prm.xy_res));
+    b.y0 = add(sub(c[1], (T)prm.xy_size), mul((T)0, (T)prm.xy_res));
+    b.ox = sub(jc[3 * n], off);
+    b.oy = sub(jc[3 * n + 1], off);
+    b.cs = cos_(tv);
+    b.sn = sin_(tv);
+    b.res = (T)prm.res;
+    b.sox = subo[2 * n];
+    b.soy = subo[2 * n + 1];
+    return b;
+  }
+};
+
 // Many outputs (the loop matcher's 4 x 10 x 40 x 40): one block per (angle
 // k, job n, group of 256 lattice outputs); a thread owns one output (j, i)
 // and walks the job's points, whose origin cells are staged in shared
 // memory.  Neighbouring threads read neighbouring cells of the same grid
 // row, so each warp load touches one or two sectors of the uint8 grid, and
 // there are enough warps to hide the chain of P loads per thread.
-__global__ void window_sum_kernel(const uint8_t* __restrict__ q,
-                                  const int32_t* __restrict__ gy0,
-                                  const int32_t* __restrict__ gx0,
-                                  const int32_t* __restrict__ n_pts,
-                                  int32_t* __restrict__ out,
-                                  int S, int K, int P, int NY, int NX,
+template <class Cells>
+__global__ void window_sum_kernel(const uint8_t* __restrict__ q, Cells cells,
+                                  int32_t* __restrict__ out, int S, int K, int NY, int NX,
                                   int stride) {
   __shared__ int s_y[kChunk];
   __shared__ int s_x[kChunk];
@@ -51,20 +153,15 @@ __global__ void window_sum_kernel(const uint8_t* __restrict__ q,
   const int i = o - j * NX;
   const int dy = stride * j;
   const int dx = stride * i;
-  int npts = n_pts[n];
-  npts = npts < 0 ? 0 : (npts > P ? P : npts);
+  const int npts = cells.count(n);
+  const typename Cells::Block blk = cells.block(n, k);
   const uint8_t* g = q + (size_t)n * S * S;
-  const int32_t* py = gy0 + ((size_t)n * K + k) * P;
-  const int32_t* px = gx0 + ((size_t)n * K + k) * P;
 
   int acc = 0;
   for (int p0 = 0; p0 < npts; p0 += kChunk) {
     const int cnt = min(kChunk, npts - p0);
     __syncthreads();
-    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
-      s_y[t] = py[p0 + t];
-      s_x[t] = px[p0 + t];
-    }
+    for (int t = threadIdx.x; t < cnt; t += blockDim.x) blk.cell(p0 + t, s_y[t], s_x[t]);
     __syncthreads();
     if (o < n_out) {
       for (int p = 0; p < cnt; ++p) {
@@ -85,13 +182,10 @@ __global__ void window_sum_kernel(const uint8_t* __restrict__ q,
 // P / 32 each: ~6 at P = 180) and a warp reduction adding them (int32 sums
 // are order-free, so the result is exact).  A block of 1-8 warps per
 // (angle k, job n, output tile) stages the points in shared memory.
-__global__ void window_sum_split_kernel(const uint8_t* __restrict__ q,
-                                        const int32_t* __restrict__ gy0,
-                                        const int32_t* __restrict__ gx0,
-                                        const int32_t* __restrict__ n_pts,
-                                        int32_t* __restrict__ out,
-                                        int S, int K, int P, int NY, int NX,
-                                        int stride, int outs_per_warp) {
+template <class Cells>
+__global__ void window_sum_split_kernel(const uint8_t* __restrict__ q, Cells cells,
+                                        int32_t* __restrict__ out, int S, int K, int NY,
+                                        int NX, int stride, int outs_per_warp) {
   __shared__ int s_y[kChunk];
   __shared__ int s_x[kChunk];
   const int k = blockIdx.x;
@@ -100,11 +194,9 @@ __global__ void window_sum_split_kernel(const uint8_t* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int n_out = NY * NX;
   const int o0 = (blockIdx.z * (blockDim.x >> 5) + warp) * outs_per_warp;
-  int npts = n_pts[n];
-  npts = npts < 0 ? 0 : (npts > P ? P : npts);
+  const int npts = cells.count(n);
+  const typename Cells::Block blk = cells.block(n, k);
   const uint8_t* g = q + (size_t)n * S * S;
-  const int32_t* py = gy0 + ((size_t)n * K + k) * P;
-  const int32_t* px = gx0 + ((size_t)n * K + k) * P;
 
   bool live[kMaxOutsPerWarp];
   int dy[kMaxOutsPerWarp], dx[kMaxOutsPerWarp], acc[kMaxOutsPerWarp];
@@ -121,10 +213,7 @@ __global__ void window_sum_split_kernel(const uint8_t* __restrict__ q,
   for (int p0 = 0; p0 < npts; p0 += kChunk) {
     const int cnt = min(kChunk, npts - p0);
     __syncthreads();
-    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
-      s_y[t] = py[p0 + t];
-      s_x[t] = px[p0 + t];
-    }
+    for (int t = threadIdx.x; t < cnt; t += blockDim.x) blk.cell(p0 + t, s_y[t], s_x[t]);
     __syncthreads();
     for (int p = lane; p < cnt; p += 32) {
       const int y = s_y[p];
@@ -148,12 +237,9 @@ __global__ void window_sum_split_kernel(const uint8_t* __restrict__ q,
   }
 }
 
-}  // namespace
-
-extern "C" int yag_window_sum(const void* q, const void* gy0, const void* gx0,
-                              const void* n_pts, void* out, int N, int S,
-                              int K, int P, int NY, int NX, int stride,
-                              void* stream) {
+template <class Cells>
+int launch(const void* q, Cells cells, void* out, int N, int S, int K, int NY, int NX,
+           int stride, void* stream) {
   const long long n_out = (long long)NY * NX;
   // from 8 warps' worth of outputs per SM on, one output per thread fills
   // the card and its coalesced reads win (on an H100, 4 x 10 x 40 x 40:
@@ -161,9 +247,8 @@ extern "C" int yag_window_sum(const void* q, const void* gy0, const void* gx0,
   // kernel's short chains win (10 x 25 x 25: 0.010 ms against 0.017)
   if ((long long)N * K * n_out >= 8LL * 32 * sm_count()) {
     dim3 grid(K, N, (unsigned)((n_out + kThreads - 1) / kThreads));
-    window_sum_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)q, (const int32_t*)gy0, (const int32_t*)gx0,
-        (const int32_t*)n_pts, (int32_t*)out, S, K, P, NY, NX, stride);
+    window_sum_kernel<Cells><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)q, cells, (int32_t*)out, S, K, NY, NX, stride);
     return (int)cudaGetLastError();
   }
   // the largest tile that still gives two blocks per SM: fewer outputs per
@@ -180,8 +265,36 @@ extern "C" int yag_window_sum(const void* q, const void* gy0, const void* gx0,
   }
   const long long per = (long long)ow * warps;
   dim3 grid(K, N, (unsigned)((n_out + per - 1) / per));
-  window_sum_split_kernel<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)q, (const int32_t*)gy0, (const int32_t*)gx0,
-      (const int32_t*)n_pts, (int32_t*)out, S, K, P, NY, NX, stride, ow);
+  window_sum_split_kernel<Cells><<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)q, cells, (int32_t*)out, S, K, NY, NX, stride, ow);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int yag_window_sum(const void* q, const void* gy0, const void* gx0,
+                              const void* n_pts, void* out, int N, int S,
+                              int K, int P, int NY, int NX, int stride,
+                              void* stream) {
+  const CellTable cells{(const int32_t*)gy0, (const int32_t*)gx0, (const int32_t*)n_pts, K, P};
+  return launch(q, cells, out, N, S, K, NY, NX, stride, stream);
+}
+
+// params: the LatticeParams as doubles
+extern "C" int yag_lattice_window_sum(const void* q, const void* qlx, const void* qly,
+                                      const void* n_q, const void* center,
+                                      long long cstride, const void* jc,
+                                      const void* subo, void* out, int N, int S, int K,
+                                      int P, int NY, int NX, int stride,
+                                      const void* params, int is_double, void* stream) {
+  const double* d = (const double*)params;
+  const LatticeParams prm{d[0], d[1], d[2], d[3], d[4], d[5]};
+#define YAG_LATTICE(T)                                                                  \
+  launch(q,                                                                             \
+         LatticeCells<T>{(const T*)qlx, (const T*)qly, (const int32_t*)n_q,             \
+                         (const T*)center, cstride, (const T*)jc, (const int32_t*)subo, \
+                         P, prm},                                                       \
+         out, N, S, K, NY, NX, stride, stream)
+  return is_double ? YAG_LATTICE(double) : YAG_LATTICE(float);
+#undef YAG_LATTICE
 }

@@ -154,16 +154,15 @@ def occupancy_cells(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
 
     wx, wy, keep: (N, B, P); ox, oy: (N,) full-grid origins; sox, soy: (N,)
     subgrid origins in cells."""
-    N = wx.shape[0]
     R = S + 2 * h
     gx = world_to_grid_idx(wx, ox[:, None, None], res)
     gy = world_to_grid_idx(wy, oy[:, None, None], res)
     inb = (gx >= 0) & (gx < G) & (gy >= 0) & (gy < G) & keep
     sx = gx - sox.to(torch.int32)[:, None, None] + h
     sy = gy - soy.to(torch.int32)[:, None, None] + h
-    ok = (inb & (sx >= 0) & (sx < R) & (sy >= 0) & (sy < R)).reshape(N, -1)
-    sy = torch.where(ok, sy.reshape(N, -1), -1).to(torch.int32).contiguous()
-    sx = torch.where(ok, sx.reshape(N, -1), 0).to(torch.int32).contiguous()
+    ok = (inb & (sx >= 0) & (sx < R) & (sy >= 0) & (sy < R)).flatten(1)
+    sy = torch.where(ok, sy.flatten(1), -1).to(torch.int32).contiguous()
+    sx = torch.where(ok, sx.flatten(1), 0).to(torch.int32).contiguous()
     return sy, sx
 
 
@@ -208,13 +207,20 @@ def build_grid_staged(wx, wy, keep, ox, oy, sox, soy, *, G: int, S: int,
 
 def grid_from_cells(sy, sx, lim, *, S: int, h: int, taps, staged: bool = False):
     """The grid build from the scatter cells on: :func:`kernels.scatter_cells`
-    of (sy, sx) (as :func:`occupancy_cells` or ``program_kernels.world_cells``
-    give them), then :func:`kernels.smear_quantize` with the full-grid limits
-    `lim` (N, 2) int32.  Returns (q (N, S, S) uint8, None); with `staged`,
-    the staged route (:func:`kernels.smear_grid`, then
-    :func:`kernels.quantize_mask`) and its float32 grid before quantize and
-    mask: (q, grid), q the same bits."""
-    occ = K.scatter_cells(sy, sx, S + 2 * h)
+    of (sy, sx) (as :func:`occupancy_cells` gives them), then
+    :func:`grid_from_occupancy`."""
+    return grid_from_occupancy(K.scatter_cells(sy, sx, S + 2 * h), lim, S=S, h=h, taps=taps,
+                               staged=staged)
+
+
+def grid_from_occupancy(occ, lim, *, S: int, h: int, taps, staged: bool = False):
+    """The grid build from the (N, S + 2h, S + 2h) uint8 occupancy on (as
+    :func:`kernels.scatter_cells` or ``program_kernels.world_scatter`` give
+    it): :func:`kernels.smear_quantize` with the full-grid limits `lim` (N,
+    2) int32.  Returns (q (N, S, S) uint8, None); with `staged`, the staged
+    route (:func:`kernels.smear_grid`, then :func:`kernels.quantize_mask`)
+    and its float32 grid before quantize and mask: (q, grid), q the same
+    bits."""
     if staged:
         grid = K.smear_grid(occ, taps, S, h)
         return K.quantize_mask(grid, lim), grid

@@ -4,9 +4,11 @@ Dispatch goes by the device of the tensors: CPU tensors run the plain
 version (``*_ref``); CUDA tensors launch the hand-written kernel from
 ``csrc/`` or raise.  Nothing falls back from CUDA to the plain version.
 
-``LAUNCHES`` counts kernel launches per wrapper (plain ints; callers may
+``LAUNCHES`` counts kernel launches per kernel (plain ints; callers may
 reset them), so a run can show that its main path went through the
-kernels.  A wrapper called while its thread captures a CUDA graph
+kernels: the wrappers here, and ``program_kernels``' fused wrappers, which
+launch the scatter_cells and window_sum kernels fed by points in place of
+cell tables, count into it.  A wrapper called while its thread captures a CUDA graph
 (:func:`captured_launches`) counts into the capture instead: those
 launches run at each replay, which adds them (:func:`add_launches`).
 Another module's wrappers that run inside the matcher's graphs keep their
@@ -28,7 +30,9 @@ LAUNCHES = {"scatter_cells": 0, "smear_quantize": 0, "smear_grid": 0,
 # Per wrapper: its CUDA source, the Pallas kernels it replaces as
 # "file:line" of each kernel's def (the first is the one it stands in for
 # on the matcher's large-grid path), and pieces of the CUDA kernels' names
-# that pick its launches out of a profiler trace.
+# that pick its launches out of a profiler trace (a trace reader matches
+# program_kernels.KERNELS' first: their fused instances' names hold these
+# kernels' names too).
 _TPU = "yag_slam_tpu/matching/pallas_kernels.py"
 KERNELS = {
     "scatter_cells": dict(
@@ -332,7 +336,7 @@ def window_sum_ref(q, gy0, gx0, n_pts, ny: int, nx: int, stride: int):
         ok = ((y >= 0) & (y < S))[:, :, :, None] & ((x >= 0) & (x < S))[:, :, None, :]
         ok = ok & lane_ok[:, :, None, None]
         lin = y.clamp(0, S - 1)[:, :, :, None] * S + x.clamp(0, S - 1)[:, :, None, :]
-        vals = torch.gather(qf, 1, lin.reshape(N, -1)).reshape(lin.shape)
+        vals = torch.gather(qf, 1, lin.flatten(1)).reshape(lin.shape)
         out[:, k] = torch.where(ok, vals, 0).sum(dim=1, dtype=torch.int32)
     return out
 

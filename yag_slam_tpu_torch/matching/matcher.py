@@ -13,12 +13,15 @@ paths (``match_scan_sets``, ``match_scan_sets_with_map``) and the opt-in
 - the host picks a tight, bucketed **subgrid** around the occupied bounding
   box of each match; cells outside it are provably zero, so building and
   scoring against it is exact;
-- each dispatch builds the quantized grids (kernels ``scatter_cells`` and
-  ``smear_quantize``; with ``return_meta`` the staged ``scatter_cells`` ->
+- each dispatch builds the quantized grids (the base points' occupancy in
+  one ``scatter_cells`` launch fed by the points, ``program_kernels.
+  world_scatter``, then ``smear_quantize``; with ``return_meta`` the staged
   ``smear_grid`` -> quantize build, which keeps the float32 grid), scores
-  the coarse and fine lattices (kernel ``window_sum``) and reduces them on
-  the device, then copies one (N, 2, 8) tensor to the host, without
-  blocking until a handle's ``.result()`` asks for it;
+  the coarse and fine lattices (one ``window_sum`` launch a pass fed by the
+  query points, ``program_kernels.lattice_window_sum``) and reduces them on
+  the device (``score_reduce``): on the card four launches for a coarse
+  pass, six with the fine one; then it copies one (N, 2, 8) tensor to the
+  host, without blocking until a handle's ``.result()`` asks for it;
 - on CUDA that device program is a CUDA graph per batch shape, shared by
   the process's matchers (:mod:`yag_slam_tpu_torch.matching.graphs`): a
   dispatch stages its inputs with one non-blocking copy, replays the graph
@@ -41,7 +44,6 @@ from yag_slam_tpu_torch._device import DEFAULT_DEVICE, resolve_device
 from yag_slam_tpu_torch.core.config import ScanMatcherConfig, make_config
 from yag_slam_tpu_torch.core.transform import Transform
 from yag_slam_tpu_torch.matching import correlation as C
-from yag_slam_tpu_torch.matching import kernels as K
 from yag_slam_tpu_torch.matching import program_kernels as PK
 from yag_slam_tpu_torch.matching.graphs import GRAPHS
 
@@ -519,25 +521,6 @@ class CorrelativeScanMatcher:
         st["taps"] = self._taps
         return st
 
-    def _score_pass(self, q2d, inp, center, fine, penalty, coarse_offset):
-        """One pass's candidate lattice as plain tensor code
-        (correlation.score_lattice) around `center` = (cx, cy, ct), each
-        (N,): the coarse pass, or with `fine` the fine one.  `inp` holds the
-        padded query lanes (qx, qy), their counts n_pts, the full-grid
-        origins (ox, oy) and the subgrid origins (sox, soy).  Returns
-        score_lattice's (out, xvals, yvals, tvals); reduce_best_pose of
-        them is what :meth:`_compute`'s lattice_cells, window_sum and
-        score_reduce give for the pass."""
-        lat = self._lattices(coarse_offset)[int(bool(fine))]
-        return C.score_lattice(
-            q2d, inp["qx"], inp["qy"], inp["n_pts"], *center, inp["ox"],
-            inp["oy"], inp["sox"], inp["soy"], grid_size=self.grid_size,
-            grid_res=self.config.resolution, penalize=penalty,
-            karto_penalties=self.config.karto_penalty_tuple(), spec=lat.spec,
-            xy_size=lat.xy_size, xy_res=lat.xy_res, ang_size=lat.ang_size,
-            ang_res=lat.ang_res,
-        )
-
     @torch.no_grad()
     def _run(self, args, P, penalty, do_fine, coarse_offset, S, queries=None):
         """Grid build + coarse (+ fine) pass for a batch of jobs on the
@@ -554,27 +537,26 @@ class CorrelativeScanMatcher:
 
     def _compute(self, st, S, penalty, do_fine, coarse_offset):
         """The device program of :meth:`_run` on staged inputs (`st` as
-        :meth:`_stage` gives it): the base points' scatter cells
-        (program_kernels.world_cells), the grid build, then per pass the
-        lattice-origin cells, the window sums and the reduction into the
-        packed result (program_kernels.lattice_cells, kernels.window_sum,
-        program_kernels.score_reduce).  Reads only `st`'s tensors and Python
-        constants and never waits for the card, so a CUDA graph can capture
-        it: the fine pass's center is the coarse row of the result, on the
-        device."""
+        :meth:`_stage` gives it): the base points' occupancy grid
+        (program_kernels.world_scatter), its smear, then per pass the
+        window sums at the query points' lattice cells and the reduction
+        into the packed result (program_kernels.lattice_window_sum,
+        program_kernels.score_reduce): on the card one launch each.  Reads
+        only `st`'s tensors and Python constants and never waits for the
+        card, so a CUDA graph can capture it: the fine pass's center is the
+        coarse row of the result, on the device."""
         G, h, res = self.grid_size, self._half, self.config.resolution
-        sy, sx, lim = PK.world_cells(
+        occ, lim = PK.world_scatter(
             *(st[k] for k in ("lx", "ly", "anchor", "term", "has_run", "mask", "pose",
                               "center", "vp", "sub")), G=G, S=S, h=h, res=res)
-        q2d, grid = C.grid_from_cells(sy, sx, lim, S=S, h=h, taps=st["taps"],
-                                      staged=self.return_meta)
+        q2d, grid = C.grid_from_occupancy(occ, lim, S=S, h=h, taps=st["taps"],
+                                          staged=self.return_meta)
         job_center, n_q = st["center"], st["n_q"]
         packed = torch.empty((n_q.shape[0], 2, 8), dtype=self.dtype, device=n_q.device)
         center = job_center
         for row, lat in enumerate(self._lattices(coarse_offset)[:1 + bool(do_fine)]):
-            sgy0, sgx0, n_int = PK.lattice_cells(st["qlx"], st["qly"], n_q, center,
-                                                 job_center, st["sub"], lat, G=G, res=res)
-            raw = K.window_sum(q2d, sgy0, sgx0, n_int, lat.ny, lat.nx, lat.stride)
+            raw = PK.lattice_window_sum(q2d, st["qlx"], st["qly"], n_q, center, job_center,
+                                        st["sub"], lat, G=G, res=res)
             PK.score_reduce(raw, n_q, center, job_center, packed, row, lat, G=G, res=res,
                             penalize=penalty, karto=self.config.karto_penalty_tuple(),
                             copy_fine=not do_fine)

@@ -1,14 +1,15 @@
-"""The matcher's device program around its grid and window kernels: three
-kernels, each beside its plain PyTorch twin.
+"""The matcher's device program around its smear: three kernels, each
+beside its plain PyTorch twin.
 
 ``CorrelativeScanMatcher._compute`` runs, for a batch of jobs:
 
-1. :func:`world_cells`: the base scans' points to world, the back-face
-   keep mask and the points' scatter cells, which feed
-   ``kernels.scatter_cells``;
-2. the grid build (``kernels.scatter_cells``, ``kernels.smear_quantize``);
-3. per search pass, :func:`lattice_cells` (the query points' cells at the
-   lattice origin, which feed ``kernels.window_sum``), the window sum, and
+1. :func:`world_scatter`: the base scans' points to world, the back-face
+   keep mask, their cells and the occupancy grid of those cells, in one
+   launch of ``kernels.scatter_cells``' kernel fed by the points;
+2. the smear (``kernels.smear_quantize``);
+3. per search pass, :func:`lattice_window_sum` (the query points' cells at
+   the lattice origin and the window sums over them, in one launch of
+   ``kernels.window_sum``'s kernel fed by the points) and
    :func:`score_reduce` (responses, penalty, the tie-averaged best pose and
    its windowed moments, written into the packed (N, 2, 8) result).
 
@@ -17,16 +18,20 @@ Pallas kernels; the plain twins (``*_ref``) are the port's tensor ops for
 the same arithmetic, the code the matcher ran before these kernels.
 
 Dispatch goes by the device of the tensors, as in ``kernels.py``: CPU
-tensors run the twin; CUDA tensors launch the hand-written kernel of
-``csrc/match_program.cu`` or raise.  Nothing falls back from CUDA to the
-twin.  The kernels take the twins' float32 or float64 and do their
-arithmetic step for step as PyTorch does it on the card: each product, sum
-and quotient rounded on its own, a division by a Python number as a
-product with its reciprocal, a division by a tensor exact.
+tensors run the twin; CUDA tensors launch the hand-written kernel or
+raise.  Nothing falls back from CUDA to the twin.  The kernels take the
+twins' float32 or float64 and do their arithmetic step for step as PyTorch
+does it on the card: each product, sum and quotient rounded on its own, a
+division by a Python number as a product with its reciprocal, a division
+by a tensor exact (csrc/program_math.cuh).
 
 ``LAUNCHES`` counts the kernels' launches, apart from ``kernels.LAUNCHES``
 but through ``kernels._count``, so that launches captured in the matcher's
-CUDA graphs count at each replay.
+CUDA graphs count at each replay.  A launch of :func:`world_scatter` or
+:func:`lattice_window_sum` is a launch of the scatter_cells or window_sum
+kernel too, fed by the points in place of the tables, and also counts
+there: ``kernels.LAUNCHES`` counts each kernel's launches whatever feeds
+it, this table those of the fused instances.
 """
 from __future__ import annotations
 
@@ -41,26 +46,29 @@ from yag_slam_tpu_torch.matching import correlation as C
 from yag_slam_tpu_torch.matching import kernels as K
 from yag_slam_tpu_torch.matching.kernels import _check, _on_cuda, _require, _stream
 
-LAUNCHES = {"world_cells": 0, "lattice_cells": 0, "score_reduce": 0}
+LAUNCHES = {"world_scatter": 0, "lattice_window_sum": 0, "score_reduce": 0}
 K.register_launches(LAUNCHES)
 
 # Per wrapper: its CUDA source, what it replaces in the JAX package
-# ("file:line"; XLA around the Pallas kernels there, no Pallas kernel of
-# its own), the first the line it stands in for, and its kernel's name in
-# a profiler trace.
-_SRC = "yag_slam_tpu_torch/csrc/match_program.cu"
+# ("file:line"; the Pallas kernel it fuses first, where it fuses one, then
+# the XLA lines around the Pallas kernels there), and pieces of its CUDA
+# kernel's name in a profiler trace (the fused instances' cell sources).
+_TPU = "yag_slam_tpu/matching/pallas_kernels.py"
 _JM = "yag_slam_tpu/matching/matcher.py"
 _JC = "yag_slam_tpu/matching/correlation.py"
 KERNELS = {
-    "world_cells": dict(
-        source=_SRC, replaces=[f"{_JM}:661", f"{_JM}:666", f"{_JC}:109", f"{_JC}:132"],
-        symbols=("world_cells_kernel",)),
-    "lattice_cells": dict(
-        source=_SRC, replaces=[f"{_JC}:697", f"{_JM}:722"],
-        symbols=("lattice_cells_kernel",)),
+    "world_scatter": dict(
+        source="yag_slam_tpu_torch/csrc/grid_build.cu",
+        replaces=[f"{_TPU}:931", f"{_JM}:661", f"{_JM}:666", f"{_JC}:109", f"{_JC}:132"],
+        symbols=("BasePoints",)),
+    "lattice_window_sum": dict(
+        source="yag_slam_tpu_torch/csrc/window_sum.cu",
+        replaces=[f"{_TPU}:578", f"{_JC}:697", f"{_JM}:722"],
+        symbols=("LatticeCells",)),
     "score_reduce": dict(
-        source=_SRC, replaces=[f"{_JC}:1014", f"{_JC}:573", f"{_JC}:743", f"{_JM}:792",
-                               f"{_JM}:803"],
+        source="yag_slam_tpu_torch/csrc/match_program.cu",
+        replaces=[f"{_JC}:1014", f"{_JC}:573", f"{_JC}:743", f"{_JM}:792",
+                  f"{_JM}:803"],
         symbols=("score_reduce_kernel",)),
 }
 
@@ -194,12 +202,22 @@ def _require_center(center, dtype, N, name):
 
 
 # ---------------------------------------------------------------------------
-# World points to scatter cells
+# World points to the occupancy grid
 # ---------------------------------------------------------------------------
 
 def world_cells_ref(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
                     G: int, S: int, h: int, res: float):
-    """Plain version of :func:`world_cells`."""
+    """The scatter cells of a batch's base points, and its full-grid
+    limits, as plain tensor ops: the first half of :func:`world_scatter_ref`.
+
+    Arguments as :func:`world_scatter`'s.  A point goes to world at its
+    scan's pose; it is kept when its run was flushed, its slot is in use
+    and cross(term - anchor, viewpoint - anchor) > 0 (the run's anchor and
+    terminal points taken to world the same way); its cell is round((w -
+    origin) / res).  Returns (sy, sx) (N, B * P) int32 in the (S + 2h)^2
+    halo layout of ``kernels.scatter_cells``, sy = -1 for points dropped,
+    outside the full grid or the padded subgrid, and lim (N, 2) int32 =
+    (G - soy, G - sox), the limits ``kernels.smear_quantize`` masks at."""
     pc = torch.cos(pose[..., 2:3])
     ps = torch.sin(pose[..., 2:3])
     wx = pose[..., 0:1] + pc * lx - ps * ly
@@ -215,9 +233,18 @@ def world_cells_ref(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, 
     return sy, sx, C._full_grid_limits(G, sox, soy)
 
 
-def world_cells(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
-                G: int, S: int, h: int, res: float):
-    """The scatter cells of a batch's base points, and its full-grid
+def world_scatter_ref(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
+                      G: int, S: int, h: int, res: float):
+    """Plain version of :func:`world_scatter`: :func:`world_cells_ref`,
+    then ``kernels.scatter_cells_ref`` of its cells."""
+    sy, sx, lim = world_cells_ref(lx, ly, anchor, term, has_run, mask, pose, center, vp,
+                                  sub, G=G, S=S, h=h, res=res)
+    return K.scatter_cells_ref(sy, sx, S + 2 * h), lim
+
+
+def world_scatter(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
+                  G: int, S: int, h: int, res: float):
+    """The occupancy grid of a batch's base points, and its full-grid
     limits.
 
     lx, ly (N, B, P) the base scans' points in their frames, anchor, term
@@ -227,23 +254,25 @@ def world_cells(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
     grid is centered on each), vp (N, 2) the viewpoints, sub (N, 2) int32
     the subgrids' origins (sox, soy) in cells.
 
-    A point goes to world at its scan's pose; it is kept when its run was
-    flushed, its slot is in use and cross(term - anchor, viewpoint -
-    anchor) > 0 (the run's anchor and terminal points taken to world the
-    same way); its cell is round((w - origin) / res).  Returns (sy, sx)
-    (N, B * P) int32 in the (S + 2h)^2 halo layout of
-    ``kernels.scatter_cells``, sy = -1 for points dropped, outside the full
-    grid or the padded subgrid, and lim (N, 2) int32 = (G - soy, G - sox),
-    the limits ``kernels.smear_quantize`` masks at.
+    Returns occ (N, S + 2h, S + 2h) uint8, 1 at the cells of the kept
+    points inside the full grid and the padded subgrid (the
+    :func:`world_cells_ref` cells), 0 elsewhere, as
+    ``kernels.smear_quantize`` and ``kernels.smear_grid`` take it; and lim
+    (N, 2) int32 = (G - soy, G - sox).
 
     Replaces the world transform, the keep mask and the cells of the JAX
-    matcher's _make_core (XLA, fused around the Pallas build kernels).  On
-    the card one thread per point, which recomputes its anchor's and its
-    terminal's world points (csrc/match_program.cu).
+    matcher's _make_core (XLA, fused around the Pallas build kernels) and
+    pallas_kernels.py:scatter_occupancy_pallas.  On the card one launch of
+    scatter_cells' kernel fed by the points (csrc/grid_build.cu): each
+    block zeroes its band of a job's rows, takes every lane's row from
+    its point (its scan's pose staged in shared memory) and, for the lanes
+    in its band, the column and the keep test, and stores the ones; so
+    the cells never reach device memory.  Counts a launch of
+    ``kernels.scatter_cells`` too.
     """
     if not _on_cuda(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub):
-        return world_cells_ref(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub,
-                               G=G, S=S, h=h, res=res)
+        return world_scatter_ref(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub,
+                                 G=G, S=S, h=h, res=res)
     N, B, P = lx.shape
     dt = lx.dtype
     is_double = _float_kind(lx)
@@ -256,29 +285,37 @@ def world_cells(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
     _require(center, dt, (N, 3), "center")
     _require(vp, dt, (N, 2), "vp")
     _require(sub, torch.int32, (N, 2), "sub")
+    R = S + 2 * h
     dev = lx.device
-    sy = torch.empty((N, B * P), dtype=torch.int32, device=dev)
-    sx = torch.empty((N, B * P), dtype=torch.int32, device=dev)
+    occ = torch.empty((N, R, R), dtype=torch.uint8, device=dev)
     lim = torch.empty((N, 2), dtype=torch.int32, device=dev)
     if N == 0:
-        return sy, sx, lim
-    err = _build.library().yag_world_cells(
+        return occ, lim
+    err = _build.library().yag_world_scatter(
         lx.data_ptr(), ly.data_ptr(), anchor.data_ptr(), term.data_ptr(),
         has_run.data_ptr(), mask.data_ptr(), pose.data_ptr(), center.data_ptr(),
-        vp.data_ptr(), sub.data_ptr(), sy.data_ptr(), sx.data_ptr(), lim.data_ptr(),
+        vp.data_ptr(), sub.data_ptr(), occ.data_ptr(), lim.data_ptr(),
         N, B, P, G, S, h, _doubles(res, _origin_offset(G, res)), is_double, _stream(lx))
-    K._count("world_cells")
-    _check(err, "world_cells")
-    return sy, sx, lim
+    K._count("world_scatter")
+    K._count("scatter_cells")
+    _check(err, "world_scatter")
+    return occ, lim
 
 
 # ---------------------------------------------------------------------------
-# Lattice-origin cells of the query points
+# Window sums at the lattice's cells of the query points
 # ---------------------------------------------------------------------------
 
 def lattice_cells_ref(qlx, qly, n_q, center, job_center, sub, lat: PassLattice, *,
                       G: int, res: float):
-    """Plain version of :func:`lattice_cells`."""
+    """One search pass's query cells at the lattice origin, as plain
+    tensor ops: the first half of :func:`lattice_window_sum_ref`.
+
+    Arguments as :func:`lattice_window_sum`'s.  Returns (sgy0, sgx0) (N, NT,
+    P) int32: each point's subgrid cell turned by each candidate angle and
+    moved to the lattice's first candidate (padded lanes at FAR), rounded
+    once; and n_int (N,) int32, the point counts; as ``kernels.window_sum``
+    takes them."""
     dtype = qlx.dtype
     P = qlx.shape[-1]
     valid = torch.arange(P, device=qlx.device)[None, :] < n_q[:, None]
@@ -293,50 +330,68 @@ def lattice_cells_ref(qlx, qly, n_q, center, job_center, sub, lat: PassLattice, 
                                   sub[:, 0], sub[:, 1], res)
 
 
-def lattice_cells(qlx, qly, n_q, center, job_center, sub, lat: PassLattice, *,
-                  G: int, res: float):
-    """One search pass's query cells at the lattice origin.
+def lattice_window_sum_ref(q, qlx, qly, n_q, center, job_center, sub, lat: PassLattice, *,
+                           G: int, res: float):
+    """Plain version of :func:`lattice_window_sum`: :func:`lattice_cells_ref`,
+    then ``kernels.window_sum_ref`` over its cells."""
+    cells = lattice_cells_ref(qlx, qly, n_q, center, job_center, sub, lat, G=G, res=res)
+    return K.window_sum_ref(q, *cells, lat.ny, lat.nx, lat.stride)
 
-    qlx, qly (N, P) the query points in their frame (lanes at or past n_q
-    (N,) int32 are padding), center (N, 3) the pass's search centers (a
-    device tensor: the fine pass's are columns 1-3 of the coarse result),
-    job_center (N, 3) the jobs' centers (the full grid's), sub (N, 2) int32
-    the subgrids' origins, `lat` the pass's lattice.
 
-    Returns (sgy0, sgx0) (N, NT, P) int32: each point's subgrid cell
-    turned by each candidate angle and moved to the lattice's first
-    candidate (padded lanes at FAR), rounded once; and n_int (N,) int32, the
-    point counts; as ``kernels.window_sum`` takes them.
+def lattice_window_sum(q, qlx, qly, n_q, center, job_center, sub, lat: PassLattice, *,
+                       G: int, res: float):
+    """One search pass's window sums (N, NT, NY, NX) int32.
 
-    Replaces the query padding of the JAX matcher's _make_core and the
-    lattice-origin cells of its score_lattice_patch_batched.  On the card
-    one thread per (job, angle, point) (csrc/match_program.cu).
+    q (N, S, S) uint8 the quantized grids, qlx, qly (N, P) the query points
+    in their frame (lanes at or past n_q (N,) int32 are padding), center
+    (N, 3) the pass's search centers (a device tensor: the fine pass's are
+    columns 1-3 of the coarse result, rows of unit stride that sit apart),
+    job_center (N, 3) the jobs' centers (the full grid's), sub (N, 2)
+    int32 the subgrids' origins, `lat` the pass's lattice.
+
+    raw[n, k, j, i] is the sum over the job's first n_q points of q at the
+    point's subgrid cell turned by candidate angle k, moved to the
+    lattice's first candidate and rounded (:func:`lattice_cells_ref`),
+    plus (stride j, stride i); reads outside the grid give 0.
+
+    Replaces the query padding of the JAX matcher's _make_core, the
+    lattice-origin cells of its score_lattice_patch_batched and the window
+    sum of pallas_kernels.py:score_windows_pallas (and its mxu and hybrid
+    forms).  On the card one launch of window_sum's kernel fed by the
+    points (csrc/window_sum.cu): each block, which owns one (angle, job),
+    turns and rounds the job's points as it stages them in shared memory,
+    so the cells never reach device memory.  Counts a launch of
+    ``kernels.window_sum`` too.
     """
-    if not _on_cuda(qlx, qly, n_q, center, job_center, sub):
-        return lattice_cells_ref(qlx, qly, n_q, center, job_center, sub, lat, G=G, res=res)
-    N, P = qlx.shape
+    if not _on_cuda(q, qlx, qly, n_q, center, job_center, sub):
+        return lattice_window_sum_ref(q, qlx, qly, n_q, center, job_center, sub, lat, G=G,
+                                      res=res)
+    N, S, _ = q.shape
+    P = qlx.shape[-1]
     dt = qlx.dtype
     is_double = _float_kind(qlx)
+    _require(q, torch.uint8, (N, S, S), "q")
+    _require(qlx, dt, (N, P), "qlx")
     _require(qly, dt, (N, P), "qly")
     _require(n_q, torch.int32, (N,), "n_q")
     _require_center(center, dt, N, "center")
     _require(job_center, dt, (N, 3), "job_center")
     _require(sub, torch.int32, (N, 2), "sub")
-    dev = qlx.device
-    sgy0 = torch.empty((N, lat.nt, P), dtype=torch.int32, device=dev)
-    sgx0 = torch.empty((N, lat.nt, P), dtype=torch.int32, device=dev)
-    n_int = torch.empty((N,), dtype=torch.int32, device=dev)
-    if N == 0:
-        return sgy0, sgx0, n_int
+    if lat.stride < 1:
+        raise ValueError(f"stride must be >= 1, got {lat.stride}")
+    out = torch.empty((N, lat.nt, lat.ny, lat.nx), dtype=torch.int32, device=q.device)
+    if out.numel() == 0:
+        return out
     params = _doubles(lat.xy_size, lat.xy_res, lat.ang_size, lat.ang_res, res,
-                      _origin_offset(G, res), FAR)
-    err = _build.library().yag_lattice_cells(
-        qlx.data_ptr(), qly.data_ptr(), n_q.data_ptr(), center.data_ptr(), center.stride(0),
-        job_center.data_ptr(), sub.data_ptr(), sgy0.data_ptr(), sgx0.data_ptr(),
-        n_int.data_ptr(), N, lat.nt, P, params, is_double, _stream(qlx))
-    K._count("lattice_cells")
-    _check(err, "lattice_cells")
-    return sgy0, sgx0, n_int
+                      _origin_offset(G, res))
+    err = _build.library().yag_lattice_window_sum(
+        q.data_ptr(), qlx.data_ptr(), qly.data_ptr(), n_q.data_ptr(), center.data_ptr(),
+        center.stride(0), job_center.data_ptr(), sub.data_ptr(), out.data_ptr(), N, S,
+        lat.nt, P, lat.ny, lat.nx, lat.stride, params, is_double, _stream(q))
+    K._count("lattice_window_sum")
+    K._count("window_sum")
+    _check(err, "lattice_window_sum")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +442,7 @@ def score_reduce(raw, n_q, center, job_center, packed, row: int, lat: PassLattic
     `copy_fine`, into row 1 as well (the coarse result stands for a fine
     pass not run).  Returns `packed`.
 
-    raw (N, NT, NY, NX) int32 the pass's window sums (``kernels.window_sum``),
+    raw (N, NT, NY, NX) int32 the pass's window sums (:func:`lattice_window_sum`),
     n_q (N,) int32 the query point counts, center (N, 3) the pass's search
     centers (rows of unit stride: the fine pass's are columns 1-3 of row 0
     of `packed`), job_center (N, 3) the jobs' centers.  A candidate's
