@@ -268,8 +268,8 @@ STREAM_PREFIX = 300          # phase 9 is held to phase 4 after these scans
 SNAPSHOTS = {n for _, n, _, _ in HOST_RUNS} | {STREAM_PREFIX}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the kernels of GraphSlam.process_scan (phase 4), besides the program
-# kernels below (scatter_cells and window_sum count the launches of their
-# kernels fed by points, world_scatter's and lattice_window_sum's, too);
+# kernels below (scatter_cells and window_sum count world_scatter's and
+# lattice_window_sum's launches, which do their work from the points, too);
 # smear_grid runs on the meta, scan-set and localize paths (phases 7 and 8)
 SLAM_KERNELS = ("scatter_cells", "smear_quantize", "window_sum")
 # the program kernels, and the kernel each pairs with on every matcher
@@ -806,10 +806,13 @@ def program_case(name, m, jobs, n_pad, penalty, do_fine, dev, timing=True):
     if timing:
         pre = [torch.full_like(got[0], 0xAB), torch.full_like(got[1], -7)]
         wparams = PK._doubles(res, PK._origin_offset(G, res))
+        wshape = PK.scatter_shape(N, R, PK._sm_count(torch.device(dev).index))
+        row["scatter_shape"] = wshape._asdict()
         timings(row, lambda: PK.world_scatter(*w_in, **kw),
                 lambda: PK.world_scatter_ref(*w_in, **kw),
                 lambda: ok(lib.yag_world_scatter(*ptrs(w_in), *ptrs(pre), N, B, P, G, S, h,
-                                                 wparams, is_double, stream), "world_scatter"))
+                                                 *wshape, wparams, is_double, stream),
+                           "world_scatter"))
         hold_equal(f"world_scatter {name}, bare launch", pre, want)
     out["world_scatter"] = [row]
     (occ, lim), (occ_plain, lim_plain) = got, want
@@ -3049,7 +3052,7 @@ def replay_nodes(key, rec, runs=5):
     from yag_slam_tpu_torch.matching import program_kernels as PK
     from yag_slam_tpu_torch.matching.graphs import GRAPHS
 
-    # the fused instances first: their names hold their kernels' names too
+    # the program kernels first: the fused window sum's names are window_sum's
     symbols = {k: v["symbols"] for k, v in (*PK.KERNELS.items(), *K.KERNELS.items())}
 
     def traced(fn):

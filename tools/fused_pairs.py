@@ -2,7 +2,7 @@
 """Device time of the matcher's grid build and window sums, in this tree or
 an unpacked earlier one, at phase 3b's main-path batches.
 
-    python3 tools/fused_pairs.py [--tree DIR] [--reps N]
+    python3 tools/fused_pairs.py [--tree DIR] [--reps N] [--band-bytes B,B,...]
 
 Imports ``yag_slam_tpu_torch`` from DIR (default: this tree), stages the
 batches that ``chip_smoke.py`` phase 3b runs (the building tour's
@@ -20,7 +20,10 @@ tree runs it:
            packed result as in ``_compute``.
 
 The outputs are the same bits either way (the CPU tests and phase 3b hold
-them).  Prints one JSON line: per case the step times, which design ran,
+them).  With ``--band-bytes``, a fused tree's scatter is also timed as a
+bare launch at the shape ``program_kernels.scatter_shape`` gives for
+each of those least band sizes (what SCATTER_MIN_BAND_BYTES is chosen
+from).  Prints one JSON line: per case the step times, which design ran,
 the card and its power limit.  Run two trees in turns in one call to
 compare them.  Needs a CUDA card; imports nothing of JAX.
 """
@@ -68,9 +71,11 @@ def cases(dev):
 
 
 def steps(m, jobs, n_pad):
-    """{step: fn} of one batch as the imported tree runs it, and its design."""
+    """{step: fn} of one batch as the imported tree runs it, its design, and
+    (fused trees) a bare world_scatter launch at given band rows."""
     import torch
 
+    from yag_slam_tpu_torch import _build
     from yag_slam_tpu_torch.matching import kernels as K
     from yag_slam_tpu_torch.matching import program_kernels as PK
 
@@ -89,9 +94,27 @@ def steps(m, jobs, n_pad):
     jc = st["center"]
     packed = torch.zeros((jc.shape[0], 2, 8), dtype=jc.dtype, device=jc.device)
     packed[:, 0, 1:4] = jc
-    out = {}
+    out, bare = {}, None
     if fused:
         out["scatter"] = lambda: PK.world_scatter(*w, G=G, S=S, h=h, res=res)
+        lib = _build.library()
+        ptrs = [t.data_ptr() for t in (*w, occ, lim)]
+        params = PK._doubles(res, PK._origin_offset(G, res))
+        (N, B, P), R = st["lx"].shape, S + 2 * h
+        sms = torch.cuda.get_device_properties(jc.device).multi_processor_count
+
+        def bare(min_bytes):
+            """(shape, a bare launch) at this least band size."""
+            shape = PK.scatter_shape(N, R, sms, min_bytes)
+
+            def launch():
+                err = lib.yag_world_scatter(*ptrs, N, B, P, G, S, h, *shape, params,
+                                            int(jc.dtype == torch.float64),
+                                            torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"world_scatter: cudaError {err}")
+
+            return shape, launch
     else:
         out["scatter"] = lambda: K.scatter_cells(
             *PK.world_cells(*w, G=G, S=S, h=h, res=res)[:2], S + 2 * h)
@@ -103,14 +126,17 @@ def steps(m, jobs, n_pad):
         else:
             out[name] = lambda a=largs, lat=lat: K.window_sum(
                 q2d, *PK.lattice_cells(*a, G=G, res=res), lat.ny, lat.nx, lat.stride)
-    return out, "fused" if fused else "pair"
+    return out, "fused" if fused else "pair", bare
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT, help="the tree whose package is measured")
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--band-bytes", default="",
+                    help="comma-separated least band sizes to time the fused scatter at")
     args = ap.parse_args(argv)
+    band_bytes = [int(b) for b in args.band_bytes.split(",") if b]
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -125,9 +151,14 @@ def main(argv=None):
     dev = torch.device("cuda")
     out = {}
     for name, m, jobs, n_pad in cases(dev):
-        fns, design = steps(m, jobs, n_pad)
+        fns, design, bare = steps(m, jobs, n_pad)
         out[name] = dict(design=design, **{k: device_ms(fn, reps=args.reps)
                                            for k, fn in fns.items()})
+        if bare and band_bytes:
+            out[name]["bands"] = {}
+            for b in band_bytes:
+                shape, launch = bare(b)
+                out[name]["bands"][b] = dict(shape._asdict(), ms=device_ms(launch, reps=args.reps))
     print(json.dumps(dict(tree=args.tree, cases=out, gpu=gpu_line())))
 
 

@@ -15,15 +15,14 @@
 //        writes the whole grid: zeros, and ones at the cells): cell (row,
 //        col) of the subgrid lives at occ[n, row + h, col + h]; the h-wide
 //        border is the smear halo.
-//   the scatter's lanes, from one of two sources (a template argument):
-//   CellLists  sy, sx (N, M) int32 scatter cells in that layout; sy < 0
+//   sy, sx (N, M) int32 scatter cells in that layout (scatter_cells); sy < 0
 //        marks a lane with no cell.  Cells outside [0, R) are dropped.
-//   BasePoints<T>  the base scans' points (program_kernels.world_scatter):
-//        lx, ly (N, B, P) float or double, anchor, term (N, B, P) int32,
-//        has_run (N, B, P) and mask (N, B) bool, pose (N, B, 3), center
-//        (N, 3), vp (N, 2), sub (N, 2) int32; M = B P lanes, each turned to
-//        world, kept or not and rounded to its cell in the kernel; and lim
-//        written.
+//   world_scatter takes the base scans' points in their place
+//        (program_kernels.world_scatter): lx, ly (N, B, P) float or double,
+//        anchor, term (N, B, P) int32, has_run (N, B, P) and mask (N, B)
+//        bool, pose (N, B, 3), center (N, 3), vp (N, 2), sub (N, 2) int32;
+//        M = B P lanes, each turned to world, kept or not and rounded to
+//        its cell in the kernel; and writes lim.
 //   lim  (N, 2) int32 = (G - soy, G - sox): subgrid rows/cols at or past
 //        these carry a full-grid index >= G and are zeroed.
 //   taps (2h + 1,) float32 symmetric, positive and non-increasing away from
@@ -35,6 +34,7 @@
 // versions, whose arithmetic is float32 in the order: pass 1 along columns
 // a1 = max_k t(k) * x(col + k), pass 2 along rows a2 = max_k t(k) *
 // a1(row + k), then floor(100 * a2), with t(k) = taps[h - |k|].
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +42,8 @@
 
 #include "device.cuh"
 #include "program_math.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -51,206 +53,24 @@ namespace {
 // Each block owns a band of consecutive rows of one job's (R, R) grid, whose
 // bytes are contiguous: it zeroes them with 16-byte stores (byte stores at
 // the ragged ends: R need not be a multiple of 16), waits at a barrier, then
-// walks the job's M lanes, taking each lane's row and, only for lanes whose
-// row falls in its band, its column, and stores 1.  No other block writes
-// the band, so there are no races and no atomics, and the barrier orders
-// the block's zeros before its ones.  Bound by the fill's N R^2 bytes.  The
-// rows of a thread's first lanes load before the fill, so their latency
-// hides behind it.  On the H100 two blocks per SM measured faster than
-// one, than 1024 threads per block, and than fewer blocks that re-read
-// less: at 4096 lanes 264 blocks re-read 4.3 MB of sy, more than a 1812^2
-// grid's 3.3 MB fill, and still win there.
-//
-// From the base points (BasePoints), a lane's row is its point's y taken to
-// world at its scan's pose and rounded (world_cells_ref's arithmetic step
-// for step, program_math.cuh), which needs its two coordinates and the
-// scan's (x, y, cos, sin), staged once a block in shared memory; the column
-// and the back-face keep test (the run's anchor and terminal taken to world
-// too, the cross product) run only for the lanes in the band, about M /
-// bands a block.  So the fused launch reads 2 T a lane a block where the
-// table's read one int32, and the pass no longer writes the (sy, sx)
-// tables and reads them back in a second launch.
+// walks the job's M lanes, reading sy coalesced and sx only for lanes whose
+// row falls in its band, and stores 1.  No other block writes the band, so
+// there are no races and no atomics, and the barrier orders the block's
+// zeros before its ones.  Bound by the fill's N R^2 bytes.  Every block also
+// reads its job's 4M bytes of sy through L2, and the rows of its first lanes
+// load before the fill, so their latency hides behind it.  On the H100 two
+// blocks per SM measured faster than one, than 1024 threads per block, and
+// than fewer blocks that re-read less: at 4096 lanes 264 blocks re-read
+// 4.3 MB, more than a 1812^2 grid's 3.3 MB fill, and still win there.
 constexpr int kScatterThreads = 512;
 constexpr int kScatterBlocksPerSm = 2;
 constexpr int kScatterAhead = 8;   // lanes per thread whose rows load first
-// base scans whose poses a block stages in shared memory; a job with more
-// reads the rest from device memory (the same bits: cos and sin are the
-// same calls)
-constexpr int kStagedBases = 128;
 
-// Lanes given as (sy, sx) tables.
-struct CellLists {
-  const int32_t* sy;
-  const int32_t* sx;
-  int M;
-
-  struct Shared {};
-  using Pre = int32_t;
-  struct Job {
-    const int32_t* ys;
-    const int32_t* xs;
-    __device__ Pre load(int t) const { return __ldg(ys + t); }
-    __device__ int row(int, Pre y) const { return y; }
-    __device__ int col(int t) const { return __ldg(xs + t); }
-  };
-  static constexpr bool kStages = false;
-  __device__ Job job(int n, int, Shared&, bool) const {
-    return {sy + (size_t)n * M, sx + (size_t)n * M};
-  }
-};
-
-struct WorldParams {
-  double res, off;  // grid resolution; the full grid's origin below its center
-};
-
-// Lanes computed from the base scans' points (world_cells_ref): lane t =
-// b P + p is point p of base slot b.  row() is the cell's row in the halo
-// layout, or -1 where the point falls outside the full grid's rows; col()
-// its column, or -1 where it is not kept or falls outside the full grid or
-// the padded subgrid.
-template <typename T>
-struct BasePoints {
-  const T* lx;
-  const T* ly;
-  const int32_t* anchor;
-  const int32_t* term;
-  const uint8_t* has_run;
-  const uint8_t* mask;
-  const T* pose;
-  const T* center;
-  const T* vp;
-  const int32_t* subo;
-  int32_t* lim;
-  int B, P, G, h;
-  WorldParams prm;
-
-  struct Pose {
-    T x, y, c, s;
-  };
-  struct Shared {
-    Pose pose[kStagedBases];
-  };
-  struct Pre {
-    T a, b;
-  };
-  static constexpr bool kStages = true;
-
-  struct Job {
-    const T* lx;
-    const T* ly;
-    const int32_t* anchor;
-    const int32_t* term;
-    const uint8_t* has_run;
-    const uint8_t* mask;
-    const T* pose;
-    const Pose* staged;
-    T ox, oy, vx, vy, res;
-    int sox, soy, P, G, R, h;
-
-    __device__ Pose base(int b) const {
-      if (b < kStagedBases) return staged[b];
-      const T pt = pose[3 * b + 2];
-      return {pose[3 * b], pose[3 * b + 1], cos_(pt), sin_(pt)};
-    }
-    // pose_x + pc * lx - ps * ly and pose_y + ps * lx + pc * ly, PyTorch's
-    // order of the plain version
-    __device__ T world_x(const Pose& q, T a, T b) const {
-      return sub(add(q.x, mul(q.c, a)), mul(q.s, b));
-    }
-    __device__ T world_y(const Pose& q, T a, T b) const {
-      return add(add(q.y, mul(q.s, a)), mul(q.c, b));
-    }
-    __device__ Pre load(int t) const { return {lx[t], ly[t]}; }
-    __device__ int row(int t, Pre v) const {
-      const int gy = grid_idx(world_y(base(t / P), v.a, v.b), oy, res);
-      return gy >= 0 && gy < G ? gy - soy + h : -1;
-    }
-    __device__ int col(int t) const {
-      const int b = t / P;
-      if (!has_run[t] || !mask[b]) return -1;
-      const Pose q = base(b);
-      const int gx = grid_idx(world_x(q, lx[t], ly[t]), ox, res);
-      const int sx = gx - sox + h;
-      if (gx < 0 || gx >= G || sx < 0 || sx >= R) return -1;
-      const int row0 = b * P;
-      const int ia = row0 + anchor[t], it = row0 + term[t];
-      const T ax = world_x(q, lx[ia], ly[ia]), ay = world_y(q, lx[ia], ly[ia]);
-      const T tx = world_x(q, lx[it], ly[it]), ty = world_y(q, lx[it], ly[it]);
-      const T ss = sub(mul(sub(tx, ax), sub(vy, ay)), mul(sub(ty, ay), sub(vx, ax)));
-      return ss > (T)0 ? sx : -1;
-    }
-  };
-
-  // the job's pointers and scalars for a grid of R rows; its poses staged
-  // (the caller waits at a barrier before a lane reads them); the first
-  // band's block writes lim
-  __device__ Job job(int n, int R, Shared& sh, bool first) const {
-    const int sox = subo[2 * n], soy = subo[2 * n + 1];
-    const size_t nb = (size_t)n * B;
-    for (int b = threadIdx.x; b < B && b < kStagedBases; b += blockDim.x) {
-      const T* p = pose + 3 * (nb + b);
-      sh.pose[b] = {p[0], p[1], cos_(p[2]), sin_(p[2])};
-    }
-    if (first && threadIdx.x == 0) {
-      lim[2 * n] = G - soy;
-      lim[2 * n + 1] = G - sox;
-    }
-    const T off = (T)prm.off;
-    Job j;
-    j.lx = lx + nb * P;
-    j.ly = ly + nb * P;
-    j.anchor = anchor + nb * P;
-    j.term = term + nb * P;
-    j.has_run = has_run + nb * P;
-    j.mask = mask + nb;
-    j.pose = pose + 3 * nb;
-    j.staged = sh.pose;
-    j.ox = sub(center[3 * n], off);
-    j.oy = sub(center[3 * n + 1], off);
-    j.vx = vp[2 * n];
-    j.vy = vp[2 * n + 1];
-    j.res = (T)prm.res;
-    j.sox = sox;
-    j.soy = soy;
-    j.P = P;
-    j.G = G;
-    j.R = R;
-    j.h = h;
-    return j;
-  }
-};
-
-template <class Lanes>
-__global__ void __launch_bounds__(kScatterThreads, kScatterBlocksPerSm)
-scatter_cells_kernel(Lanes lanes, uint8_t* __restrict__ occ, int M, int R, int band_rows,
-                     int bands) {
-  __shared__ typename Lanes::Shared sh;
-  const int n = blockIdx.x / bands;
-  const int band = blockIdx.x - n * bands;
-  const int r_lo = band * band_rows;
-  const int r_hi = min(R, r_lo + band_rows);
+// Zero the bytes [a, b) of one band with this block's threads: a head up to
+// 16-byte alignment, the aligned body, the tail (each end < 16 bytes, one
+// store per thread).
+__device__ __forceinline__ void zero_band(uint8_t* a, uint8_t* b) {
   const int tid = threadIdx.x;
-  uint8_t* grid = occ + (size_t)n * R * R;
-  const typename Lanes::Job job = lanes.job(n, R, sh, band == 0);
-
-  typename Lanes::Pre pre[kScatterAhead];
-#pragma unroll
-  for (int i = 0; i < kScatterAhead; ++i) {
-    const int t = tid + i * kScatterThreads;
-    if (t < M) pre[i] = job.load(t);
-  }
-  if constexpr (Lanes::kStages) __syncthreads();
-  int y_ahead[kScatterAhead];
-#pragma unroll
-  for (int i = 0; i < kScatterAhead; ++i) {
-    const int t = tid + i * kScatterThreads;
-    y_ahead[i] = t < M ? job.row(t, pre[i]) : -1;
-  }
-
-  // 1. zero the band's bytes [a, b): a head up to 16-byte alignment, the
-  // aligned body, the tail (each end < 16 bytes, one store per thread)
-  uint8_t* a = grid + (size_t)r_lo * R;
-  uint8_t* b = grid + (size_t)r_hi * R;
   const size_t head = (16 - ((uintptr_t)a & 15)) & 15;
   uint8_t* a16 = (size_t)(b - a) < head ? b : a + head;
   uint8_t* b16 = a16 + ((size_t)(b - a16) & ~(size_t)15);
@@ -258,12 +78,36 @@ scatter_cells_kernel(Lanes lanes, uint8_t* __restrict__ occ, int M, int R, int b
   if (tid < b - b16) b16[tid] = 0;
   uint4* body = reinterpret_cast<uint4*>(a16);
   const size_t n16 = (size_t)(b16 - a16) / 16;
-  for (size_t t = tid; t < n16; t += kScatterThreads) body[t] = make_uint4(0, 0, 0, 0);
+  for (size_t t = tid; t < n16; t += blockDim.x) body[t] = make_uint4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(kScatterThreads)
+scatter_cells_kernel(const int32_t* __restrict__ sy,
+                     const int32_t* __restrict__ sx,
+                     uint8_t* __restrict__ occ, int M, int R, int band_rows,
+                     int bands) {
+  const int n = blockIdx.x / bands;
+  const int r_lo = (blockIdx.x - n * bands) * band_rows;
+  const int r_hi = min(R, r_lo + band_rows);
+  const int tid = threadIdx.x;
+  uint8_t* grid = occ + (size_t)n * R * R;
+  const int32_t* ys = sy + (size_t)n * M;
+  const int32_t* xs = sx + (size_t)n * M;
+
+  int y_ahead[kScatterAhead];
+#pragma unroll
+  for (int i = 0; i < kScatterAhead; ++i) {
+    const int t = tid + i * kScatterThreads;
+    y_ahead[i] = t < M ? __ldg(ys + t) : -1;
+  }
+
+  // 1. zero the band
+  zero_band(grid + (size_t)r_lo * R, grid + (size_t)r_hi * R);
   __syncthreads();
 
-  // 2. the ones of the lanes whose row is in the band (row < 0: no cell)
+  // 2. the ones of the lanes whose row is in the band (sy < 0: no cell)
   auto mark = [&](int t, int y) {
-    const int x = job.col(t);
+    const int x = __ldg(xs + t);
     if (x >= 0 && x < R) grid[(size_t)y * R + x] = 1;
   };
 #pragma unroll
@@ -271,8 +115,175 @@ scatter_cells_kernel(Lanes lanes, uint8_t* __restrict__ occ, int M, int R, int b
     if (y_ahead[i] >= r_lo && y_ahead[i] < r_hi) mark(tid + i * kScatterThreads, y_ahead[i]);
 #pragma unroll 4
   for (int t = tid + kScatterAhead * kScatterThreads; t < M; t += kScatterThreads) {
-    const int y = job.row(t, job.load(t));
+    const int y = __ldg(ys + t);
     if (y >= r_lo && y < r_hi) mark(t, y);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// world_scatter: scatter_cells with the cells computed from the base points.
+//
+// A lane's cell is its point taken to world at its scan's pose, the
+// back-face keep test (its run's anchor and terminal taken to world the same
+// way, the cross product with the viewpoint) and its rounded cell in the
+// full grid and in the halo layout: world_cells_ref's arithmetic step for
+// step (program_math.cuh), where a two-launch program wrote the (sy, sx)
+// tables for scatter_cells to read back.  The bands are scatter_cells',
+// a job's bands in clusters of C blocks (program_kernels.scatter_shape).
+// Block r of a cluster computes the cells of its share of the job's lanes
+// (r L .. r L + L - 1 of each chunk of C L) while it zeroes its band, and
+// sorts the ones that fall in its cluster's bands by band into its shared
+// memory; after the cluster's barrier each block reads its own band's cells
+// from every block of the cluster through distributed shared memory and
+// stores them.  So each cell is computed once a cluster, not once a block
+// (every block computing every lane's row measured ~1.5x slower at the
+// tour's sequential grid), and a block reads only its band's cells, not
+// every lane's (reading all of them from the cluster cost ~4 us there).
+// The scans' poses (x, y, cos, sin) and the slots' mask are staged once a
+// block.  A last cluster barrier keeps each block's cells alive until its
+// neighbours have read them.  The sort counts with shared-memory atomics;
+// the grid sees plain stores of ones into a band only its block writes.
+constexpr int kStagedBases = 128;  // base scans staged a block; more: read per lane
+constexpr int kCellsAtOnce = 2;  // a thread's cells computed together
+constexpr int kCellsPerBlock = kCellsAtOnce * kScatterThreads;  // held at a time (8 KB)
+constexpr int kMaxCluster = 8;   // blocks a cluster at most (the portable size)
+
+struct WorldParams {
+  double res, off;  // grid resolution; the full grid's origin below its center
+};
+
+template <typename T>
+struct ScanPose {
+  T x, y, c, s;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kScatterThreads, kScatterBlocksPerSm)
+world_scatter_kernel(const T* __restrict__ lx, const T* __restrict__ ly,
+                     const int32_t* __restrict__ anchor, const int32_t* __restrict__ term,
+                     const uint8_t* __restrict__ has_run, const uint8_t* __restrict__ mask,
+                     const T* __restrict__ pose, const T* __restrict__ center,
+                     const T* __restrict__ vp, const int32_t* __restrict__ subo,
+                     int32_t* __restrict__ lim, uint8_t* __restrict__ occ, int B, int P, int G,
+                     int R, int h, int band_rows, int bands, int L, WorldParams prm) {
+  __shared__ ScanPose<T> s_pose[kStagedBases];
+  __shared__ uint8_t s_used[kStagedBases];
+  __shared__ int s_count[kMaxCluster], s_off[kMaxCluster];  // a band's cells here
+  extern __shared__ int2 s_cells[];  // [L]: (sy, sx) of the cluster's bands, by band
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int n = blockIdx.x / bands;
+  const int band = blockIdx.x - n * bands;
+  const int r_lo = min(R, band * band_rows);
+  const int r_hi = min(R, r_lo + band_rows);
+  const int tid = threadIdx.x;
+  const int M = B * P;
+  const size_t nb = (size_t)n * B;
+  lx += nb * P;
+  ly += nb * P;
+  anchor += nb * P;
+  term += nb * P;
+  has_run += nb * P;
+  mask += nb;
+  pose += 3 * nb;
+  const int sox = subo[2 * n], soy = subo[2 * n + 1];
+  const T off = (T)prm.off, res = (T)prm.res;
+  const T ox = sub(center[3 * n], off), oy = sub(center[3 * n + 1], off);
+  const T vx = vp[2 * n], vy = vp[2 * n + 1];
+  if (band == 0 && tid == 0) {
+    lim[2 * n] = G - soy;
+    lim[2 * n + 1] = G - sox;
+  }
+  for (int b = tid; b < B && b < kStagedBases; b += blockDim.x) {
+    const T pt = pose[3 * b + 2];
+    s_pose[b] = {pose[3 * b], pose[3 * b + 1], cos_(pt), sin_(pt)};
+    s_used[b] = mask[b];
+  }
+  uint8_t* grid = occ + (size_t)n * R * R;
+  zero_band(grid + (size_t)r_lo * R, grid + (size_t)r_hi * R);
+  __syncthreads();
+
+  auto base = [&](int b) -> ScanPose<T> {
+    if (b < kStagedBases) return s_pose[b];
+    const T pt = pose[3 * b + 2];
+    return {pose[3 * b], pose[3 * b + 1], cos_(pt), sin_(pt)};
+  };
+  // pose_x + pc * lx - ps * ly and pose_y + ps * lx + pc * ly, PyTorch's
+  // order of the plain version
+  auto world = [&](const ScanPose<T>& q, int i, T& wx, T& wy) {
+    const T a = lx[i], b = ly[i];
+    wx = sub(add(q.x, mul(q.c, a)), mul(q.s, b));
+    wy = add(add(q.y, mul(q.s, a)), mul(q.c, b));
+  };
+  // lane t's cell, or sy = -1; every load issued whatever the tests say
+  // (a lane's anchor and terminal are lanes of its scan), so that a
+  // thread's cells wait for two rounds of loads, not one a test
+  auto cell = [&](int t) -> int2 {
+    const int b = t / P;
+    const bool used = has_run[t] && (b < kStagedBases ? s_used[b] : mask[b]);
+    const ScanPose<T> q = base(b);
+    T wx, wy, ax, ay, tx, ty;
+    world(q, t, wx, wy);
+    world(q, b * P + anchor[t], ax, ay);
+    world(q, b * P + term[t], tx, ty);
+    const int gx = grid_idx(wx, ox, res), gy = grid_idx(wy, oy, res);
+    const int sx = gx - sox + h, sy = gy - soy + h;
+    const T ss = sub(mul(sub(tx, ax), sub(vy, ay)), mul(sub(ty, ay), sub(vx, ax)));
+    const bool ok = used && ss > (T)0 && gx >= 0 && gx < G && gy >= 0 && gy < G && sx >= 0 &&
+                    sx < R && sy >= 0 && sy < R;
+    return ok ? make_int2(sy, sx) : make_int2(-1, 0);
+  };
+
+  // chunks of C L lanes: this block computes its L of each (kCellsAtOnce a
+  // thread, their loads in flight together) and sorts the cells that fall
+  // in its cluster's bands by band (counted with shared-memory atomics,
+  // placed at the bands' offsets); after the cluster's barrier, each block
+  // reads its own band's cells from every block of the cluster, a slice
+  // of its threads for each
+  const int first = band - rank;  // the cluster's first band
+  for (int c0 = 0; c0 < M; c0 += C * L) {
+    const int mine = c0 + rank * L;
+    if (tid < C) s_count[tid] = 0;
+    __syncthreads();
+    int2 v[kCellsAtOnce];
+    int bin[kCellsAtOnce], slot[kCellsAtOnce];
+#pragma unroll
+    for (int u = 0; u < kCellsAtOnce; ++u) {
+      const int i = u * kScatterThreads + tid;
+      v[u] = i < L && mine + i < M ? cell(mine + i) : make_int2(-1, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kCellsAtOnce; ++u) {
+      bin[u] = v[u].x < 0 ? -1 : v[u].x / band_rows - first;
+      if (bin[u] >= C) bin[u] = -1;
+      if (bin[u] >= 0) slot[u] = atomicAdd(&s_count[bin[u]], 1);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int o = 0;
+      for (int j = 0; j < C; ++j) {
+        s_off[j] = o;
+        o += s_count[j];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kCellsAtOnce; ++u)
+      if (bin[u] >= 0) s_cells[s_off[bin[u]] + slot[u]] = v[u];
+    cluster.sync();  // the cells, and the band's zeros, before any one
+    const int per = kScatterThreads / C;
+    const int q = tid / per, j0 = tid - q * per;
+    if (q < C) {
+      const int cnt = *cluster.map_shared_rank(&s_count[rank], q);
+      const int2* src = cluster.map_shared_rank(s_cells, q) + *cluster.map_shared_rank(
+          &s_off[rank], q);
+      for (int j = j0; j < cnt; j += per) {
+        const int2 w = src[j];
+        grid[(size_t)w.x * R + w.y] = 1;
+      }
+    }
+    cluster.sync();  // every block done with the cells before they change or go
   }
 }
 
@@ -661,49 +672,61 @@ int launch_chain(const void* occ, const void* taps, Store store, int N, int S,
 
 extern "C" int yag_smear_smem_bytes(int h) { return smear_smem_bytes(h); }
 
-namespace {
-
-template <class Lanes>
-int launch_scatter(Lanes lanes, void* occ, int N, int M, int R, void* stream) {
+extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
+                                 int N, int M, int R, void* stream) {
   // about kScatterBlocksPerSm blocks per SM, every job at least one band
   const long long rows_total = (long long)N * R;
   const long long blocks = (long long)kScatterBlocksPerSm * sm_count();
   const int band_rows = (int)std::min<long long>(
       R, std::max<long long>(1, (rows_total + blocks - 1) / blocks));
   const int bands = (R + band_rows - 1) / band_rows;
-  scatter_cells_kernel<Lanes><<<(unsigned)((long long)N * bands), kScatterThreads, 0,
-                                (cudaStream_t)stream>>>(lanes, (uint8_t*)occ, M, R,
-                                                        band_rows, bands);
+  scatter_cells_kernel<<<(unsigned)((long long)N * bands), kScatterThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int32_t*)sy, (const int32_t*)sx, (uint8_t*)occ, M, R, band_rows, bands);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
-                                 int N, int M, int R, void* stream) {
-  return launch_scatter(CellLists{(const int32_t*)sy, (const int32_t*)sx, M}, occ, N, M, R,
-                        stream);
-}
-
-// params: res and the full grid's origin offset, as doubles
+// params: res and the full grid's origin offset, as doubles; a job's
+// `bands` bands of `band_rows` rows (the last ones may be empty) run as
+// clusters of `cluster` blocks, 1 to 8 (program_kernels.scatter_shape)
 extern "C" int yag_world_scatter(const void* lx, const void* ly, const void* anchor,
                                  const void* term, const void* has_run, const void* mask,
                                  const void* pose, const void* center, const void* vp,
                                  const void* subo, void* occ, void* lim, int N, int B, int P,
-                                 int G, int S, int h, const void* params, int is_double,
-                                 void* stream) {
+                                 int G, int S, int h, int band_rows, int bands, int cluster,
+                                 const void* params, int is_double, void* stream) {
+  const int R = S + 2 * h;
+  if (N == 0) return 0;
+  if (cluster < 1 || cluster > kMaxCluster || bands < 1 || bands % cluster != 0 || band_rows < 1 ||
+      (long long)band_rows * bands < R || (long long)N * bands >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   const double* d = (const double*)params;
   const WorldParams prm{d[0], d[1]};
-  const int R = S + 2 * h;
-#define YAG_WORLD(T)                                                                       \
-  launch_scatter(                                                                          \
-      BasePoints<T>{(const T*)lx, (const T*)ly, (const int32_t*)anchor,                    \
-                    (const int32_t*)term, (const uint8_t*)has_run, (const uint8_t*)mask,   \
-                    (const T*)pose, (const T*)center, (const T*)vp, (const int32_t*)subo,  \
-                    (int32_t*)lim, B, P, G, h, prm},                                       \
-      occ, N, B * P, R, stream)
-  return is_double ? YAG_WORLD(double) : YAG_WORLD(float);
+  const long long M = (long long)B * P;
+  const int L = (int)std::max<long long>(
+      1, std::min<long long>(kCellsPerBlock, (M + cluster - 1) / cluster));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)N * bands));
+  cfg.blockDim = dim3(kScatterThreads);
+  cfg.dynamicSmemBytes = (size_t)L * sizeof(int2);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#define YAG_WORLD(T)                                                                      \
+  cudaLaunchKernelEx(&cfg, world_scatter_kernel<T>, (const T*)lx, (const T*)ly,           \
+                     (const int32_t*)anchor, (const int32_t*)term, (const uint8_t*)has_run, \
+                     (const uint8_t*)mask, (const T*)pose, (const T*)center, (const T*)vp, \
+                     (const int32_t*)subo, (int32_t*)lim, (uint8_t*)occ, B, P, G, R, h,    \
+                     band_rows, bands, L, prm)
+  const cudaError_t err = is_double ? YAG_WORLD(double) : YAG_WORLD(float);
 #undef YAG_WORLD
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The identity kernel's 128-row x 256-column tiles hold a long chain per

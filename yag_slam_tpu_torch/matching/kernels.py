@@ -4,11 +4,12 @@ Dispatch goes by the device of the tensors: CPU tensors run the plain
 version (``*_ref``); CUDA tensors launch the hand-written kernel from
 ``csrc/`` or raise.  Nothing falls back from CUDA to the plain version.
 
-``LAUNCHES`` counts kernel launches per kernel (plain ints; callers may
-reset them), so a run can show that its main path went through the
-kernels: the wrappers here, and ``program_kernels``' fused wrappers, which
-launch the scatter_cells and window_sum kernels fed by points in place of
-cell tables, count into it.  A wrapper called while its thread captures a CUDA graph
+``LAUNCHES`` counts kernel launches (plain ints; callers may reset them),
+so a run can show that its main path went through the kernels: the
+wrappers here, and ``program_kernels``' fused wrappers, whose launches
+build the occupancy grid or sum the lattice's windows from the points in
+place of cell tables, count into it as scatter_cells and window_sum
+launches.  A wrapper called while its thread captures a CUDA graph
 (:func:`captured_launches`) counts into the capture instead: those
 launches run at each replay, which adds them (:func:`add_launches`).
 Another module's wrappers that run inside the matcher's graphs keep their
@@ -31,8 +32,8 @@ LAUNCHES = {"scatter_cells": 0, "smear_quantize": 0, "smear_grid": 0,
 # "file:line" of each kernel's def (the first is the one it stands in for
 # on the matcher's large-grid path), and pieces of the CUDA kernels' names
 # that pick its launches out of a profiler trace (a trace reader matches
-# program_kernels.KERNELS' first: their fused instances' names hold these
-# kernels' names too).
+# program_kernels.KERNELS' first: the fused window sum's kernels are
+# window_sum's, fed by the query points).
 _TPU = "yag_slam_tpu/matching/pallas_kernels.py"
 KERNELS = {
     "scatter_cells": dict(

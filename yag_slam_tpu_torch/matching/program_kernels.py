@@ -60,7 +60,7 @@ KERNELS = {
     "world_scatter": dict(
         source="yag_slam_tpu_torch/csrc/grid_build.cu",
         replaces=[f"{_TPU}:931", f"{_JM}:661", f"{_JM}:666", f"{_JC}:109", f"{_JC}:132"],
-        symbols=("BasePoints",)),
+        symbols=("world_scatter_kernel",)),
     "lattice_window_sum": dict(
         source="yag_slam_tpu_torch/csrc/window_sum.cu",
         replaces=[f"{_TPU}:578", f"{_JC}:697", f"{_JM}:722"],
@@ -87,6 +87,37 @@ REDUCE_MAX_SMEM = 232448
 REDUCE_CLUSTER = 8
 REDUCE_CLUSTER_AT = 7000
 REDUCE_BLOCKS_PER_SM = 3
+
+
+# world_scatter: blocks a SM, the fewest bytes of grid a block zeroes (a
+# small grid then takes fewer, larger bands, so fewer blocks compute the
+# cells), and the blocks of a cluster, which share the cells they compute
+# (measured on an H100 with tools/fused_pairs.py --band-bytes: PERF.md)
+SCATTER_BLOCKS_PER_SM = 2
+SCATTER_MIN_BAND_BYTES = 16384
+SCATTER_CLUSTER = 8
+
+
+class ScatterShape(NamedTuple):
+    """How world_scatter lays N jobs' grids out: each job's rows in
+    `bands` bands of `band_rows` rows (the last ones may be empty), a
+    block a band, a job's bands in clusters of `cluster` blocks that
+    share the cells they compute."""
+
+    band_rows: int
+    bands: int
+    cluster: int
+
+
+def scatter_shape(N: int, R: int, sms: int, min_bytes: int = SCATTER_MIN_BAND_BYTES):
+    """world_scatter's launch shape for N jobs' (R, R) grids on a card of
+    `sms` SMs: bands for about SCATTER_BLOCKS_PER_SM blocks a SM, every job
+    one at least, each of `min_bytes` at least (at most the grid); then
+    rounded up to whole clusters of SCATTER_CLUSTER blocks, the rows
+    spread over them (the last bands may be empty)."""
+    rows = min(R, max(1, _ceil(N * R, SCATTER_BLOCKS_PER_SM * sms), _ceil(min_bytes, R)))
+    bands = _ceil(_ceil(R, rows), SCATTER_CLUSTER) * SCATTER_CLUSTER
+    return ScatterShape(_ceil(R, bands), bands, SCATTER_CLUSTER)
 
 
 class PassLattice(NamedTuple):
@@ -262,12 +293,13 @@ def world_scatter(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
 
     Replaces the world transform, the keep mask and the cells of the JAX
     matcher's _make_core (XLA, fused around the Pallas build kernels) and
-    pallas_kernels.py:scatter_occupancy_pallas.  On the card one launch of
-    scatter_cells' kernel fed by the points (csrc/grid_build.cu): each
-    block zeroes its band of a job's rows, takes every lane's row from
-    its point (its scan's pose staged in shared memory) and, for the lanes
-    in its band, the column and the keep test, and stores the ones; so
-    the cells never reach device memory.  Counts a launch of
+    pallas_kernels.py:scatter_occupancy_pallas.  On the card one launch
+    (csrc/grid_build.cu): scatter_cells' bands, a job's bands in clusters
+    of blocks (:func:`scatter_shape`); each block computes the cells of
+    its share of the job's points into shared memory while it zeroes its
+    band, then reads every block's cells of its cluster through
+    distributed shared memory and stores the ones in its band; so the
+    cells never reach device memory.  Counts a launch of
     ``kernels.scatter_cells`` too.
     """
     if not _on_cuda(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub):
@@ -294,8 +326,9 @@ def world_scatter(lx, ly, anchor, term, has_run, mask, pose, center, vp, sub, *,
     err = _build.library().yag_world_scatter(
         lx.data_ptr(), ly.data_ptr(), anchor.data_ptr(), term.data_ptr(),
         has_run.data_ptr(), mask.data_ptr(), pose.data_ptr(), center.data_ptr(),
-        vp.data_ptr(), sub.data_ptr(), occ.data_ptr(), lim.data_ptr(),
-        N, B, P, G, S, h, _doubles(res, _origin_offset(G, res)), is_double, _stream(lx))
+        vp.data_ptr(), sub.data_ptr(), occ.data_ptr(), lim.data_ptr(), N, B, P, G, S, h,
+        *scatter_shape(N, R, _sm_count(dev.index)), _doubles(res, _origin_offset(G, res)),
+        is_double, _stream(lx))
     K._count("world_scatter")
     K._count("scatter_cells")
     _check(err, "world_scatter")
