@@ -210,21 +210,21 @@ def test_lattice_cells_ref_matches_the_jax_offsets(name, seed, N, P):
 
 # -- the fused wrappers on the CPU ----------------------------------------------------
 
-@pytest.mark.parametrize("N,R,min_bytes,shape", [
-    (1, 3092, 0, (12, 264, 8)), (1, 788, 0, (3, 264, 8)), (64, 1556, 0, (195, 8, 8)),
-    (4, 772, 0, (11, 72, 8)), (1, 788, 32768, (33, 24, 8)), (2, 68, 0, (1, 72, 8)),
-    (1, 50, 10 ** 6, (7, 8, 8)), (1, 5, 0, (1, 8, 8)), (1, 788, None, (20, 40, 8)),
-    (4, 772, None, (20, 40, 8)), (1, 3092, None, (12, 264, 8))])
-def test_scatter_shape(N, R, min_bytes, shape):
-    """Bands for about two blocks a SM on 132 SMs, every job one at least,
-    each of min_bytes (None: SCATTER_MIN_BAND_BYTES) at least before the
-    rounding to whole clusters of 8; the bands cover the grid, and fewer
-    than a cluster of them are empty."""
-    got = PK.scatter_shape(N, R, SMS, *(() if min_bytes is None else (min_bytes,)))
+@pytest.mark.parametrize("N,R,min_rows,shape", [
+    (1, 3092, 1, (12, 264)), (1, 788, 1, (3, 264)), (64, 1556, 1, (195, 8)),
+    (4, 772, 1, (11, 72)), (1, 788, 36, (33, 24)), (2, 68, 1, (1, 72)),
+    (1, 50, 10 ** 6, (7, 8)), (1, 5, 1, (1, 8)), (1, 788, None, (25, 32)),
+    (4, 772, None, (25, 32)), (1, 1812, None, (29, 64)), (1, 3092, None, (30, 104))])
+def test_scatter_shape(N, R, min_rows, shape):
+    """Bands for about two blocks a SM on 132 SMs at most, each of min_rows
+    (None: SCATTER_MIN_BAND_ROWS) rows at least before the rounding to
+    whole clusters of 8; the bands cover the grid, and fewer than a cluster
+    of them are empty."""
+    got = PK.scatter_shape(N, R, SMS, *(() if min_rows is None else (min_rows,)))
     assert tuple(got) == shape
-    rows, bands, cluster = got
-    assert bands % cluster == 0 and rows * bands >= R and rows * (bands - cluster) < R
-    assert cluster == 8
+    rows, bands = got
+    C = PK.SCATTER_CLUSTER
+    assert C == 8 and bands % C == 0 and rows * bands >= R and rows * (bands - C) < R
 
 
 def _scatter_np(sy, sx, R):
@@ -911,9 +911,9 @@ def test_cuda_tensors_launch_the_kernels_and_never_the_twins(fake_card, dtype):
     assert K.LAUNCHES == dict(dict.fromkeys(K.LAUNCHES, 0), scatter_cells=1, window_sum=1)
     (w_name, w), (l_name, lc), (r_name, r) = lib.calls
     is_double = int(dtype == torch.float64)
-    # 2 jobs of 68 rows: one band each (SCATTER_MIN_BAND_BYTES), then a cluster of 8
-    assert w_name == "yag_world_scatter" and w[12:21] == (2, 3, 5, G, S, H, 9, 8, 8)
-    assert w[-2] == is_double and list(w[21]) == [RES, OFF]
+    # 2 jobs of 68 rows: 3 bands each (SCATTER_MIN_BAND_ROWS), then a cluster of 8
+    assert w_name == "yag_world_scatter" and w[12:20] == (2, 3, 5, G, S, H, 9, 8)
+    assert w[-2] == is_double and list(w[20]) == [RES, OFF]
     # the fine pass's center: row 0 of the packed result, 16 elements apart
     assert l_name == "yag_lattice_window_sum" and lc[5] == 16
     assert lc[9:16] == (2, S, 5, 5, 9, 9, 2) and lc[-2] == is_double

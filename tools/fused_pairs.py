@@ -2,12 +2,15 @@
 """Device time of the matcher's grid build and window sums, in this tree or
 an unpacked earlier one, at phase 3b's main-path batches.
 
-    python3 tools/fused_pairs.py [--tree DIR] [--reps N] [--band-bytes B,B,...]
+    python3 tools/fused_pairs.py [--tree DIR] [--reps N] [--band-rows R,R,...]
 
 Imports ``yag_slam_tpu_torch`` from DIR (default: this tree), stages the
 batches that ``chip_smoke.py`` phase 3b runs (the building tour's
 sequential match, the loop matcher's coarse batch of 4, the office batch of
-61 jobs padded to 64, the sequential match in float64) and times, by
+61 jobs padded to 64, the sequential match in float64) and two more
+sequential matches of the tour whose subgrids are the tour's most common
+(3072, 1792 and 2560 cells a side: 60, 56 and 24 of its first 190
+matches) and times, by
 device time (``utils.profiling.device_ms``), each program step as the
 tree runs it:
 
@@ -20,9 +23,9 @@ tree runs it:
            packed result as in ``_compute``.
 
 The outputs are the same bits either way (the CPU tests and phase 3b hold
-them).  With ``--band-bytes``, a fused tree's scatter is also timed as a
+them).  With ``--band-rows``, a fused tree's scatter is also timed as a
 bare launch at the shape ``program_kernels.scatter_shape`` gives for
-each of those least band sizes (what SCATTER_MIN_BAND_BYTES is chosen
+each of those least band rows (what SCATTER_MIN_BAND_ROWS is chosen
 from).  Prints one JSON line: per case the step times, which design ran,
 the card and its power limit.  Run two trees in turns in one call to
 compare them.  Needs a CUDA card; imports nothing of JAX.
@@ -37,6 +40,7 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ_QUERY, LOOP_QUERIES, X64_JOBS = 120, (150, 200, 250, 300), 61
+WIDE_QUERIES = {"seq_3072": 19, "seq_1792": 33, "seq_2560": 10}  # tour queries at those
 
 
 def tour_scans():
@@ -45,7 +49,7 @@ def tour_scans():
 
     with tempfile.TemporaryDirectory() as tmp:
         log_path, _, _ = generate_benchmark_log(
-            os.path.join(tmp, "tour.clf"), step=0.4, laps=1, n_beams=360, seed=0)
+            os.path.join(tmp, "tour.clf"), step=0.4, laps=1, n_beams=180, seed=0)
         scans = carmen_to_localized_scans(load_carmen_log(log_path))
     for s in scans:
         s.corrected_pose = s.odom_pose
@@ -67,7 +71,9 @@ def cases(dev):
     return [("seq", M(default_config, device=dev), seq, None),
             ("loop", M(default_config_loop, loop=True, device=dev), loop, None),
             ("x64", M(bench_torch.CFG, device=dev), x64, 64),
-            ("seq_f64", M(default_config, device=dev, dtype=torch.float64), seq, None)]
+            ("seq_f64", M(default_config, device=dev, dtype=torch.float64), seq, None),
+            *((name, M(default_config, device=dev), [(tour[q], tour[q - 10:q])], None)
+              for name, q in WIDE_QUERIES.items())]
 
 
 def steps(m, jobs, n_pad):
@@ -103,9 +109,9 @@ def steps(m, jobs, n_pad):
         (N, B, P), R = st["lx"].shape, S + 2 * h
         sms = torch.cuda.get_device_properties(jc.device).multi_processor_count
 
-        def bare(min_bytes):
+        def bare(min_rows):
             """(shape, a bare launch) at this least band size."""
-            shape = PK.scatter_shape(N, R, sms, min_bytes)
+            shape = PK.scatter_shape(N, R, sms, min_rows)
 
             def launch():
                 err = lib.yag_world_scatter(*ptrs, N, B, P, G, S, h, *shape, params,
@@ -133,10 +139,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=ROOT, help="the tree whose package is measured")
     ap.add_argument("--reps", type=int, default=200)
-    ap.add_argument("--band-bytes", default="",
-                    help="comma-separated least band sizes to time the fused scatter at")
+    ap.add_argument("--band-rows", default="",
+                    help="comma-separated least band rows to time the fused scatter at")
     args = ap.parse_args(argv)
-    band_bytes = [int(b) for b in args.band_bytes.split(",") if b]
+    band_rows = [int(b) for b in args.band_rows.split(",") if b]
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     import torch
@@ -154,9 +160,9 @@ def main(argv=None):
         fns, design, bare = steps(m, jobs, n_pad)
         out[name] = dict(design=design, **{k: device_ms(fn, reps=args.reps)
                                            for k, fn in fns.items()})
-        if bare and band_bytes:
+        if bare and band_rows:
             out[name]["bands"] = {}
-            for b in band_bytes:
+            for b in band_rows:
                 shape, launch = bare(b)
                 out[name]["bands"][b] = dict(shape._asdict(), ms=device_ms(launch, reps=args.reps))
     print(json.dumps(dict(tree=args.tree, cases=out, gpu=gpu_line())))

@@ -66,7 +66,7 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every entry point returns a cudaError_t as int
 _SIGNATURES = {
     "yag_scatter_cells": (_P, _P, _P, _I, _I, _I, _P),
-    "yag_world_scatter": (*(_P,) * 12, *(_I,) * 9, _P, _I, _P),
+    "yag_world_scatter": (*(_P,) * 12, *(_I,) * 8, _P, _I, _P),
     "yag_smear_quantize": (_P, _P, _P, _P, _I, _I, _I, _P),
     "yag_smear_grid": (_P, _P, _P, _I, _I, _I, _P),
     "yag_smear_smem_bytes": (_I,),

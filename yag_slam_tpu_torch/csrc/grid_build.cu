@@ -136,9 +136,11 @@ scatter_cells_kernel(const int32_t* __restrict__ sy,
 // memory; after the cluster's barrier each block reads its own band's cells
 // from every block of the cluster through distributed shared memory and
 // stores them.  So each cell is computed once a cluster, not once a block
-// (every block computing every lane's row measured ~1.5x slower at the
-// tour's sequential grid), and a block reads only its band's cells, not
-// every lane's (reading all of them from the cluster cost ~4 us there).
+// (every block computing every lane's row measured 1.6x slower at the
+// tour's sequential grid on an H100, tools/fused_pairs.py), and a block
+// reads only its band's cells, not every lane's (reading them all from
+// the cluster was slower still; a quarter of the threads computing the
+// cells while the rest zero the band, slower too).
 // The scans' poses (x, y, cos, sin) and the slots' mask are staged once a
 // block.  A last cluster barrier keeps each block's cells alive until its
 // neighbours have read them.  The sort counts with shared-memory atomics;
@@ -146,7 +148,8 @@ scatter_cells_kernel(const int32_t* __restrict__ sy,
 constexpr int kStagedBases = 128;  // base scans staged a block; more: read per lane
 constexpr int kCellsAtOnce = 2;  // a thread's cells computed together
 constexpr int kCellsPerBlock = kCellsAtOnce * kScatterThreads;  // held at a time (8 KB)
-constexpr int kMaxCluster = 8;   // blocks a cluster at most (the portable size)
+// blocks a cluster (the portable size; program_kernels.SCATTER_CLUSTER)
+constexpr int kScatterCluster = 8;
 
 struct WorldParams {
   double res, off;  // grid resolution; the full grid's origin below its center
@@ -168,10 +171,10 @@ world_scatter_kernel(const T* __restrict__ lx, const T* __restrict__ ly,
                      int R, int h, int band_rows, int bands, int L, WorldParams prm) {
   __shared__ ScanPose<T> s_pose[kStagedBases];
   __shared__ uint8_t s_used[kStagedBases];
-  __shared__ int s_count[kMaxCluster], s_off[kMaxCluster];  // a band's cells here
+  __shared__ int s_count[kScatterCluster], s_off[kScatterCluster];  // a band's cells here
   extern __shared__ int2 s_cells[];  // [L]: (sy, sx) of the cluster's bands, by band
   cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks();
+  constexpr int C = kScatterCluster;
   const int rank = (int)cluster.block_rank();
   const int n = blockIdx.x / bands;
   const int band = blockIdx.x - n * bands;
@@ -688,23 +691,23 @@ extern "C" int yag_scatter_cells(const void* sy, const void* sx, void* occ,
 
 // params: res and the full grid's origin offset, as doubles; a job's
 // `bands` bands of `band_rows` rows (the last ones may be empty) run as
-// clusters of `cluster` blocks, 1 to 8 (program_kernels.scatter_shape)
+// clusters of kScatterCluster blocks (program_kernels.scatter_shape)
 extern "C" int yag_world_scatter(const void* lx, const void* ly, const void* anchor,
                                  const void* term, const void* has_run, const void* mask,
                                  const void* pose, const void* center, const void* vp,
                                  const void* subo, void* occ, void* lim, int N, int B, int P,
-                                 int G, int S, int h, int band_rows, int bands, int cluster,
+                                 int G, int S, int h, int band_rows, int bands,
                                  const void* params, int is_double, void* stream) {
   const int R = S + 2 * h;
   if (N == 0) return 0;
-  if (cluster < 1 || cluster > kMaxCluster || bands < 1 || bands % cluster != 0 || band_rows < 1 ||
+  if (bands < 1 || bands % kScatterCluster != 0 || band_rows < 1 ||
       (long long)band_rows * bands < R || (long long)N * bands >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const double* d = (const double*)params;
   const WorldParams prm{d[0], d[1]};
   const long long M = (long long)B * P;
   const int L = (int)std::max<long long>(
-      1, std::min<long long>(kCellsPerBlock, (M + cluster - 1) / cluster));
+      1, std::min<long long>(kCellsPerBlock, (M + kScatterCluster - 1) / kScatterCluster));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)N * bands));
   cfg.blockDim = dim3(kScatterThreads);
@@ -712,7 +715,7 @@ extern "C" int yag_world_scatter(const void* lx, const void* ly, const void* anc
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.x = kScatterCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;

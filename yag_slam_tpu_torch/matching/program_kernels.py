@@ -89,35 +89,34 @@ REDUCE_CLUSTER_AT = 7000
 REDUCE_BLOCKS_PER_SM = 3
 
 
-# world_scatter: blocks a SM, the fewest bytes of grid a block zeroes (a
-# small grid then takes fewer, larger bands, so fewer blocks compute the
-# cells), and the blocks of a cluster, which share the cells they compute
-# (measured on an H100 with tools/fused_pairs.py --band-bytes: PERF.md)
+# world_scatter: blocks a SM at most, the fewest rows a band has (fewer,
+# larger bands on a small grid, so fewer blocks compute the cells; chosen
+# on an H100 with tools/fused_pairs.py --band-rows: PERF.md), and the
+# blocks of a cluster, which share the cells they compute
+# (csrc/grid_build.cu's kScatterCluster)
 SCATTER_BLOCKS_PER_SM = 2
-SCATTER_MIN_BAND_BYTES = 16384
+SCATTER_MIN_BAND_ROWS = 30
 SCATTER_CLUSTER = 8
 
 
 class ScatterShape(NamedTuple):
     """How world_scatter lays N jobs' grids out: each job's rows in
     `bands` bands of `band_rows` rows (the last ones may be empty), a
-    block a band, a job's bands in clusters of `cluster` blocks that
-    share the cells they compute."""
+    block a band, a job's bands in clusters of SCATTER_CLUSTER blocks."""
 
     band_rows: int
     bands: int
-    cluster: int
 
 
-def scatter_shape(N: int, R: int, sms: int, min_bytes: int = SCATTER_MIN_BAND_BYTES):
+def scatter_shape(N: int, R: int, sms: int, min_rows: int = SCATTER_MIN_BAND_ROWS):
     """world_scatter's launch shape for N jobs' (R, R) grids on a card of
-    `sms` SMs: bands for about SCATTER_BLOCKS_PER_SM blocks a SM, every job
-    one at least, each of `min_bytes` at least (at most the grid); then
-    rounded up to whole clusters of SCATTER_CLUSTER blocks, the rows
+    `sms` SMs: bands of at least `min_rows` rows (at most the grid), more
+    where the batch would take over SCATTER_BLOCKS_PER_SM blocks a SM;
+    then rounded up to whole clusters of SCATTER_CLUSTER blocks, the rows
     spread over them (the last bands may be empty)."""
-    rows = min(R, max(1, _ceil(N * R, SCATTER_BLOCKS_PER_SM * sms), _ceil(min_bytes, R)))
+    rows = min(R, max(min_rows, _ceil(N * R, SCATTER_BLOCKS_PER_SM * sms)))
     bands = _ceil(_ceil(R, rows), SCATTER_CLUSTER) * SCATTER_CLUSTER
-    return ScatterShape(_ceil(R, bands), bands, SCATTER_CLUSTER)
+    return ScatterShape(_ceil(R, bands), bands)
 
 
 class PassLattice(NamedTuple):
