@@ -5,7 +5,8 @@ beside its plain PyTorch twin.
 
 1. :func:`world_scatter`: the base scans' points to world, the back-face
    keep mask, their cells and the occupancy grid of those cells, in one
-   launch of ``kernels.scatter_cells``' kernel fed by the points;
+   launch (``kernels.scatter_cells``' bands, the cells computed in the
+   kernel);
 2. the smear (``kernels.smear_quantize``);
 3. per search pass, :func:`lattice_window_sum` (the query points' cells at
    the lattice origin and the window sums over them, in one launch of
@@ -28,10 +29,10 @@ by a tensor exact (csrc/program_math.cuh).
 ``LAUNCHES`` counts the kernels' launches, apart from ``kernels.LAUNCHES``
 but through ``kernels._count``, so that launches captured in the matcher's
 CUDA graphs count at each replay.  A launch of :func:`world_scatter` or
-:func:`lattice_window_sum` is a launch of the scatter_cells or window_sum
-kernel too, fed by the points in place of the tables, and also counts
-there: ``kernels.LAUNCHES`` counts each kernel's launches whatever feeds
-it, this table those of the fused instances.
+:func:`lattice_window_sum` does the work of ``kernels.scatter_cells`` or
+``kernels.window_sum`` from the points in place of cell tables, and also
+counts there: ``kernels.LAUNCHES`` counts every occupancy scatter and
+window sum, this table the fused ones.
 """
 from __future__ import annotations
 
@@ -52,7 +53,8 @@ K.register_launches(LAUNCHES)
 # Per wrapper: its CUDA source, what it replaces in the JAX package
 # ("file:line"; the Pallas kernel it fuses first, where it fuses one, then
 # the XLA lines around the Pallas kernels there), and pieces of its CUDA
-# kernel's name in a profiler trace (the fused instances' cell sources).
+# kernel's name in a profiler trace (the fused window sum's: its cell
+# source, a template argument of window_sum's kernels).
 _TPU = "yag_slam_tpu/matching/pallas_kernels.py"
 _JM = "yag_slam_tpu/matching/matcher.py"
 _JC = "yag_slam_tpu/matching/correlation.py"
