@@ -293,12 +293,12 @@ def _window_np(q, gy0, gx0, n, ny, nx, stride):
     return out.astype(np.int32)
 
 
-def _lattice_case(seed, N, P, n_q=None):
-    """A pass's inputs: query points (n_q (N,) where given), centers, and a
+def _lattice_case(seed, N, P):
+    """A pass's inputs: query points, their counts, centers, and a
     quantized grid of random scores (N, S, S) uint8."""
-    qlx, qly, nq, center, job, sub = _query_inputs(seed, N, P)
+    qlx, qly, n_q, center, job, sub = _query_inputs(seed, N, P)
     q = np.random.default_rng(seed + 100).integers(0, 101, (N, S, S)).astype(np.uint8)
-    return q, qlx, qly, nq if n_q is None else np.asarray(n_q, np.int32), center, job, sub
+    return q, qlx, qly, n_q, center, job, sub
 
 
 @pytest.mark.parametrize("name", ["coarse", "fine"])
@@ -335,7 +335,7 @@ def test_lattice_window_sum_of_no_point_and_of_no_job(dtype):
     """n_q = 0 sums nothing; a count past the capacity sums every lane; no
     job gives an empty result."""
     lat = LATTICES["coarse"]
-    q, qlx, qly, _, center, job, sub = _lattice_case(27, 3, 20, n_q=[0, 20, 31])
+    q, qlx, qly, _, center, job, sub = _lattice_case(27, 3, 20)
     n_q = np.array([0, 20, 31], np.int32)
     f = [_t(a, dtype) for a in (qlx, qly)]
     raw = PK.lattice_window_sum(_t(q), *f, _t(n_q), _t(center, dtype), _t(job, dtype),
