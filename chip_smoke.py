@@ -69,17 +69,21 @@ Phases, one line each; any failure raises (non-zero exit):
   5. render the occupancy grid: make_occupancy_grid and the tour's
      prefixes k = 5, half and all through create_occupancy_grid, the
      render kernels' launches (csrc/render.cu, mapping.render_kernel)
-     counted from 0 around them, one of each stage a render; a render
-     waits for the card twice (set_sync_debug_mode "warn": the box and
-     the image); at each
+     counted from 0 around them, one render_endpoints and one
+     render_counts (the trace with the image in its merge) a render; a
+     render waits for the card twice (set_sync_debug_mode "warn": the box
+     and the image); at each
      prefix each stage's kernel bit-equal to its plain version on the card
-     (seg, flag and the bounding box; passes and hits; the image, also the
-     whole render's), timed as wrapper, bare kernel, plain version and
-     the whole render (host wall to the image on the host) beside each
-     stage's bound; the same over the map cell's two-lap tour at its
-     odometry poses (k = 5, 416, 833); the trace on its own cases (TRACE_CASES: beams from one cell,
+     (seg, flag and the bounding box; the image, also the whole render's;
+     the trace's counts mode, passes and hits), timed as wrapper, bare
+     kernel, plain version and the whole render (host wall to the image on
+     the host) beside each stage's bound and the event floor; the same
+     over the map cell's two-lap tour at its odometry poses (k = 5, 416,
+     833); the trace on its own cases (TRACE_CASES: beams from one cell,
      of 0 and 1 steps, clipped at max_steps, long and short within a
-     warp) bit-equal to its plain version; then round-trip a checkpoint
+     warp) and the endpoints on theirs (ENDPOINT_CASES: scans of 0 to
+     1,081 beams in one table, one all invalid, past one round of the
+     grid) bit-equal to their plain versions; then round-trip a checkpoint
      file and continue 5 scans on the restored instance;
   6. trace a window of scans with torch.profiler and report the device's
      busy time and idle share (kernel, memcpy and memset events only),
@@ -254,6 +258,17 @@ MAP_TOUR_SCANS = 833
 # and 1 steps among longer ones; beams clipped at max_steps; long and
 # short beams and invalid ones alternating within each warp's beams
 TRACE_CASES = ("one_origin", "zero_steps", "clipped", "mixed_warp")
+# the endpoints' own cases (endpoint_case): the beams a scan, in one table;
+# each holds scans of 0, 1, 180, 360 and 1,081 beams, so the first beams
+# step unevenly (0 where a scan is empty), and "mixed" a 180-beam scan
+# whose ranges are all invalid; "past_one_round" has more beams than the
+# kernel takes in one round (render_kernel.END_MAX_BLOCKS x 256)
+ENDPOINT_CASES = {
+    "mixed": (180, 0, 1, 1081, 360, 0, 0, 180, 1),
+    "empty_ends": (0, 0, 1, 360, 1081, 180, 1, 0, 0),
+    "past_one_round": None,
+}
+ENDPOINT_BEAM_COUNTS = (0, 1, 180, 360, 1081)
 # The tour's first scans rerun on the host by the plain path, each as
 # (dtype, scans, tolerance m, tolerance rad) for the card run's poses.
 # float32: the first 300 scans (7 closures), same counts and poses within
@@ -1447,6 +1462,7 @@ def run_slam(tmp, gpu, dev):
     summary["render"] = render_phase(slam, dev, gpu)
     summary["render_tour"] = render_phase(map_cell_tour(dev)[1], dev, gpu)
     summary["render_trace_cases"] = trace_cases(dev)
+    summary["render_endpoint_cases"] = endpoint_cases(dev)
 
     path = os.path.join(tmp, "map.graph")
     slam.to_file(path)
@@ -1579,16 +1595,80 @@ def trace_cases(dev):
     return rows
 
 
+def endpoint_case(name, seed=0):
+    """The scans of one of ENDPOINT_CASES (LocalizedRangeScans at poses
+    within 3 m of the origin, ranges up to 25 m: some past the 12 m
+    threshold, some inf, nan or outside [min_range, max_range]; 180 beams
+    a degree apart over 180 degrees, 360 over 360, 1,081 a quarter degree
+    apart over 270, 1 and 0 beams), and the range threshold 12 m.
+    "past_one_round" draws 4,100 scans' beam counts from
+    ENDPOINT_BEAM_COUNTS."""
+    from yag_slam_tpu_torch import LocalizedRangeScan
+
+    rng = np.random.default_rng(seed)
+    counts = ENDPOINT_CASES[name]
+    if counts is None:
+        counts = rng.choice(ENDPOINT_BEAM_COUNTS, 4100, p=(0.05, 0.05, 0.3, 0.3, 0.3))
+    fov = {180: np.pi, 360: 2 * np.pi, 1081: 1.5 * np.pi}
+    scans = []
+    for i, n in enumerate(int(c) for c in counts):
+        inc = fov.get(n, np.pi) / max(n - 1, 1)
+        a0 = -0.5 * fov.get(n, np.pi) + rng.uniform(-0.1, 0.1)
+        r = rng.uniform(0.05, 25.0, n)
+        bad = rng.uniform(size=n) < 0.1
+        r[bad] = rng.choice([np.inf, -np.inf, np.nan, 0.05, 20.5], bad.sum())
+        if name == "mixed" and i == 7:
+            r[:] = rng.choice([np.inf, np.nan, 0.05, 0.1, 20.5], n)   # none valid
+        x, y = rng.uniform(-3.0, 3.0, 2)
+        scans.append(LocalizedRangeScan(r, a0, a0 + inc * max(n - 1, 0), inc, 0.1, 20.0,
+                                        12.0, x, y, rng.uniform(-np.pi, np.pi)))
+    return scans, 12.0
+
+
+def endpoint_cases(dev):
+    """Phase 5 (c): the endpoints kernel on each of ENDPOINT_CASES, seg,
+    flag and box bit-equal to its plain version on the card, and the image
+    of its beams too."""
+    from yag_slam_tpu_torch.mapping import occupancy as O
+    from yag_slam_tpu_torch.mapping import render_kernel as R
+
+    rows = []
+    for name in ENDPOINT_CASES:
+        scans, rt = endpoint_case(name)
+        table, ranges = O._gather(scans, dev)
+        seg, flag, box = R.beam_endpoints(table, ranges, rt)
+        want = R.beam_endpoints_ref(table, ranges, rt)
+        same = all(torch.equal(a, b) for a, b in zip((seg, flag, box), want))
+        frame = O._frame(box.tolist(), RENDER_RES, rt)
+        args = (*O._f32(*frame[:2], RENDER_RES), *frame[2:], O.MIN_PASS_THROUGH)
+        image = R.beam_image(seg, flag, *args)
+        if not (same and torch.equal(image, R.beam_image_ref(seg, flag, *args))):
+            raise AssertionError(f"endpoint case {name}: differs from the plain version "
+                                 f"(endpoints equal: {same})")
+        first = table[:, 7].to(torch.int64)
+        rows.append(dict(case=name, scans=len(scans), beams=int(ranges.shape[0]),
+                         valid=int((flag & 1).sum()),
+                         empty_scans=int((first[1:] == first[:-1]).sum()
+                                         + (first[-1] == ranges.shape[0])),
+                         blocks=min(-(-int(ranges.shape[0]) // 256), R.END_MAX_BLOCKS),
+                         grid=list(frame[2:4]),
+                         max_abs_err=0))
+    log(f"phase 5: endpoint cases bit-equal to the plain version: {rows}")
+    return rows
+
+
 def render_phase(slam, dev, gpu):
     """Phase 5 (a): the map render.  The main path (make_occupancy_grid and
     the prefixes k = 5, half and all of the tour's vertices through
     create_occupancy_grid) with the render kernels' launches counted from
-    0; then, at each prefix, every stage's kernel held bit for bit to its
-    plain version on the same inputs on the card (seg, flag and the box;
-    passes and hits; the image, also against the whole render's); wrapper,
-    bare kernel (device_ms on preallocated outputs), plain version and the
-    whole render (host wall to the image on the host) timed beside each
-    stage's bound."""
+    0: one render_endpoints and one render_counts a render; then, at each
+    prefix, every stage's kernel held bit for bit to its plain version on
+    the same inputs on the card (seg, flag and the box; the image, to
+    classify_cells_ref of beam_counts_ref and to the whole render's; the
+    trace's counts mode, passes and hits); wrapper, bare kernel (device_ms
+    on preallocated outputs), plain version and the whole render (host
+    wall to the image on the host) timed beside each stage's bound and the
+    event floor (device_ms of a one-element add_)."""
     from yag_slam_tpu_torch import _build
     from yag_slam_tpu_torch.mapping import occupancy as O
     from yag_slam_tpu_torch.mapping import render_kernel as R
@@ -1604,9 +1684,9 @@ def render_phase(slam, dev, gpu):
     renders = {k: O.create_occupancy_grid(scans[:k], res, rt, device=dev) for k in prefixes}
     torch.cuda.synchronize()
     launches = dict(R.LAUNCHES)
-    for name, count in launches.items():
-        if count != 1 + len(prefixes):
-            raise AssertionError(f"{name} launched {count} times in {1 + len(prefixes)} renders")
+    if launches != dict(render_endpoints=1 + len(prefixes), render_counts=1 + len(prefixes)):
+        raise AssertionError(f"{1 + len(prefixes)} renders launched {launches}, not one "
+                             f"render_endpoints and one render_counts each")
     vals = set(np.unique(grid.image).tolist())
     if grid.image.shape != (grid.height, grid.width) or not vals <= {0, 200, 255} \
             or 0 not in vals or 255 not in vals:
@@ -1620,6 +1700,8 @@ def render_phase(slam, dev, gpu):
         raise AssertionError(f"a render waited for the card {len(waits)} times, not "
                              f"{RENDER_WAITS} (the box and the image): {waits}")
     log(f"phase 5: a render waits for the card {len(waits)} times (the box, the image)")
+    one = torch.zeros(1, device=dev)
+    floor = device_ms(lambda: one.add_(1))
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -1629,6 +1711,7 @@ def render_phase(slam, dev, gpu):
             raise AssertionError(f"{name}: bare launch failed, cudaError {err}")
 
     cases = {name: [] for name in R.KERNELS}
+    counts_mode = []
     wall = {}
     for k in prefixes:
         table, ranges = O._gather(scans[:k], dev)
@@ -1636,19 +1719,19 @@ def render_phase(slam, dev, gpu):
         seg, flag, box = R.beam_endpoints(table, ranges, rt)
         seg_r, flag_r, box_r = R.beam_endpoints_ref(table, ranges, rt)
         ox, oy, W, H, max_steps = O._frame(box.tolist(), res, rt)
-        f32 = O._f32(ox, oy, res)
-        counts = R.beam_counts(seg, flag, *f32, W, H, max_steps)
-        counts_r = R.beam_counts_ref(seg, flag, *f32, W, H, max_steps)
-        image = R.classify_cells(counts, mpt)
-        image_r = R.classify_cells_ref(counts, mpt)
+        frame = (*O._f32(ox, oy, res), W, H, max_steps)
+        image = R.beam_image(seg, flag, *frame, mpt)
+        image_r = R.beam_image_ref(seg, flag, *frame, mpt)
+        counts = R.beam_counts(seg, flag, *frame)
+        counts_r = R.beam_counts_ref(seg, flag, *frame)
         errs = dict(
             render_endpoints=max(max_abs_err(seg, seg_r), max_abs_err(flag, flag_r),
                                  max_abs_err(box, box_r)),
-            render_counts=max_abs_err(counts, counts_r),
-            render_classify=max_abs_err(image, image_r))
+            render_counts=max(max_abs_err(image, image_r), max_abs_err(counts, counts_r)))
         same = (torch.equal(seg, seg_r) and torch.equal(flag, flag_r)
                 and torch.equal(box, box_r) and torch.equal(counts, counts_r)
                 and torch.equal(image, image_r)
+                and torch.equal(image, R.classify_cells_ref(counts_r, mpt))
                 and np.array_equal(image.cpu().numpy(), renders[k].image)
                 and (renders[k].width, renders[k].height) == (W, H)
                 and (renders[k].offset.x, renders[k].offset.y) == (ox, oy))
@@ -1658,11 +1741,17 @@ def render_phase(slam, dev, gpu):
         valid = int((flag & 1).sum())
         steps = render_steps(seg, flag, res, max_steps)
 
-        part = torch.empty((k, 4), dtype=torch.float64, device=dev)
-        done = torch.empty(1, dtype=torch.int32, device=dev)
+        scratch = R._end_scratch(table)
         seg_p, flag_p, box_p = torch.empty_like(seg), torch.empty_like(flag), torch.empty_like(box)
         counts_p, image_p = torch.empty_like(counts), torch.empty_like(image)
         cols_p = torch.empty((W, H), dtype=torch.int32, device=dev)
+        trace_ops = RENDER_STEP_OPS * steps + RENDER_BEAM_OPS * valid
+
+        def bare_trace(image_ptr):
+            return lambda: ok(lib.yag_render_trace(
+                seg.data_ptr(), flag.data_ptr(), B, *frame, counts_p.data_ptr(),
+                cols_p.data_ptr(), mpt, image_ptr, stream()), "render_counts")
+
         stages = dict(
             render_endpoints=(
                 dict(**bound(64 * k + 8 * B + 17 * B + 32)),
@@ -1670,33 +1759,30 @@ def render_phase(slam, dev, gpu):
                 lambda: R.beam_endpoints_ref(table, ranges, rt),
                 lambda: ok(lib.yag_render_endpoints(
                     table.data_ptr(), ranges.data_ptr(), k, B, rt, seg_p.data_ptr(),
-                    flag_p.data_ptr(), part.data_ptr(), done.data_ptr(), box_p.data_ptr(),
-                    stream()), "render_endpoints")),
+                    flag_p.data_ptr(), scratch.data_ptr(), R.END_MAX_BLOCKS,
+                    box_p.data_ptr(), stream()), "render_endpoints")),
+            # the render's: the trace with the image in its merge
             render_counts=(
-                dict(**bound(17 * B + 8 * W * H, RENDER_STEP_OPS * steps
-                             + RENDER_BEAM_OPS * valid), steps=steps),
-                lambda: R.beam_counts(seg, flag, *f32, W, H, max_steps),
-                lambda: R.beam_counts_ref(seg, flag, *f32, W, H, max_steps),
-                lambda: ok(lib.yag_render_trace(
-                    seg.data_ptr(), flag.data_ptr(), B, *f32, W, H, max_steps,
-                    counts_p.data_ptr(), cols_p.data_ptr(), stream()), "render_counts")),
-            render_classify=(
-                dict(**bound(9 * W * H, 4 * W * H)),
-                lambda: R.classify_cells(counts, mpt),
-                lambda: R.classify_cells_ref(counts, mpt),
-                lambda: ok(lib.yag_render_classify(
-                    counts.data_ptr(), W * H, mpt, image_p.data_ptr(), stream()),
-                    "render_classify")),
+                dict(**bound(17 * B + W * H, trace_ops), steps=steps),
+                lambda: R.beam_image(seg, flag, *frame, mpt),
+                lambda: R.beam_image_ref(seg, flag, *frame, mpt),
+                bare_trace(image_p.data_ptr())),
         )
         for name, (row, wrapper, plain, bare) in stages.items():
             row.update(case=f"k={k}", shape=[k, B, valid, H, W], max_abs_err=errs[name],
-                       library=RENDER_NO_LIBRARY)
+                       library=RENDER_NO_LIBRARY, floor_ms=floor)
             cases[name].append(timings(row, wrapper, plain, bare))
-        bare_outputs = (torch.equal(seg_p, seg) and torch.equal(flag_p, flag)
-                        and torch.equal(box_p, box) and torch.equal(counts_p, counts)
-                        and torch.equal(image_p, image))
-        if not bare_outputs:
+        if not (torch.equal(seg_p, seg) and torch.equal(flag_p, flag)
+                and torch.equal(box_p, box) and torch.equal(image_p, image)):
             raise AssertionError(f"render at k = {k}: a bare launch's output differs")
+        # the trace's counts mode, timed the same way (not on the render's path)
+        row = dict(**bound(17 * B + 8 * W * H, trace_ops), steps=steps, case=f"k={k}",
+                   shape=[k, B, valid, H, W], max_abs_err=max_abs_err(counts, counts_r))
+        counts_mode.append(timings(
+            row, lambda: R.beam_counts(seg, flag, *frame),
+            lambda: R.beam_counts_ref(seg, flag, *frame), bare_trace(None)))
+        if not torch.equal(counts_p, counts):
+            raise AssertionError(f"render at k = {k}: the bare counts mode's output differs")
 
         def whole():
             t0 = time.perf_counter()
@@ -1710,13 +1796,15 @@ def render_phase(slam, dev, gpu):
             + "ms kernel / wrapper / plain / bound: " + "; ".join(
                 f"{name} {c[-1]['kernel_ms']:.4f} / {c[-1]['ms']:.4f} / "
                 f"{c[-1]['plain_ms']:.4f} / {c[-1]['bound_ms']:.5f}"
-                for name, c in cases.items())
-            + f"; whole render {wall[k]:.3f} ms (host wall, median of {RENDER_TIMED}) ({gpu})")
+                for name, c in (*cases.items(), ("counts mode", counts_mode)))
+            + f"; event floor {floor:.4f}; whole render {wall[k]:.3f} ms (host wall, "
+            f"median of {RENDER_TIMED}) ({gpu})")
     # the main case, first in each list: the whole map
-    for c in cases.values():
+    for c in (*cases.values(), counts_mode):
         c.insert(0, c.pop())
     return dict(launches=launches, renders=1 + len(prefixes), cases=cases,
-                whole_render_ms=wall, grid=[grid.width, grid.height])
+                counts_mode=counts_mode, floor_ms=floor, whole_render_ms=wall,
+                grid=[grid.width, grid.height])
 
 
 def profile_window(scans, dev, tmp, gpu):

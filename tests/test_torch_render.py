@@ -2,7 +2,8 @@
 the CPU.
 
 ``mapping.occupancy.create_occupancy_grid`` (one host gather, then the
-three stages of ``mapping.render_kernel``, here their plain versions) must
+two stages of ``mapping.render_kernel``, the endpoints and the image, here
+their plain versions) must
 give, exactly (the same image, width and height, the same float64 offset
 to the bit), the render of :func:`_numpy_render`: the JAX package's host
 loop in numpy float64 and its ``_render_counts`` as numpy float32
@@ -17,10 +18,13 @@ too).  Inputs come from numpy seeds: mixed beam counts, inf / nan ranges
 and ranges outside [min_range, max_range], beams past range_threshold, a
 single scan, more beams than one chunk of the plain trace, a tour's
 prefixes at their corrected poses; the trace alone on a grid its beams
-leave.  The CUDA dispatch is checked without a card: a wrapper on a CUDA
-tensor launches its kernel or raises, and never runs its plain version.
+leave; chip_smoke's endpoint cases (scans of 0 to 1,081 beams in one
+table).  The CUDA dispatch is checked without a card: a wrapper on a CUDA
+tensor launches its kernel or raises, and never runs its plain version,
+and a render launches the endpoints and the trace in image mode.
 """
 import ast
+import ctypes
 import inspect
 import os
 
@@ -245,8 +249,8 @@ def _jax_image(seg, flag, ox, oy, res, width, height, max_steps, mpt):
 @pytest.mark.parametrize("frame", [(-1.0, -2.0, 40, 30), (0.5, 0.25, 25, 70),
                                    (-4.0, -4.0, 200, 200)])
 def test_trace_on_a_grid_the_beams_leave(frame):
-    """beam_counts and classify_cells on a given frame that cuts through
-    the beams (steps and ends outside it count nowhere, through the dump
+    """beam_counts and beam_image on a given frame that cuts through the
+    beams (steps and ends outside it count nowhere, through the dump
     slot): passes, hits and image those of the numpy twin, the image
     within JAX_CELL_TOL of the JAX package's _render_counts."""
     ox, oy, width, height = frame
@@ -265,7 +269,9 @@ def test_trace_on_a_grid_the_beams_leave(frame):
     np.testing.assert_array_equal(passes, want_p)
     np.testing.assert_array_equal(hits, want_h)
     assert 0 < hits.sum() < passes.sum() < valid.sum() * max_steps
-    image = R.classify_cells(counts, 2).numpy()
+    image = R.beam_image(seg, flag, ox, oy, res, width, height, max_steps, 2)
+    assert image.shape == (height, width) and image.dtype == torch.uint8
+    image = image.numpy()
     np.testing.assert_array_equal(image, _numpy_image(want_p, want_h, 2))
     jax_image = _jax_image(seg, flag, ox, oy, res, width, height, max_steps, 2)
     assert (image != jax_image).mean() <= JAX_CELL_TOL
@@ -278,8 +284,9 @@ def test_cpu_render_leaves_launch_counts_at_zero():
 
 
 class _FakeLibrary:
-    """The kernel library's entry points, recording their calls and
-    returning `err`."""
+    """The kernel library's entry points, recording their calls (name and
+    arguments) and returning `err`; the endpoints' stand-in writes a box of
+    (0, 0) - (1, 1) so that a render goes on to its grid."""
 
     def __init__(self, err):
         self.err, self.calls = err, []
@@ -287,16 +294,26 @@ class _FakeLibrary:
     def __getattr__(self, name):
         if not name.startswith("yag_render_"):
             raise AttributeError(name)
-        return lambda *args: self.calls.append(name) or self.err
+
+        def call(*args):
+            self.calls.append((name, args))
+            if name == "yag_render_endpoints":
+                box = np.array([0.0, 0.0, 1.0, 1.0])
+                ctypes.memmove(args[9], box.ctypes.data, box.nbytes)
+            return self.err
+
+        return call
 
 
 @pytest.fixture
 def fake_card(monkeypatch):
     """Every render wrapper sees its tensors as CUDA tensors; each plain
-    version raises if it is called."""
+    version raises if it is called; the endpoints' scratch is made anew."""
     monkeypatch.setattr(R, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(R, "_stream", lambda t: 0)
-    for name in ("beam_endpoints_ref", "beam_counts_ref", "classify_cells_ref"):
+    monkeypatch.setattr(R, "_END_SCRATCH", {})
+    for name in ("beam_endpoints_ref", "beam_counts_ref", "beam_image_ref",
+                 "classify_cells_ref"):
         monkeypatch.setattr(R, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} ran"))
 
     def use(err):
@@ -311,37 +328,65 @@ def _wrapper_calls():
     table = torch.zeros((2, len(R.COLS)), dtype=torch.float64)
     seg = torch.zeros((5, 4), dtype=torch.float32)
     flag = torch.ones(5, dtype=torch.uint8)
-    counts = torch.zeros((2, 3, 4), dtype=torch.int32)
     return [("render_endpoints", lambda: R.beam_endpoints(table, torch.ones(5, dtype=torch.float64), 5.0)),
-            ("render_counts", lambda: R.beam_counts(seg, flag, 0.0, 0.0, 0.05, 4, 3, 10)),
-            ("render_classify", lambda: R.classify_cells(counts, 2))]
+            ("render_counts", lambda: R.beam_image(seg, flag, 0.0, 0.0, 0.05, 4, 3, 10, 2)),
+            ("render_counts", lambda: R.beam_counts(seg, flag, 0.0, 0.0, 0.05, 4, 3, 10))]
+
+
+# yag_render_trace's arguments: its min_pass_through and image pointer
+_TRACE_MPT, _TRACE_IMAGE = 11, 12
 
 
 def test_cuda_tensors_launch_the_kernels_and_never_the_plain_versions(fake_card):
     """On a CUDA tensor each wrapper calls its C entry point once and
-    counts one launch; a failed launch raises."""
+    counts one launch: the endpoints, the trace in image mode (an image
+    pointer) and in counts mode (none); a failed launch raises."""
     lib = fake_card(0)
     R.reset_launches()
     for name, call in _wrapper_calls():
         call()
-    assert lib.calls == ["yag_render_endpoints", "yag_render_trace", "yag_render_classify"]
-    assert R.LAUNCHES == dict.fromkeys(R.LAUNCHES, 1)
+    assert [c[0] for c in lib.calls] == ["yag_render_endpoints", "yag_render_trace",
+                                         "yag_render_trace"]
+    (_, end), (_, image), (_, counts) = lib.calls
+    assert end[8] == R.END_MAX_BLOCKS and end[7] == R._END_SCRATCH[(torch.device("cpu"), 0)].data_ptr()
+    assert image[_TRACE_IMAGE] is not None and image[_TRACE_MPT] == 2
+    assert counts[_TRACE_IMAGE] is None
+    assert R.LAUNCHES == {"render_endpoints": 1, "render_counts": 2}
     fake_card(9)
     for name, call in _wrapper_calls():
         with pytest.raises(RuntimeError, match=f"{name} kernel launch failed: cudaError 9"):
             call()
-    assert R.LAUNCHES == dict.fromkeys(R.LAUNCHES, 2)
+    assert R.LAUNCHES == {"render_endpoints": 2, "render_counts": 4}
+
+
+def test_a_render_launches_the_endpoints_and_the_trace_in_image_mode(fake_card):
+    """occupancy._render_counts on a CUDA table: yag_render_endpoints, then
+    yag_render_trace in image mode on the grid of the box, and nothing else;
+    one launch of each wrapper; the endpoints' scratch made once and kept."""
+    lib = fake_card(0)
+    R.reset_launches()
+    table, ranges = occupancy._gather(_random_scans(11, [90, 0, 45]), torch.device("cpu"))
+    for _ in range(2):
+        image, ox, oy, width, height = occupancy._render_counts(table, ranges, 0.05, 5.0, 3)
+        assert (ox, oy, width, height) == occupancy._frame([0.0, 0.0, 1.0, 1.0], 0.05, 5.0)[:4]
+        assert image.shape == (height, width) and width > 20
+    assert [c[0] for c in lib.calls] == ["yag_render_endpoints", "yag_render_trace"] * 2
+    assert lib.calls[1][1][_TRACE_MPT] == 3 and lib.calls[1][1][_TRACE_IMAGE] is not None
+    assert lib.calls[0][1][7] == lib.calls[2][1][7] and len(R._END_SCRATCH) == 1
+    assert R.LAUNCHES == {"render_endpoints": 2, "render_counts": 2}
 
 
 def test_render_counts_runs_only_the_dispatching_wrappers():
     """occupancy._render_counts, which holds all of a render's device
-    work, calls the three wrappers (which dispatch by device) and no plain
-    version; create_occupancy_grid reaches it through the module global,
-    once a render; the wrappers take their plain version only on the CPU,
-    with no try / except around a launch."""
+    work, calls the endpoints and the image wrappers (which dispatch by
+    device), not the counts, and no plain version; create_occupancy_grid
+    reaches it through the module global, once a render; the wrappers take
+    their plain version only on the CPU, with no try / except around a
+    launch; the counts and the image launch through one _trace."""
     src = inspect.getsource(occupancy._render_counts)
     names = {n.attr for n in ast.walk(ast.parse(src)) if isinstance(n, ast.Attribute)}
-    assert {"beam_endpoints", "beam_counts", "classify_cells"} <= names
+    assert {"beam_endpoints", "beam_image"} <= names
+    assert not names & {"beam_counts", "classify_cells"}
     assert not any(n.endswith("_ref") for n in names)
     calls = [n.func.id for n in ast.walk(ast.parse(inspect.getsource(
         occupancy.create_occupancy_grid))) if isinstance(n, ast.Call)
@@ -349,29 +394,35 @@ def test_render_counts_runs_only_the_dispatching_wrappers():
     assert calls.count("_render_counts") == 1
     tree = ast.parse(inspect.getsource(R))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    for fn in (n for n in tree.body if isinstance(n, ast.FunctionDef)
-               and n.name in ("beam_endpoints", "beam_counts", "classify_cells")):
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert not {"classify_cells", "render_classify"} & set(fns)
+    for name in KERNEL_OF:
+        fn = fns[name]
         first = fn.body[1]     # after the docstring
         assert isinstance(first, ast.If) and "_on_cuda" in ast.unparse(first.test)
         assert ast.unparse(first.test).startswith("not ")
         assert ast.unparse(first.body[0]).startswith(f"return {fn.name}_ref(")
         rest = ast.unparse(ast.Module(body=fn.body[2:], type_ignores=[]))
-        assert "_ref(" not in rest and f"LAUNCHES['{KERNEL_OF[fn.name]}'] += 1" in rest
+        launch = f"LAUNCHES['{KERNEL_OF[fn.name]}'] += 1"
+        assert "_ref(" not in rest and (launch in rest or "_trace(seg, flag" in rest)
+    trace = ast.unparse(fns["_trace"])
+    assert "LAUNCHES['render_counts'] += 1" in trace and "_ref(" not in trace
 
 
 KERNEL_OF = {"beam_endpoints": "render_endpoints", "beam_counts": "render_counts",
-             "classify_cells": "render_classify"}
+             "beam_image": "render_counts"}
 
 
 def test_render_kernels_are_in_the_library_build():
-    """render.cu is one of the CUDA sources the library builds; its entry
-    points are declared; the kernel table names it and the JAX package's
-    functions it replaces."""
+    """render.cu is one of the CUDA sources the library builds; its two
+    entry points are declared and the classify kernel is gone; the kernel
+    table names it and the JAX package's functions it replaces."""
     srcs, _ = _build._sources()
     assert "render.cu" in {p.name for p in srcs}
-    for name in ("yag_render_endpoints", "yag_render_trace", "yag_render_classify"):
+    for name in ("yag_render_endpoints", "yag_render_trace"):
         assert name in _build._SIGNATURES
-    assert set(R.KERNELS) == set(R.LAUNCHES)
+    assert not any("classify" in name for name in _build._SIGNATURES)
+    assert set(R.KERNELS) == set(R.LAUNCHES) == {"render_endpoints", "render_counts"}
     for info in R.KERNELS.values():
         assert os.path.isfile(os.path.join(REPO, info["source"]))
         path, line = info["replaces"].rsplit(":", 1)
@@ -380,6 +431,7 @@ def test_render_kernels_are_in_the_library_build():
     src = open(os.path.join(REPO, R.KERNELS["render_counts"]["source"])).read()
     for info in R.KERNELS.values():
         assert all(f"__global__ void {s}(" in src for s in info["symbols"])
+    assert "classify_kernel" not in src and "cudaMemsetAsync(done" not in src
 
 
 def test_map_cell_tour_renders_on_the_cpu():
@@ -442,6 +494,76 @@ def test_trace_cases_equal_the_numpy_twin(name):
         assert (n == max_steps).all()
     if name == "mixed_warp":
         assert not valid.all() and n.max() > 200 and n.min() <= 2
-    image = R.classify_cells(counts, 2).numpy()
+    image = R.beam_image(seg, flag, *frame, 2).numpy()
+    np.testing.assert_array_equal(image, _numpy_image(want_p, want_h, 2))
     jax_image = _jax_image(seg, flag, ox, oy, res, width, height, max_steps, 2)
     assert (image != jax_image).mean() <= JAX_CELL_TOL
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_beam_image_equals_the_twins_and_jax(case):
+    """The image wrapper's plain path on each case's beams and grid: the
+    numpy twin's image exactly, classify_cells_ref of beam_counts_ref
+    exactly, and within JAX_CELL_TOL of the JAX package's _render_counts."""
+    c = CASES[case]
+    _image_equals_the_twins(_random_scans(c["seed"], c["counts"], holes=c["holes"]),
+                            c["res"], c["rt"])
+
+
+@pytest.mark.parametrize("k", [5, 30, 60])
+def test_beam_image_equals_the_twins_and_jax_on_tour_prefixes(tour60, k):
+    _image_equals_the_twins(tour60[:k], 0.05, 12.0)
+
+
+def _image_equals_the_twins(scans, res, rt, mpt=occupancy.MIN_PASS_THROUGH):
+    table, ranges = occupancy._gather(scans, torch.device("cpu"))
+    seg, flag, box = R.beam_endpoints(table, ranges, rt)
+    ox, oy, width, height, max_steps = occupancy._frame(box.tolist(), res, rt)
+    frame = (*occupancy._f32(ox, oy, res), width, height, max_steps)
+    image = R.beam_image(seg, flag, *frame, mpt)
+    assert image.shape == (height, width) and image.dtype == torch.uint8
+    assert torch.equal(image, R.classify_cells_ref(R.beam_counts_ref(seg, flag, *frame), mpt))
+    valid = (flag & 1).bool().numpy()
+    s, f = seg.numpy()[valid], flag.numpy()[valid]
+    want_p, want_h = _numpy_counts(s[:, :2], s[:, 2:], (f & 2) > 0, *frame)
+    np.testing.assert_array_equal(image.numpy(), _numpy_image(want_p, want_h, mpt))
+    jax_image = _jax_image(seg, flag, *frame, mpt)
+    assert (image.numpy() != jax_image).mean() <= JAX_CELL_TOL
+    assert set(np.unique(image.numpy()).tolist()) <= {0, 200, 255}
+
+
+@pytest.mark.parametrize("name", ["mixed", "empty_ends", "past_one_round"])
+def test_endpoint_cases_equal_the_host_loop(name):
+    """chip_smoke's endpoint cases (phase 5 holds the kernel to the plain
+    version on each): scans of 0, 1, 180, 360 and 1,081 beams in one table,
+    empty scans first and last, one scan with no valid range, more beams
+    than the kernel takes in one round.  The plain version gives the JAX
+    package's host loop's float32 origins and ends, hits and float64 box;
+    the two small cases render as the numpy twin and the JAX package do."""
+    smoke = _smoke()
+    assert set(smoke.ENDPOINT_CASES) == {"mixed", "empty_ends", "past_one_round"}
+    scans, rt = smoke.endpoint_case(name)
+    n = [len(s.ranges) for s in scans]
+    assert set(smoke.ENDPOINT_BEAM_COUNTS) <= set(n)
+    table, ranges = occupancy._gather(scans, torch.device("cpu"))
+    first = table[:, 7].numpy()
+    assert first.tolist() == np.cumsum([0] + n[:-1]).tolist()
+    assert len(set(np.diff(first).tolist())) >= 4      # uneven steps, 0 among them
+    seg, flag, box = R.beam_endpoints(table, ranges, rt)
+    origins, ends, hits = _loop_endpoints(scans, rt)
+    valid = (flag & 1).bool().numpy()
+    assert valid.sum() == len(origins) < len(flag)
+    np.testing.assert_array_equal(seg.numpy()[valid, :2], origins.astype(np.float32))
+    np.testing.assert_array_equal(seg.numpy()[valid, 2:], ends.astype(np.float32))
+    np.testing.assert_array_equal(((flag >> 1) & 1).bool().numpy()[valid], hits)
+    xs, ys = np.concatenate([origins[:, 0], ends[:, 0]]), np.concatenate([origins[:, 1], ends[:, 1]])
+    assert box.tolist() == [xs.min(), ys.min(), xs.max(), ys.max()]
+    if name == "mixed":
+        lo, hi = int(first[7]), int(first[8])
+        assert hi - lo == 180 and not valid[lo:hi].any()
+    if name == "empty_ends":
+        assert n[0] == n[1] == n[-1] == 0
+    if name == "past_one_round":
+        assert len(ranges) > R.END_MAX_BLOCKS * 256
+    else:
+        _same_grid(scans, 0.05, rt)

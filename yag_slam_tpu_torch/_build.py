@@ -72,9 +72,8 @@ _SIGNATURES = {
     "yag_smear_smem_bytes": (_I,),
     "yag_window_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yag_lattice_window_sum": (*(_P,) * 5, _L, _P, _P, _P, *(_I,) * 7, _P, _I, _P),
-    "yag_render_endpoints": (_P, _P, _I, _L, _D, _P, _P, _P, _P, _P, _P),
-    "yag_render_trace": (_P, _P, _L, _F, _F, _F, _I, _I, _I, _P, _P, _P),
-    "yag_render_classify": (_P, _L, _I, _P, _P),
+    "yag_render_endpoints": (_P, _P, _I, _L, _D, _P, _P, _P, _I, _P, _P),
+    "yag_render_trace": (_P, _P, _L, _F, _F, _F, _I, _I, _I, _P, _P, _I, _P, _P),
     "yag_sweep": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P),
     "yag_score_reduce": (_P, _P, _P, _L, *(_P,) * 4, *(_I,) * 10, _P, _I, _P),
     "yag_program_trig": (_P, _P, _P, _L, _I, _P),

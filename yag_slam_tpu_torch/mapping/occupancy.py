@@ -11,9 +11,10 @@ JAX package.
 
 A render is one pass over the scans on the host, gathering their poses,
 beam layouts and ranges into one float64 table, one copy of it to the
-device, and the three stages of :mod:`mapping.render_kernel` there (hand
-written CUDA on a card, ``csrc/render.cu``; their plain PyTorch twins on
-the CPU).  The host waits for the card twice: for the bounding box, which
+device, and the two stages of :mod:`mapping.render_kernel` there, one
+launch each (hand written CUDA on a card, ``csrc/render.cu``: the beams'
+endpoints and box, then the trace with the image in its merge; their
+plain PyTorch twins on the CPU).  The host waits for the card twice: for the bounding box, which
 sizes the grid, and for the image.  Converting a saved map into a
 correlation grid (:func:`occupancy_grid_map_to_correlation_grid`) runs
 the matcher's scatter_cells and smear_grid kernels on CUDA.
@@ -72,14 +73,15 @@ def _gather(scans, device):
 def _render_counts(table, ranges, resolution, range_threshold, min_pass_through):
     """All of a render's device work, from the gathered table to the image
     on the host: the beams' endpoints and box, the one wait for the box,
-    the grid sized from it as the JAX package sizes it, the counts and the
-    image.  Returns (image (H, W) uint8, ox, oy, width, height)."""
+    the grid sized from it as the JAX package sizes it, and the image
+    traced and classified in one launch.  Returns (image (H, W) uint8, ox,
+    oy, width, height)."""
     from yag_slam_tpu_torch.mapping import render_kernel as R
 
     seg, flag, box = R.beam_endpoints(table, ranges, range_threshold)
     ox, oy, width, height, max_steps = _frame(box.tolist(), resolution, range_threshold)
-    counts = R.beam_counts(seg, flag, *_f32(ox, oy, resolution), width, height, max_steps)
-    image = R.classify_cells(counts, min_pass_through)
+    image = R.beam_image(seg, flag, *_f32(ox, oy, resolution), width, height, max_steps,
+                         min_pass_through)
     return image.cpu().numpy(), ox, oy, width, height
 
 

@@ -1,11 +1,12 @@
-"""The map render's three device stages, each beside its plain PyTorch twin.
+"""The map render's two device stages, each beside its plain PyTorch twin.
 
 :func:`mapping.occupancy.create_occupancy_grid` runs them in order: the
 beams' endpoints and the bounding box (:func:`beam_endpoints`), then, once
-the host has sized the grid from the box, the traced counts
-(:func:`beam_counts`) and the image (:func:`classify_cells`).  Dispatch
-goes by the device of the tensors, as in ``matching/kernels.py``: CPU
-tensors run the plain version (``*_ref``); CUDA tensors launch the
+the host has sized the grid from the box, the traced counts classified
+into the image (:func:`beam_image`).  :func:`beam_counts` is the trace
+alone, the passes and hits, from the same launch in its counts mode.
+Dispatch goes by the device of the tensors, as in ``matching/kernels.py``:
+CPU tensors run the plain version (``*_ref``); CUDA tensors launch the
 hand-written kernel of ``csrc/render.cu`` or raise.  Nothing falls back
 from CUDA to the plain version.
 
@@ -14,7 +15,8 @@ never wait for the card: cells outside the grid go to a dump slot past its
 end, not through a boolean compaction.
 
 ``LAUNCHES`` counts the kernel launches per wrapper, apart from the
-matcher's ``matching.kernels.LAUNCHES``.
+matcher's ``matching.kernels.LAUNCHES``; the image and the counts both
+count under ``render_counts``.
 """
 from __future__ import annotations
 
@@ -25,11 +27,11 @@ from yag_slam_tpu_torch.mapping.occupancy import (
     GRID_FREE, GRID_OCCUPIED, GRID_UNKNOWN, OCCUPANCY_THRESHOLD)
 from yag_slam_tpu_torch.matching.kernels import _check, _on_cuda, _require, _stream
 
-LAUNCHES = {"render_endpoints": 0, "render_counts": 0, "render_classify": 0}
+LAUNCHES = {"render_endpoints": 0, "render_counts": 0}
 
 # Per wrapper: its CUDA source, what it replaces in the JAX package
 # ("file:line" of the def; plain numpy and XLA there, not Pallas), and its
-# kernel's name in a profiler trace.
+# kernels' names in a profiler trace.
 _JAX = "yag_slam_tpu/mapping/occupancy.py"
 KERNELS = {
     "render_endpoints": dict(source="yag_slam_tpu_torch/csrc/render.cu",
@@ -37,8 +39,6 @@ KERNELS = {
     "render_counts": dict(source="yag_slam_tpu_torch/csrc/render.cu",
                           replaces=f"{_JAX}:53",
                           symbols=("render_trace_kernel", "render_merge_kernel")),
-    "render_classify": dict(source="yag_slam_tpu_torch/csrc/render.cu",
-                            replaces=f"{_JAX}:53", symbols=("render_classify_kernel",)),
 }
 
 # the table's columns, one row a scan
@@ -50,6 +50,13 @@ COLS = ("x", "y", "yaw", "min_angle", "angle_increment", "min_range", "max_range
 _BEAM_CHUNK = 8192
 
 _VALID, _HIT = 1, 2
+
+# blocks of the endpoints kernel at most (256 beams each: 1 M beams in one
+# round, a grid-stride loop past that), and the partial boxes its scratch
+# holds
+END_MAX_BLOCKS = 4096
+# the endpoints kernel's scratch per (device, stream); see _end_scratch
+_END_SCRATCH = {}
 
 
 def reset_launches():
@@ -86,14 +93,31 @@ def beam_endpoints_ref(table, ranges, range_threshold: float):
     return seg, flag, box
 
 
+def _end_scratch(t):
+    """The endpoints kernel's scratch on t's device and current stream:
+    float64 (1 + 4 * END_MAX_BLOCKS,), a uint32 counter in its first word
+    and a partial box a block after it, zeroed when first made here and
+    kept; each launch's last block sets the counter back to 0.  Kernels on
+    one stream run one after the other, so no two launches share a scratch
+    at once: ThreadedOnlineMapper's map thread, the one that renders, and
+    its worker both queue on the device's current stream, and a caller on
+    another stream gets a scratch of its own."""
+    key = (t.device, _stream(t))
+    buf = _END_SCRATCH.get(key)
+    if buf is None:
+        buf = _END_SCRATCH.setdefault(key, torch.zeros(
+            1 + 4 * END_MAX_BLOCKS, dtype=torch.float64, device=t.device))
+    return buf
+
+
 def beam_endpoints(table, ranges, range_threshold: float):
     """Every beam's endpoint, its flag and the bounding box of the beams.
 
     table: (k, 8) float64, one row a scan with the columns of ``COLS``
-    (``first_beam``: where the scan's beams start in `ranges`, ascending);
-    ranges: (B,) float64, every scan's ranges in turn.  A beam is valid
-    when its range is finite, above min_range and at most max_range; its
-    end lies min(range, range_threshold) along
+    (``first_beam``: where the scan's beams start in `ranges`, ascending
+    from 0); ranges: (B,) float64, every scan's ranges in turn.  A beam is
+    valid when its range is finite, above min_range and at most max_range;
+    its end lies min(range, range_threshold) along
     ``yaw + min_angle + i * angle_increment`` (i: its index in its scan),
     and it is a hit when valid and its range is below range_threshold.
 
@@ -103,8 +127,9 @@ def beam_endpoints(table, ranges, range_threshold: float):
     beams' origins and ends (``inf`` / ``-inf`` when no beam is valid).
 
     The numpy loop over the scans in the JAX package's
-    create_occupancy_grid, as one launch: a block a scan, the box folded by
-    the last block to finish (csrc/render.cu).
+    create_occupancy_grid, as one launch: a thread a beam, its scan found
+    by a binary search of the first beams, the box folded from a partial a
+    block by the last block to finish (csrc/render.cu).
     """
     if not _on_cuda(table, ranges):
         return beam_endpoints_ref(table, ranges, range_threshold)
@@ -116,12 +141,11 @@ def beam_endpoints(table, ranges, range_threshold: float):
     dev = table.device
     seg = torch.empty((B, 4), dtype=torch.float32, device=dev)
     flag = torch.empty(B, dtype=torch.uint8, device=dev)
-    part = torch.empty((k, 4), dtype=torch.float64, device=dev)
-    done = torch.empty(1, dtype=torch.int32, device=dev)
     box = torch.empty(4, dtype=torch.float64, device=dev)
     err = _build.library().yag_render_endpoints(
         table.data_ptr(), ranges.data_ptr(), k, B, range_threshold, seg.data_ptr(),
-        flag.data_ptr(), part.data_ptr(), done.data_ptr(), box.data_ptr(), _stream(table))
+        flag.data_ptr(), _end_scratch(table).data_ptr(), END_MAX_BLOCKS, box.data_ptr(),
+        _stream(table))
     LAUNCHES["render_endpoints"] += 1
     _check(err, "render_endpoints")
     return seg, flag, box
@@ -175,6 +199,27 @@ def beam_counts_ref(seg, flag, ox: float, oy: float, res: float, width: int,
     return counts[:, :size].reshape(2, height, width)
 
 
+def _trace(seg, flag, ox, oy, res, width, height, max_steps, min_pass_through, image):
+    """One launch of yag_render_trace: into `image` (image mode), or, with
+    image None, into the counts it returns (counts mode)."""
+    B = seg.shape[0]
+    _require(seg, torch.float32, (B, 4), "seg")
+    _require(flag, torch.uint8, (B,), "flag")
+    # the counts, and behind them in the same allocation the column-major
+    # scratch of the beams longer in y
+    buf = torch.empty((3, height, width), dtype=torch.int32, device=seg.device)
+    counts = buf[:2]
+    if counts.numel() == 0:
+        return counts
+    err = _build.library().yag_render_trace(
+        seg.data_ptr(), flag.data_ptr(), B, ox, oy, res, width, height, max_steps,
+        counts.data_ptr(), buf[2].data_ptr(), min_pass_through,
+        None if image is None else image.data_ptr(), _stream(seg))
+    LAUNCHES["render_counts"] += 1
+    _check(err, "render_counts")
+    return counts
+
+
 def beam_counts(seg, flag, ox: float, oy: float, res: float, width: int, height: int,
                 max_steps: int):
     """(2, height, width) int32: passes and hits of every cell.
@@ -192,26 +237,12 @@ def beam_counts(seg, flag, ox: float, oy: float, res: float, width: int, height:
     each run of lanes on one cell adding its length into the int32 counts
     with one atomicAdd (exact in any order); a beam longer in y than in x
     counts its passes into a column-major scratch, added into the passes
-    by a second kernel, so that a warp's adds fall on consecutive
-    addresses either way (csrc/render.cu).
+    by the merge kernel, so that a warp's adds fall on consecutive
+    addresses either way (csrc/render.cu, counts mode).
     """
     if not _on_cuda(seg, flag):
         return beam_counts_ref(seg, flag, ox, oy, res, width, height, max_steps)
-    B = seg.shape[0]
-    _require(seg, torch.float32, (B, 4), "seg")
-    _require(flag, torch.uint8, (B,), "flag")
-    # the counts, and behind them in the same allocation the column-major
-    # scratch of the beams longer in y
-    buf = torch.empty((3, height, width), dtype=torch.int32, device=seg.device)
-    counts = buf[:2]
-    if counts.numel() == 0:
-        return counts
-    err = _build.library().yag_render_trace(
-        seg.data_ptr(), flag.data_ptr(), B, ox, oy, res, width, height, max_steps,
-        counts.data_ptr(), buf[2].data_ptr(), _stream(seg))
-    LAUNCHES["render_counts"] += 1
-    _check(err, "render_counts")
-    return counts
+    return _trace(seg, flag, ox, oy, res, width, height, max_steps, 0, None)
 
 
 # ---------------------------------------------------------------------------
@@ -219,7 +250,10 @@ def beam_counts(seg, flag, ox: float, oy: float, res: float, width: int, height:
 # ---------------------------------------------------------------------------
 
 def classify_cells_ref(counts, min_pass_through: int):
-    """Plain version of :func:`classify_cells`."""
+    """(H, W) uint8 image of (2, H, W) int32 passes and hits: a cell with
+    more than `min_pass_through` passes is free, or occupied when it has a
+    hit and ``hits >= 0.1 * passes`` in float32; every other cell is
+    unknown (the JAX package's _render_counts' last step)."""
     passes, hits = counts[0], counts[1]
     visited = passes > min_pass_through
     occupied = visited & (
@@ -233,21 +267,24 @@ def classify_cells_ref(counts, min_pass_through: int):
                        torch.where(visited, value(GRID_FREE), value(GRID_UNKNOWN)))
 
 
-def classify_cells(counts, min_pass_through: int):
-    """(H, W) uint8 image of (2, H, W) int32 passes and hits: a cell with
-    more than `min_pass_through` passes is free, or occupied when it has a
-    hit and ``hits >= 0.1 * passes`` in float32; every other cell is
-    unknown.  The JAX package's _render_counts' last step, one thread a
-    cell (csrc/render.cu)."""
-    if not _on_cuda(counts):
-        return classify_cells_ref(counts, min_pass_through)
-    _, H, W = counts.shape
-    _require(counts, torch.int32, (2, H, W), "counts")
-    image = torch.empty((H, W), dtype=torch.uint8, device=counts.device)
-    if image.numel() == 0:
-        return image
-    err = _build.library().yag_render_classify(
-        counts.data_ptr(), H * W, min_pass_through, image.data_ptr(), _stream(counts))
-    LAUNCHES["render_classify"] += 1
-    _check(err, "render_classify")
+def beam_image_ref(seg, flag, ox: float, oy: float, res: float, width: int, height: int,
+                   max_steps: int, min_pass_through: int):
+    """Plain version of :func:`beam_image`."""
+    return classify_cells_ref(
+        beam_counts_ref(seg, flag, ox, oy, res, width, height, max_steps), min_pass_through)
+
+
+def beam_image(seg, flag, ox: float, oy: float, res: float, width: int, height: int,
+               max_steps: int, min_pass_through: int):
+    """(height, width) uint8 image of the beams: :func:`beam_counts`' passes
+    and hits classified by :func:`classify_cells_ref`'s rule (occupied 0,
+    unknown 200, free 255).  The JAX package's _render_counts whole, as one
+    launch of the trace in image mode: the merge kernel that adds the
+    column-major passes classifies each cell as it goes, so the passes are
+    never written back and no kernel reads them again (csrc/render.cu)."""
+    if not _on_cuda(seg, flag):
+        return beam_image_ref(seg, flag, ox, oy, res, width, height, max_steps,
+                              min_pass_through)
+    image = torch.empty((height, width), dtype=torch.uint8, device=seg.device)
+    _trace(seg, flag, ox, oy, res, width, height, max_steps, min_pass_through, image)
     return image
