@@ -55,7 +55,7 @@ def main(argv=None):
     from yag_slam_tpu_torch.mapping import render_kernel as R
     from yag_slam_tpu_torch.utils.profiling import device_ms, gpu_line
 
-    assert os.path.dirname(os.path.dirname(os.path.abspath(R.__file__))) == tree
+    assert os.path.abspath(R.__file__).startswith(os.path.join(tree, "yag_slam_tpu_torch", ""))
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         log_path, _, _ = generate_benchmark_log(os.path.join(tmp, "tour.clf"), step=0.4,

@@ -111,33 +111,69 @@ __device__ __forceinline__ void block_box(double v[4]) {
   }
 }
 
-// A thread a beam (a grid-stride loop past max_blocks blocks).  Each block
-// leaves its box in part; the last block to finish folds them into box and
-// sets the counter back to 0 for the next launch.
-__global__ void render_endpoints_kernel(const double* __restrict__ table, int k,
-                                        const double* __restrict__ ranges,
-                                        long long n_beams, double range_threshold,
-                                        float4* __restrict__ seg,
-                                        uint8_t* __restrict__ flag,
-                                        unsigned int* __restrict__ done,
-                                        double* __restrict__ part,
-                                        double* __restrict__ box) {
-  double v[4] = {INFINITY, INFINITY, -INFINITY, -INFINITY};
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b < n_beams;
-       b += stride) {
-    // the beam's scan: the last with first beam <= b (a scan of no beams
-    // shares its first beam with the next), searchsorted(right) - 1
-    int lo = 0, hi = k;
-    while (hi - lo > 1) {
+__device__ __forceinline__ long long first_beam(const double* table, int s) {
+  return (long long)__ldg(table + (size_t)s * kCols + 7);
+}
+
+// The scan of each lane's beam w0 + lane: the last s with first beam <= b
+// (a scan of no beams shares its first beam with the next: numpy's
+// searchsorted(right) - 1).  The whole warp calls it, w0 alike in every
+// lane.  The scan of w0 by a 32-ary search (each step the lanes read 32
+// evenly spaced first beams: 2 dependent loads at k = 833, not 10); then
+// the lanes read the next 32 first beams once and each lane counts, by a
+// binary search over them through shuffles, those at or before its beam.
+// Where the warp's beams span more than 32 scans, each lane searches the
+// table from the warp's first scan on its own.
+__device__ __forceinline__ int scan_of(const double* table, int k, long long w0, int lane) {
+  int lo = 0, hi = k;  // first[lo] <= w0 < first[hi] (first[k]: past every beam)
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int s = lo + lane * step;
+    const unsigned le = __ballot_sync(kFull, s < hi && first_beam(table, s) <= w0);
+    lo += (31 - __clz(le)) * step;  // lane 0 reads first[lo] <= w0: le is not 0
+    hi = min(lo + step, hi);
+  }
+  const int s = lo + 1 + lane;
+  // where the scan s begins among the warp's beams (> 0: s is past lo)
+  const int t = s < k ? (int)min(first_beam(table, s) - w0, 64ll) : 64;
+  if (__shfl_sync(kFull, t, 31) <= 31) {  // more than 32 scans: search alone
+    const long long b = w0 + lane;
+    for (hi = k; hi - lo > 1;) {
       const int mid = (lo + hi) >> 1;
-      if ((long long)table[(size_t)mid * kCols + 7] <= b) lo = mid; else hi = mid;
+      if (first_beam(table, mid) <= b) lo = mid; else hi = mid;
     }
-    const double* row = table + (size_t)lo * kCols;
+    return lo;
+  }
+  int n = 0;  // scans lo + 1, lo + 2, ... that begin at or before this lane
+  for (int d = 16; d > 0; d >>= 1)
+    if (__shfl_sync(kFull, t, n + d - 1) <= lane) n += d;
+  return lo + n;
+}
+
+// A thread a beam, a warp 32 consecutive beams (a grid-stride loop past
+// max_blocks blocks).  Each block leaves its box in part; the last block
+// to finish folds them into box and sets the counter back to 0 for the
+// next launch.  At most 48 registers, so that 5 blocks fit a SM: the map
+// cell's 150 k beams in one wave.
+__global__ void __launch_bounds__(kEndThreads, 5)
+render_endpoints_kernel(const double* __restrict__ table, int k,
+                        const double* __restrict__ ranges, long long n_beams,
+                        double range_threshold, float4* __restrict__ seg,
+                        uint8_t* __restrict__ flag, unsigned int* __restrict__ done,
+                        double* __restrict__ part, double* __restrict__ box) {
+  double v[4] = {INFINITY, INFINITY, -INFINITY, -INFINITY};
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long w0 = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31); w0 < n_beams;
+       w0 += stride) {
+    const long long b = w0 + lane;
+    const double r = b < n_beams ? ranges[b] : 0.0;
+    const int scan = scan_of(table, k, w0, lane);
+    if (b >= n_beams) continue;
+    const double* row = table + (size_t)scan * kCols;
     const double x = row[0], y = row[1];
     const double inc = row[4], rmin = row[5], rmax = row[6];
     const long long first = (long long)row[7];
-    const double r = ranges[b];
     const bool ok = isfinite(r) && r > rmin && r <= rmax;
     const double rr = ok ? r : 0.0;
     const double clipped = fmin(rr, range_threshold);
