@@ -118,36 +118,37 @@ __device__ __forceinline__ long long first_beam(const double* table, int s) {
 // The scan of each lane's beam w0 + lane: the last s with first beam <= b
 // (a scan of no beams shares its first beam with the next: numpy's
 // searchsorted(right) - 1).  The whole warp calls it, w0 alike in every
-// lane.  The scan of w0 by a 32-ary search (each step the lanes read 32
-// evenly spaced first beams: 2 dependent loads at k = 833, not 10); then
-// the lanes read the next 32 first beams once and each lane counts, by a
-// binary search over them through shuffles, those at or before its beam.
-// Where the warp's beams span more than 32 scans, each lane searches the
-// table from the warp's first scan on its own.
+// lane.  A 32-ary search narrows the scan of w0 to 32 scans (each step the
+// lanes read 32 evenly spaced first beams: 1 step at k = 833); the lanes
+// then read those 32 first beams, and each lane counts, by a binary search
+// over them through shuffles, those at or before its beam: 2 dependent
+// loads at k = 833, not 10.  Where the warp's beams may reach past those
+// 32 scans, each lane searches the table from there on its own.
 __device__ __forceinline__ int scan_of(const double* table, int k, long long w0, int lane) {
   int lo = 0, hi = k;  // first[lo] <= w0 < first[hi] (first[k]: past every beam)
-  while (hi - lo > 1) {
+  while (hi - lo > 32) {
     const int step = (hi - lo + 31) / 32;
     const int s = lo + lane * step;
     const unsigned le = __ballot_sync(kFull, s < hi && first_beam(table, s) <= w0);
     lo += (31 - __clz(le)) * step;  // lane 0 reads first[lo] <= w0: le is not 0
     hi = min(lo + step, hi);
   }
-  const int s = lo + 1 + lane;
-  // where the scan s begins among the warp's beams (> 0: s is past lo)
-  const int t = s < k ? (int)min(first_beam(table, s) - w0, 64ll) : 64;
-  if (__shfl_sync(kFull, t, 31) <= 31) {  // more than 32 scans: search alone
-    const long long b = w0 + lane;
+  // where the scan lo + lane begins, from the warp's first beam, clamped to
+  // [-1, 64] (at most 0 in lane 0; 64 past the table)
+  const int t =
+      lo + lane < k ? (int)max(min(first_beam(table, lo + lane) - w0, 64ll), -1ll) : 64;
+  const long long b = w0 + lane;
+  if (lo + 31 < k - 1 && __shfl_sync(kFull, t, 31) <= 31) {  // may reach past lo + 31
     for (hi = k; hi - lo > 1;) {
       const int mid = (lo + hi) >> 1;
       if (first_beam(table, mid) <= b) lo = mid; else hi = mid;
     }
     return lo;
   }
-  int n = 0;  // scans lo + 1, lo + 2, ... that begin at or before this lane
+  int n = 0;  // scans lo, lo + 1, ... that begin at or before this lane's beam
   for (int d = 16; d > 0; d >>= 1)
     if (__shfl_sync(kFull, t, n + d - 1) <= lane) n += d;
-  return lo + n;
+  return lo + n - (__shfl_sync(kFull, t, n) > lane);
 }
 
 // A thread a beam, a warp 32 consecutive beams (a grid-stride loop past
