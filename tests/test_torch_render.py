@@ -27,6 +27,7 @@ import ast
 import ctypes
 import inspect
 import os
+import re
 
 import numpy as np
 import pytest
@@ -429,8 +430,9 @@ def test_render_kernels_are_in_the_library_build():
         text = open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
         assert text.startswith(("def _render_counts(", "def create_occupancy_grid("))
     src = open(os.path.join(REPO, R.KERNELS["render_counts"]["source"])).read()
-    for info in R.KERNELS.values():
-        assert all(f"__global__ void {s}(" in src for s in info["symbols"])
+    for info in R.KERNELS.values():     # a kernel, with or without launch bounds
+        assert all(re.search(rf"__global__ void (__launch_bounds__\([^)]*\)\s*)?{s}\(", src)
+                   for s in info["symbols"])
     assert "classify_kernel" not in src and "cudaMemsetAsync(done" not in src
 
 

@@ -145,7 +145,9 @@ __device__ __forceinline__ int scan_of(const double* table, int k, long long w0,
     }
     return lo;
   }
-  int n = 0;  // scans lo, lo + 1, ... that begin at or before this lane's beam
+  // this lane's scan: lo - 1 + the count of scans lo, lo + 1, ... that
+  // begin at or before its beam; the search counts up to 31, t[n] the 32nd
+  int n = 0;
   for (int d = 16; d > 0; d >>= 1)
     if (__shfl_sync(kFull, t, n + d - 1) <= lane) n += d;
   return lo + n - (__shfl_sync(kFull, t, n) > lane);
