@@ -1577,7 +1577,7 @@ def trace_case(name, seed=0):
 
 def trace_cases(dev):
     """Phase 5 (b): the trace kernel on each of TRACE_CASES, bit-equal to
-    its plain version on the card."""
+    its plain version on the card, and the image of no beam."""
     from yag_slam_tpu_torch.mapping import render_kernel as R
 
     rows = []
@@ -1591,6 +1591,14 @@ def trace_cases(dev):
                                  f"(max abs err {max_abs_err(counts, want)})")
         rows.append(dict(case=name, beams=int(seg.shape[0]), passes=int(counts[0].sum()),
                          hits=int(counts[1].sum()), max_abs_err=0))
+    # no beam: the image mode still writes every cell (unknown)
+    seg, flag = torch.zeros((0, 4), device=dev), torch.zeros(0, dtype=torch.uint8, device=dev)
+    frame = trace_case(TRACE_CASES[0])[2]
+    image = R.beam_image(seg, flag, *frame, 2)
+    if not (torch.equal(image, R.beam_image_ref(seg, flag, *frame, 2))
+            and bool((image == 200).all())):
+        raise AssertionError("trace with no beam: the image is not every cell unknown")
+    rows.append(dict(case="no_beams", beams=0, passes=0, hits=0, max_abs_err=0))
     log(f"phase 5: trace cases bit-equal to the plain version: {rows}")
     return rows
 

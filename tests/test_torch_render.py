@@ -569,3 +569,13 @@ def test_endpoint_cases_equal_the_host_loop(name):
         assert len(ranges) > R.END_MAX_BLOCKS * 256
     else:
         _same_grid(scans, 0.05, rt)
+
+
+def test_trace_cases_run_on_the_cpu():
+    """chip_smoke.trace_cases on the plain path: every case, and the image
+    of no beam, every cell unknown."""
+    rows = _smoke().trace_cases(torch.device("cpu"))
+    assert [r["case"] for r in rows] == [*_smoke().TRACE_CASES, "no_beams"]
+    seg, flag = torch.zeros((0, 4)), torch.zeros(0, dtype=torch.uint8)
+    image = R.beam_image(seg, flag, 0.0, 0.0, 0.05, 7, 5, 10, 2)
+    assert image.shape == (5, 7) and bool((image == occupancy.GRID_UNKNOWN).all())
