@@ -121,10 +121,14 @@ Phases, one line each; any failure raises (non-zero exit):
      sweep kernel's launches (csrc/sweep.cu, mapping.raytrace) counted
      from 0 around it: one a splice; the splice bootstrap links the first,
      the graph grows by 20, and the poses come back within 0.3 m of phase
-     4's; the sweep kernel over every centroid of the card's labels
-     bit-equal to its plain version on the card (lengths and ends), the
-     sweep waiting for the card twice (the copy up, the lengths back),
-     timed as wrapper, bare kernel and plain version beside its bound;
+     4's; the sweep kernel over every centroid of the card's labels, at
+     one start (trace_rays' route), on a seeded 2048 x 2048 long-ray map
+     and on the edge inputs (pixels at and beside 180 and 210, NaN, +-inf,
+     negative; starts on the border, outside, on .5 pixels; max_steps 1, 2
+     and the image's own; 650 rays) bit-equal to its plain version on the
+     card (lengths and ends), the sweep waiting for the card twice (the
+     copy up, the lengths back), the first three timed as wrapper, bare
+     kernel and plain version beside their bounds;
      map_to_graph on the card (host wall, split into segment_map,
      determine_centroids, create_edges, the sweep and the scans'
      construction) beside the per-centroid routes: trace_rays (the
@@ -351,6 +355,19 @@ LIFELONG_RAY_CENTROIDS = 8
 # timed; the sweep's waits (the copy up, the lengths back)
 SWEEP_STEP_OPS, SWEEP_RAY_OPS, SPLICE_TIMED, SWEEP_WAITS = 15, 13, 3, 2
 SWEEP_NO_LIBRARY = "none: no single PyTorch call marches rays to their first stop"
+# the splice's angle table: 1,439 rays a start, from 179.75 down to -180
+SPLICE_ANGLES = np.arange(-180, 180, 0.25)[:-1][::-1]
+# the sweep's long-ray map (long_ray_map): a side of free pixels walled
+# in, with square obstacles (occupied, or unknown space that poisons) and
+# starts in its middle, so rays run hundreds of steps
+SWEEP_LONG_SIZE, SWEEP_LONG_OBSTACLES, SWEEP_LONG_STARTS = 2048, 400, 16
+# the sweep's edge inputs (sweep_edge_inputs): the values at and beside
+# the thresholds, NaN (passes), +-inf, negative and zero pixels; the steps
+# of max_steps 1 and 2 and the image's own (None)
+SWEEP_EDGE_VALUES = (180.0, 210.0, float(np.nextafter(np.float32(210), np.float32(0))),
+                     float(np.nextafter(np.float32(180), np.float32(255))), np.nan, np.inf,
+                     -np.inf, -7.5, 0.0)
+SWEEP_EDGE_STEPS = (1, 2, None)
 # phase 12: the SPA crossover (profile_spa_torch.crossover at
 # profile_spa.py's sizes); the cg columns run to the LM cap from 500 nodes
 # (15-75 s a cell): timed at these sizes only, to keep the script within
@@ -2310,7 +2327,7 @@ def lifelong(tour, slam, dev, gpu):
     host_seg_ms = 1e3 * (time.perf_counter() - t0)
     flips = float((seg != host_seg).sum() / max((host_seg > 0).sum(), 1))
     cents = splice.determine_centroids(host_seg)
-    angles = np.arange(-180, 180, 0.25)[:-1][::-1]
+    angles = SPLICE_ANGLES
     picks = sorted(cents)[:: max(1, len(cents) // LIFELONG_RAY_CENTROIDS)]
     d = np.concatenate([
         np.abs(trace_rays(im, angles, *cents[k], device=dev)[2]
@@ -2404,52 +2421,126 @@ def splice_parts(im, res, origin, dev):
     return parts
 
 
-def splice_sweep(im, labels, res, origin, dev, gpu):
-    """Phase 11 (b): the sweep kernel over every centroid of the card's
-    labels, held bit for bit to its plain version on the card (lengths and
-    ends), its waits counted, timed as wrapper, bare kernel and plain
-    version beside its bound; then whole splices, split into their parts,
-    beside the per-centroid routes."""
+def long_ray_map(seed=0):
+    """The sweep's long-ray map, SWEEP_LONG_SIZE px a side, and
+    SWEEP_LONG_STARTS starts in its middle four fifths: free (255) pixels
+    walled in (0), with SWEEP_LONG_OBSTACLES squares of 3-12 px, each
+    occupied (0 or 100) or unknown space (200)."""
+    rng = np.random.default_rng(seed)
+    n = SWEEP_LONG_SIZE
+    im = np.full((n, n), 255.0, np.float32)
+    im[[0, -1], :] = 0.0
+    im[:, [0, -1]] = 0.0
+    for _ in range(SWEEP_LONG_OBSTACLES):
+        y, x = rng.integers(1, n - 13, 2)
+        d = rng.integers(3, 13)
+        im[y:y + d, x:x + d] = rng.choice([0.0, 100.0, 200.0])
+    return im, rng.uniform(0.1 * n, 0.9 * n, (SWEEP_LONG_STARTS, 2))
+
+
+def sweep_edge_inputs(seed=0):
+    """The sweep's edge inputs: a 47 x 61 image, seven tenths of it free
+    (255), the rest drawn from SWEEP_EDGE_VALUES; 50 angles 7.3 degrees
+    apart (not a multiple of 32); 13 starts (650 rays: a multiple of no
+    block size) on the 1-px border, outside the image, on .5 pixels and
+    inside."""
+    rng = np.random.default_rng(seed)
+    h, w = 47, 61
+    im = np.full((h, w), 255.0, np.float32)
+    drawn = rng.uniform(size=(h, w)) < 0.3
+    im[drawn] = rng.choice(np.array(SWEEP_EDGE_VALUES, np.float32), int(drawn.sum()))
+    starts = [(1.0, 1.0), (w - 2.0, h - 2.0), (1.0, 20.0), (30.0, h - 2.0), (0.0, 0.0),
+              (-4.0, 10.0), (w + 3.0, h + 7.0), (20.0, -2.5), (10.5, 20.5), (30.5, 7.0),
+              (25.0, 17.5), *rng.uniform([2.0, 2.0], [w - 3.0, h - 3.0], (2, 2))]
+    return im, np.arange(-180, 180, 7.3), np.array(starts)
+
+
+def sweep_cases(im, starts, dev):
+    """Phase 11's sweep cases as (name, the kernel's inputs on the card):
+    every centroid, one start (trace_rays' route, the first centroid), the
+    long-ray map, and the edge inputs at each of SWEEP_EDGE_STEPS."""
+    from yag_slam_tpu_torch.mapping import raytrace as RT
+
+    long_im, long_starts = long_ray_map()
+    edge_im, edge_angles, edge_starts = sweep_edge_inputs()
+    cases = [(f"{len(starts)} centroids", RT._upload(im, SPLICE_ANGLES, starts, dev)),
+             ("one start", RT._upload(im, SPLICE_ANGLES, starts[:1], dev)),
+             ("long-ray map", RT._upload(long_im, SPLICE_ANGLES, long_starts, dev))]
+    for m in SWEEP_EDGE_STEPS:
+        *args, own = RT._upload(edge_im, edge_angles, edge_starts, dev)
+        cases.append((f"edge inputs, max_steps {m or own}", (*args, m or own)))
+    return cases
+
+
+def sweep_case(case, args, timed=True):
+    """One sweep case on the card: the kernel's lengths and ends bit-equal
+    to its plain version's; with `timed`, the row of wrapper, bare kernel
+    and plain version beside the bound."""
     from yag_slam_tpu_torch import _build
     from yag_slam_tpu_torch.mapping import raytrace as RT
-    from yag_slam_tpu_torch.splicing import splice
 
-    lib = _build.library()
-    cents = splice.determine_centroids(labels)
-    starts = np.array([cents[k] for k in range(len(cents))])
-    angles = np.arange(-180, 180, 0.25)[:-1][::-1]
-    img, c, s, st, max_steps = RT._upload(im, angles, starts, dev)
+    img, c, s, st, max_steps = args
     (H, W), S, A = img.shape, st.shape[0], c.shape[0]
-    got = RT.sweep(img, c, s, st, max_steps, ends=True)
-    ref = RT.trace_sweeps_ref(img, c, s, st, max_steps, ends=True)
+    got = RT.sweep(*args, ends=True)
+    ref = RT.trace_sweeps_ref(*args, ends=True)
     err = max(max_abs_err(a, b) for a, b in zip(got, ref))
     if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        raise AssertionError(f"the sweep kernel differs from its plain version over "
-                             f"{S} centroids (max abs error {err} px)")
-    first, poison = RT.first_events(img, c, s, st, max_steps)
+        raise AssertionError(f"sweep case {case}: the kernel differs from its plain version "
+                             f"(max abs error {err} px)")
+    first, poison = RT.first_events(*args)
     steps = int((first + 1).sum())
-    waits = render_waits(lambda: RT.trace_sweeps(im, angles, starts, device=dev))
-    if len(waits) != SWEEP_WAITS:
-        raise AssertionError(f"a sweep waited for the card {len(waits)} times, not "
-                             f"{SWEEP_WAITS} (the copy up, the lengths back): {waits}")
+    row = dict(**bound(4 * H * W + 8 * A + 8 * S + 4 * S * A,
+                       SWEEP_STEP_OPS * steps + SWEEP_RAY_OPS * S * A),
+               case=case, shape=[S, A, H, W, max_steps], steps=steps,
+               longest=int(first.max()) + 1, poisoned=int(poison.sum()), max_abs_err=err,
+               library=SWEEP_NO_LIBRARY)
+    if not timed:
+        return row
 
     def ok(e):
         if e != 0:
             raise AssertionError(f"splice_sweep: bare launch failed, cudaError {e}")
 
-    length = torch.empty((S, A), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream().cuda_stream
-    row = dict(**bound(4 * H * W + 8 * A + 8 * S + 4 * S * A,
-                       SWEEP_STEP_OPS * steps + SWEEP_RAY_OPS * S * A),
-               case=f"{S} centroids", shape=[S, A, H, W, max_steps], steps=steps,
-               poisoned=int(poison.sum()), max_abs_err=err, library=SWEEP_NO_LIBRARY)
-    timings(row, lambda: RT.sweep(img, c, s, st, max_steps),
-            lambda: RT.trace_sweeps_ref(img, c, s, st, max_steps),
+    lib = _build.library()
+    length = torch.empty((S, A), dtype=torch.float32, device=img.device)
+    scratch, stream = RT._scratch(img).data_ptr(), torch.cuda.current_stream().cuda_stream
+    timings(row, lambda: RT.sweep(*args), lambda: RT.trace_sweeps_ref(*args),
             lambda: ok(lib.yag_sweep(img.data_ptr(), H, W, c.data_ptr(), s.data_ptr(), A,
                                      st.data_ptr(), S, max_steps, length.data_ptr(), None,
-                                     None, stream)))
+                                     None, scratch, stream)))
     if not torch.equal(length, got[0]):
-        raise AssertionError("splice_sweep: a bare launch's lengths differ")
+        raise AssertionError(f"splice_sweep: a bare launch's lengths differ ({case})")
+    return row
+
+
+def splice_sweep(im, labels, res, origin, dev, gpu):
+    """Phase 11 (b): the sweep kernel over every centroid of the card's
+    labels, at one start, on the long-ray map and on the edge inputs, each
+    held bit for bit to its plain version on the card (lengths and ends);
+    the first three timed as wrapper, bare kernel and plain version beside
+    the bound; a sweep's waits counted; then whole splices, split into
+    their parts, beside the per-centroid routes."""
+    from yag_slam_tpu_torch.mapping import raytrace as RT
+    from yag_slam_tpu_torch.splicing import splice
+
+    cents = splice.determine_centroids(labels)
+    starts = np.array([cents[k] for k in range(len(cents))])
+    angles = SPLICE_ANGLES
+    rows = [sweep_case(name, args, timed=i < 3)
+            for i, (name, args) in enumerate(sweep_cases(im, starts, dev))]
+    S, A, H, W, max_steps = rows[0]["shape"]
+    waits = render_waits(lambda: RT.trace_sweeps(im, angles, starts, device=dev))
+    if len(waits) != SWEEP_WAITS:
+        raise AssertionError(f"a sweep waited for the card {len(waits)} times, not "
+                             f"{SWEEP_WAITS} (the copy up, the lengths back): {waits}")
+    for r in rows:
+        timing = (f"ms kernel / wrapper / plain / bound ({r['bound_by']}): "
+                  f"{r['kernel_ms']:.4f} / {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+                  f"{r['bound_ms']:.5f}" if "kernel_ms" in r else "not timed")
+        log(f"phase 11: sweep case {r['case']} ({r['shape'][0]} x {r['shape'][1]} rays, "
+            f"map {r['shape'][3]}x{r['shape'][2]}, max_steps {r['shape'][4]}, {r['steps']} "
+            f"steps, longest {r['longest']}, {r['poisoned']} poisoned) bit-equal to its plain "
+            f"version (lengths and ends); {timing} ({gpu})")
 
     splice_parts(im, res, origin, dev)             # warm
     runs = [splice_parts(im, res, origin, dev) for _ in range(SPLICE_TIMED)]
@@ -2470,19 +2561,16 @@ def splice_sweep(im, labels, res, origin, dev, gpu):
     plain_loop_ms = per_centroid(plain_one)
     sweep_ms = min(timed(lambda: RT.trace_sweeps(im, angles, starts, device=dev))[1]
                    for _ in range(SPLICE_TIMED))
-    log(f"phase 11: sweep kernel over {S} centroids x {A} angles ({steps} steps, "
-        f"{row['poisoned']} rays poisoned, map {W}x{H}, max_steps {max_steps}) bit-equal to "
-        f"its plain version (lengths and ends); waits {len(waits)}; ms kernel / wrapper / "
-        f"plain / bound ({row['bound_by']}): {row['kernel_ms']:.4f} / {row['ms']:.4f} / "
-        f"{row['plain_ms']:.4f} / {row['bound_ms']:.5f}; trace_sweeps (copy up, launch, "
-        f"copy back) {sweep_ms:.3f} ms host wall ({gpu})")
+    log(f"phase 11: sweep over {S} centroids x {A} angles (map {W}x{H}, max_steps "
+        f"{max_steps}): waits {len(waits)}; trace_sweeps (copy up, launch, copy back) "
+        f"{sweep_ms:.3f} ms host wall ({gpu})")
     log(f"phase 11: map_to_graph on the card {split['map_to_graph']:.3f} ms (median of "
         f"{SPLICE_TIMED}): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()
                                          if k != "map_to_graph")
         + f"; per-centroid routes: trace_rays (the kernel at one start) x {S} "
         f"{kernel_loop_ms:.3f} ms, the plain version with a copy up and back a centroid "
         f"{plain_loop_ms:.3f} ms ({gpu})")
-    return dict(cases=[row], waits=len(waits), trace_sweeps_ms=sweep_ms, split=split,
+    return dict(cases=rows, waits=len(waits), trace_sweeps_ms=sweep_ms, split=split,
                 splits=runs, per_centroid_kernel_ms=kernel_loop_ms,
                 per_centroid_plain_ms=plain_loop_ms)
 

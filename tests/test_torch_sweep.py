@@ -12,12 +12,17 @@ the JAX package's, and ``create_edges`` (every boundary window at once)
 returns its list in its order, on the rendered map and on seeded label
 images with labels at the border, a missing id and one segment.
 ``map_to_graph`` makes one sweep call, for all centroids in id order.
+The edge inputs of chip_smoke's phase 11 (pixels at and beside the
+thresholds, NaN, +-inf and negative values; starts on the border, outside
+the image and on .5 pixels; max_steps 1 and 2; 50 angles, 650 rays) are
+held the same way, and the long-ray map is checked to run long rays.
 The CUDA dispatch is checked without a card: a sweep on a CUDA tensor
 launches its kernel or raises, and never runs its plain version.
 """
 import ast
 import inspect
 import os
+import re
 
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ import torch
 
 from yag_slam_tpu.mapping.raytrace import trace_rays as jax_trace_rays
 from yag_slam_tpu.splicing import splice as jax_splice
+import chip_smoke
 from yag_slam_tpu_torch import _build
 from yag_slam_tpu_torch.mapping import raytrace as RT
 from yag_slam_tpu_torch.splicing import splice
@@ -38,12 +44,13 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def one_start_march(img, angles_deg, sx, sy):
+def one_start_march(img, angles_deg, sx, sy, max_steps=None):
     """The earlier trace_rays on the CPU: one start, all (angle, step)
-    samples as an (A, max_steps) float32 tensor, sx and sy Python floats."""
+    samples as an (A, max_steps) float32 tensor, sx and sy Python floats;
+    max_steps the image's diagonal plus 2 unless given."""
     img = torch.as_tensor(np.asarray(img).astype(np.float32))
     h, w = img.shape
-    max_steps = int(np.ceil(np.hypot(h, w))) + 2
+    max_steps = max_steps or int(np.ceil(np.hypot(h, w))) + 2
     ang = torch.as_tensor(np.deg2rad(np.asarray(angles_deg, dtype=np.float64)).astype(np.float32))
     sx, sy = float(sx), float(sy)
     c, s = torch.cos(ang), torch.sin(ang)
@@ -149,6 +156,82 @@ def test_sweep_of_no_start_or_no_angle_is_empty():
     assert RT.trace_sweeps(img, np.arange(0, 360, 10.0), np.zeros((0, 2)),
                            device="cpu").shape == (0, 36)
     assert RT.trace_sweeps(img, [], [(50.0, 50.0)], device="cpu").shape == (1, 0)
+
+
+# -- phase 11's edge inputs and long-ray map ----------------------------------------
+
+EDGE = chip_smoke.sweep_edge_inputs()
+
+
+def test_edge_inputs_hold_every_edge():
+    """The image holds each edge value; the starts lie on the 1-px border,
+    outside the image and on .5 pixels; neither the angles nor the rays
+    fill a warp or a block evenly."""
+    im, angles, starts = EDGE
+    for v in chip_smoke.SWEEP_EDGE_VALUES:
+        assert (np.isnan(im).any() if np.isnan(v) else (im == np.float32(v)).any()), v
+    assert np.float32(chip_smoke.SWEEP_EDGE_VALUES[2]) < 210 < 255
+    h, w = im.shape
+    x, y = starts[:, 0], starts[:, 1]
+    assert ((x == 1) | (y == 1) | (x == w - 2) | (y == h - 2)).sum() >= 4
+    assert ((x < 0) | (y < 0) | (x > w - 1) | (y > h - 1)).sum() >= 3
+    assert ((x % 1 == 0.5) | (y % 1 == 0.5)).sum() >= 4
+    assert len(angles) % 32 and len(starts) * len(angles) % 32
+    assert chip_smoke.SWEEP_EDGE_STEPS[:2] == (1, 2)
+
+
+@pytest.mark.parametrize("max_steps", chip_smoke.SWEEP_EDGE_STEPS)
+def test_sweeps_equal_the_one_start_march_on_the_edge_inputs(max_steps):
+    im, angles, starts = EDGE
+    img_t, c, s, st, own = RT._upload(im, angles, starts, torch.device("cpu"))
+    m = max_steps or own
+    ln, ex, ey = (t.numpy() for t in RT.trace_sweeps_ref(img_t, c, s, st, m, ends=True))
+    assert ln.shape == (13, 50) and np.isfinite(ln).all()
+    for i, (sx, sy) in enumerate(starts):
+        for got, want in zip((ex[i], ey[i], ln[i]), one_start_march(im, angles, sx, sy, m)):
+            np.testing.assert_array_equal(got, want)
+    if max_steps is None:
+        # the image's own steps: trace_rays and trace_sweeps take the same
+        np.testing.assert_array_equal(RT.trace_sweeps(im, angles, starts, device="cpu"), ln)
+    else:
+        assert (np.floor(ln) <= m + 1000).all()
+
+
+def test_sweeps_match_jax_on_the_edge_inputs():
+    im, angles, starts = EDGE
+    got = RT.trace_sweeps(im, angles, starts, device="cpu")
+    ref = np.stack([jax_trace_rays(im, angles, x, y)[2] for x, y in starts])
+    assert_rays_close(got, ref)
+    assert (got > 1000).any()     # an unknown pixel poisons some ray
+
+
+def test_long_ray_map_runs_long_rays():
+    """Phase 11's long-ray map: walled in, its rays hundreds of steps long
+    on average, the longest past a thousand, some poisoned (every 40th of
+    the splice's angles)."""
+    im, starts = chip_smoke.long_ray_map()
+    n = chip_smoke.SWEEP_LONG_SIZE
+    assert im.shape == (n, n) and (im[[0, -1]] == 0).all() and (im[:, [0, -1]] == 0).all()
+    assert starts.shape == (chip_smoke.SWEEP_LONG_STARTS, 2)
+    img_t, c, s, st, m = RT._upload(im, chip_smoke.SPLICE_ANGLES[::40], starts,
+                                    torch.device("cpu"))
+    first, poison = RT.first_events(img_t, c, s, st, m)
+    assert (first + 1).double().mean() > 300 and int(first.max()) + 1 > 1000
+    assert poison.any()
+
+
+def test_phase_11_sweep_cases():
+    """Phase 11's cases: every centroid first, then one start, the long-ray
+    map and the edge inputs at max_steps 1, 2 and their own."""
+    im, angles, starts = EDGE
+    cases = chip_smoke.sweep_cases(im, starts[:3], torch.device("cpu"))
+    assert [name for name, _ in cases] == [
+        "3 centroids", "one start", "long-ray map", "edge inputs, max_steps 1",
+        "edge inputs, max_steps 2", "edge inputs, max_steps 80"]
+    assert [args[3].shape[0] for _, args in cases] == [3, 1, 16, 13, 13, 13]
+    assert all(args[1].shape[0] == 1439 for _, args in cases[:3])
+    row = chip_smoke.sweep_case(*cases[3], timed=False)
+    assert row["max_abs_err"] == 0 and row["longest"] == 1 and row["steps"] == 650
 
 
 # -- centroids and edges -----------------------------------------------------------
@@ -288,6 +371,7 @@ def fake_card(monkeypatch):
     the test if it runs."""
     monkeypatch.setattr(RT, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(RT, "_stream", lambda t: 0)
+    monkeypatch.setattr(RT, "_SCRATCH", {})
     monkeypatch.setattr(RT, "trace_sweeps_ref", lambda *a, **k: pytest.fail("plain version ran"))
 
     def use(err):
@@ -310,14 +394,21 @@ def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(fake_card, e
     out = RT.sweep(*_inputs(), ends=ends)
     assert RT.LAUNCHES == {"splice_sweep": 1} and len(lib.calls) == 1
     args = lib.calls[0]
-    assert args[1:3] == (7, 9) and args[5] == 5 and args[7:9] == (3, 14)
+    assert len(args) == 14 and args[1:3] == (7, 9) and args[5] == 5 and args[7:9] == (3, 14)
     assert (args[10] is not None) == ends and (args[11] is not None) == ends
+    # the claim counters: one zeroed scratch a (device, stream), kept, not
+    # made a call
+    (scratch,) = RT._SCRATCH.values()
+    assert args[12] == scratch.data_ptr() and args[13] == 0
+    assert scratch.dtype == torch.int32 and scratch.tolist() == [0, 0]
+    RT.sweep(*_inputs(), ends=ends)
+    assert lib.calls[1][12] == args[12] and len(RT._SCRATCH) == 1
     for t in (out if ends else (out,)):
         assert t.shape == (3, 5) and t.dtype == torch.float32
     fake_card(9)
     with pytest.raises(RuntimeError, match="splice_sweep kernel launch failed: cudaError 9"):
         RT.sweep(*_inputs(), ends=ends)
-    assert RT.LAUNCHES == {"splice_sweep": 2}
+    assert RT.LAUNCHES == {"splice_sweep": 3}
 
 
 def test_cuda_sweep_checks_its_inputs(fake_card):
@@ -382,15 +473,20 @@ def test_sweep_kernel_is_in_the_library_build():
     replaces."""
     srcs, _ = _build._sources()
     assert "sweep.cu" in {p.name for p in srcs}
-    assert "yag_sweep" in _build._SIGNATURES and len(_build._SIGNATURES["yag_sweep"]) == 13
+    assert "yag_sweep" in _build._SIGNATURES and len(_build._SIGNATURES["yag_sweep"]) == 14
     assert set(RT.KERNELS) == set(RT.LAUNCHES) == {"splice_sweep"}
     info = RT.KERNELS["splice_sweep"]
     path, line = info["replaces"].rsplit(":", 1)
     text = open(os.path.join(REPO, path)).read().splitlines()[int(line) - 1]
     assert text.startswith("def _trace_rays_device(")
     src = open(os.path.join(REPO, info["source"])).read()
-    assert all(f"__global__ void {s}(" in src for s in info["symbols"])
+    assert all(re.search(rf"__global__ void (__launch_bounds__\([^)]*\)\s*)?{s}\(", src)
+               for s in info["symbols"])
     assert 'extern "C" int yag_sweep(' in src
-    # every float32 product and sum of the march is rounded on its own
-    body = src[src.index("__global__ void sweep_kernel("):src.index('extern "C"')]
-    assert "__fmul_rn(c, kn)" in body and "__fadd_rn(st.x, __fmul_rn(c, dist))" in body
+    # every float32 product and sum of the march is rounded on its own: a
+    # step's position (pixel) and the end; the steps ahead count by sums
+    body = src[src.index("__device__ __forceinline__ int2 pixel("):src.index('extern "C"')]
+    assert "__fadd_rn(q.sx, __fmul_rn(q.c, kf))" in body
+    assert "__fadd_rn(q.sx, __fmul_rn(q.c, dist))" in body
+    assert "pixel(q, __fadd_rn(kf, (float)(i + 1)))" in body
+    assert not re.search(r"[^_]\b(?:q\.[cs]|kf|dist|dx|dy) \* ", body)
