@@ -2503,11 +2503,11 @@ def sweep_case(case, args, timed=True):
 
     lib = _build.library()
     length = torch.empty((S, A), dtype=torch.float32, device=img.device)
-    scratch, stream = RT._scratch(img).data_ptr(), torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream().cuda_stream
     timings(row, lambda: RT.sweep(*args), lambda: RT.trace_sweeps_ref(*args),
             lambda: ok(lib.yag_sweep(img.data_ptr(), H, W, c.data_ptr(), s.data_ptr(), A,
                                      st.data_ptr(), S, max_steps, length.data_ptr(), None,
-                                     None, scratch, stream)))
+                                     None, stream)))
     if not torch.equal(length, got[0]):
         raise AssertionError(f"splice_sweep: a bare launch's lengths differ ({case})")
     return row

@@ -371,7 +371,6 @@ def fake_card(monkeypatch):
     the test if it runs."""
     monkeypatch.setattr(RT, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(RT, "_stream", lambda t: 0)
-    monkeypatch.setattr(RT, "_SCRATCH", {})
     monkeypatch.setattr(RT, "trace_sweeps_ref", lambda *a, **k: pytest.fail("plain version ran"))
 
     def use(err):
@@ -394,21 +393,14 @@ def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(fake_card, e
     out = RT.sweep(*_inputs(), ends=ends)
     assert RT.LAUNCHES == {"splice_sweep": 1} and len(lib.calls) == 1
     args = lib.calls[0]
-    assert len(args) == 14 and args[1:3] == (7, 9) and args[5] == 5 and args[7:9] == (3, 14)
+    assert args[1:3] == (7, 9) and args[5] == 5 and args[7:9] == (3, 14)
     assert (args[10] is not None) == ends and (args[11] is not None) == ends
-    # the claim counters: one zeroed scratch a (device, stream), kept, not
-    # made a call
-    (scratch,) = RT._SCRATCH.values()
-    assert args[12] == scratch.data_ptr() and args[13] == 0
-    assert scratch.dtype == torch.int32 and scratch.tolist() == [0, 0]
-    RT.sweep(*_inputs(), ends=ends)
-    assert lib.calls[1][12] == args[12] and len(RT._SCRATCH) == 1
     for t in (out if ends else (out,)):
         assert t.shape == (3, 5) and t.dtype == torch.float32
     fake_card(9)
     with pytest.raises(RuntimeError, match="splice_sweep kernel launch failed: cudaError 9"):
         RT.sweep(*_inputs(), ends=ends)
-    assert RT.LAUNCHES == {"splice_sweep": 3}
+    assert RT.LAUNCHES == {"splice_sweep": 2}
 
 
 def test_cuda_sweep_checks_its_inputs(fake_card):
@@ -473,7 +465,7 @@ def test_sweep_kernel_is_in_the_library_build():
     replaces."""
     srcs, _ = _build._sources()
     assert "sweep.cu" in {p.name for p in srcs}
-    assert "yag_sweep" in _build._SIGNATURES and len(_build._SIGNATURES["yag_sweep"]) == 14
+    assert "yag_sweep" in _build._SIGNATURES and len(_build._SIGNATURES["yag_sweep"]) == 13
     assert set(RT.KERNELS) == set(RT.LAUNCHES) == {"splice_sweep"}
     info = RT.KERNELS["splice_sweep"]
     path, line = info["replaces"].rsplit(":", 1)
@@ -484,9 +476,12 @@ def test_sweep_kernel_is_in_the_library_build():
                for s in info["symbols"])
     assert 'extern "C" int yag_sweep(' in src
     # every float32 product and sum of the march is rounded on its own: a
-    # step's position (pixel) and the end; the steps ahead count by sums
+    # step's position (pixel, and x in a chunk inside the border, rounded
+    # by the adder) and the end; the steps ahead count by sums
     body = src[src.index("__device__ __forceinline__ int2 pixel("):src.index('extern "C"')]
     assert "__fadd_rn(q.sx, __fmul_rn(q.c, kf))" in body
+    assert "__fadd_rn(__fadd_rn(q.sx, __fmul_rn(q.c, kn)), kMagic)" in body
+    assert "__fadd_rn(q.sy, __fmul_rn(q.s, kn))" in body
     assert "__fadd_rn(q.sx, __fmul_rn(q.c, dist))" in body
     assert "pixel(q, __fadd_rn(kf, (float)(i + 1)))" in body
-    assert not re.search(r"[^_]\b(?:q\.[cs]|kf|dist|dx|dy) \* ", body)
+    assert not re.search(r"[^_]\b(?:q\.[cs]|kf|kn|dist|dx|dy) \* ", body)

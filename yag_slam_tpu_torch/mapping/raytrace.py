@@ -41,26 +41,11 @@ KERNELS = {
 # (start, angle, step) samples the plain version takes at a time; bounds
 # its temporaries
 _SAMPLE_CHUNK = 1 << 22
-# the kernel's scratch per (device, stream); see _scratch
-_SCRATCH = {}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _scratch(t):
-    """The kernel's scratch on t's device and current stream: uint32 (2,),
-    the counter of claimed rays and of finished blocks, zeroed when first
-    made here and kept; each launch's last block sets both back to 0.
-    Kernels on one stream run one after the other, so no two launches
-    share a scratch at once; a caller on another stream gets its own."""
-    key = (t.device, _stream(t))
-    buf = _SCRATCH.get(key)
-    if buf is None:
-        buf = _SCRATCH.setdefault(key, torch.zeros(2, dtype=torch.int32, device=t.device))
-    return buf
 
 
 def first_events(img, cos, sin, starts, max_steps: int):
@@ -125,9 +110,11 @@ def sweep(img, cos, sin, starts, max_steps: int, *, ends: bool = False):
     note and csrc/sweep.cu for its stop events.
 
     Replaces the JAX package's _trace_rays_device, one program a start,
-    with one launch for all of them: a persistent grid whose lanes march a
-    ray at a time, reading 16 steps ahead, and take the next ray when theirs
-    ends (csrc/sweep.cu).
+    with one launch for all of them: a thread a ray reads its next 24
+    steps at once and tests them in order, and a chunk whose ends lie
+    inside the border skips the border tests (csrc/sweep.cu).  On the card
+    the kernel takes max_steps <= 2^24, sides below 2^22 pixels and fewer
+    than 2^31 pixels and rays, and raises past them.
     """
     if not _on_cuda(img, cos, sin, starts):
         return trace_sweeps_ref(img, cos, sin, starts, max_steps, ends=ends)
@@ -146,7 +133,7 @@ def sweep(img, cos, sin, starts, max_steps: int, *, ends: bool = False):
     ex, ey = (out[1].data_ptr(), out[2].data_ptr()) if ends else (None, None)
     err = _build.library().yag_sweep(
         img.data_ptr(), H, W, cos.data_ptr(), sin.data_ptr(), A, starts.data_ptr(), S,
-        max_steps, out[0].data_ptr(), ex, ey, _scratch(img).data_ptr(), _stream(img))
+        max_steps, out[0].data_ptr(), ex, ey, _stream(img))
     LAUNCHES["splice_sweep"] += 1
     _check(err, "splice_sweep")
     return tuple(out) if ends else out[0]
