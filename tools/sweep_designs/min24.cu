@@ -1,9 +1,9 @@
 // The splice's ray sweep of mapping/raytrace.py: every ray of every start
 // marched through a saved map image in one launch.
 //
-//   sweep_kernel   a lane a ray at a time, kAhead steps read at once; a
-//                  persistent grid whose warps hand a new ray to each lane
-//                  whose ray has ended.
+//   sweep_kernel   a thread a (start, angle); kAhead steps of its ray read
+//                  at once, then tested in step order, until the ray's
+//                  first stop event; then its end point and length.
 //
 // Replaces the JAX package's yag_slam_tpu/mapping/raytrace.py
 // _trace_rays_device (plain XLA over an (angles, max_steps) array, one
@@ -28,56 +28,57 @@
 // plain version's operation for operation.  cos and sin are inputs (torch's,
 // on the card), so kernel and plain version see the same bits and agree
 // bit for bit.  A step's k is a float32 sum of whole numbers, exact below
-// 2^24: the launcher refuses a larger max_steps.
+// 2^24.
 //
 // Bound: a step is ~15 float32 operations and one 4-byte read of the image
-// (1.5 MB at the map cell's 642 x 592, resident in L2 after its first
-// touch); the bytes are the image once and the lengths once, a few MB.  So
-// the floor is the float32 operations of the steps the rays take, which
-// depend on the map (~47 steps a ray there, the longest ~500).  Two things
-// keep a plain thread-a-ray march far from it, and the design answers
-// each:
-// - each step's read waits for the last one's value, one cache round trip
-//   a step, so the longest rays set the time.  A lane computes the pixels
-//   of its next kAhead steps (no step's position reads a pixel), issues
-//   their reads together and then tests them in step order: a round trip
-//   per kAhead steps.  Reads past the first event are discarded (a pixel
-//   outside the border is not read; the start's is clamped, as a step's
-//   is).
-// - a warp runs as long as its longest ray, and a grid of one ray a thread
-//   runs in waves.  The grid is one wave; each warp keeps a stash of 32
-//   rays (a ray a lane: its start and direction) and hands the next of
-//   them to each lane whose ray has ended, claiming another 32 with one
-//   atomicAdd when the stash is spent.  The first stash of each warp is
-//   fixed; the counter of claimed rays and the count of finished blocks
-//   live in a scratch the wrapper keeps per (device, stream), and the last
-//   block to finish sets both back to 0 for the next launch.
+// (1.5 MB at the map cell's 642 x 592, in L2 after its first touch); the
+// bytes are the image once and the lengths once.  So the floor is the
+// float32 operations of the steps the rays take, which depend on the map
+// (~58 steps a ray at phase 11's 255 centroids, the longest ~600).  The
+// first draft, a step a loop turn, waited one cache round trip a step and
+// spent ~27 instructions on it, 17 of them on the integer pipe.  The
+// design cuts both:
+// - each thread computes the pixels of its next kAhead steps (no step's
+//   position reads a pixel), issues their reads together and then tests
+//   them in step order: a round trip a chunk, not a step.  Reads past the
+//   first event are discarded.
+// - a ray's pixels are monotone in k (a rounded product and sum are
+//   monotone, and so is rint), so a chunk whose first pixel and the pixel
+//   after its last lie inside the border has every step inside: such a
+//   chunk skips the border tests, the read's clamp and its predicate, and
+//   rounds x by the float adder, whose bits give rint(x) plus a constant
+//   folded into the image's base.  Pixel indices are 32-bit.  The other
+//   chunks (the start's, and those at the border) take every test.  This
+//   leaves ~12 instructions a step, ~3 on the integer pipe and one
+//   conversion.
+// - neighbouring threads hold neighbouring angles of one start, all at
+//   the same step, so a warp's reads lie on a short arc: ~3.6 cache lines
+//   a warp read on the map cell's map.
+// Refilling the lanes whose ray has ended, a warp a ray, groups of lanes
+// a ray, a 1- or 2-bit class map and a warp-marched tail were each timed
+// against this design and lost (PERF.md §6, PR 23).
 //
 // Layout contract (checked by the wrapper raytrace.sweep):
-//   img (H, W) float32; cos, sin (A,) float32; starts (S, 2) float32
-//   [sx, sy] in pixels, 4-byte aligned; length (S, A) float32; end_x,
-//   end_y (S, A) float32 or null; scratch 2 uint32, zero before the first
-//   launch.
+//   img (H, W) float32, H, W < 2^22, H * W < 2^31; cos, sin (A,) float32;
+//   starts (S, 2) float32 [sx, sy] in pixels, 4-byte aligned, S * A <
+//   2^31; max_steps <= 2^24; length (S, A) float32; end_x, end_y (S, A)
+//   float32 or null.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <algorithm>
-
-#include "device.cuh"
-
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kAhead = 24;           // steps a lane reads at once
-constexpr unsigned kFull = 0xffffffffu, kNone = 0xffffffffu;
+constexpr int kThreads = 64;
+constexpr int kAhead = 24;                  // steps a thread reads at once
 constexpr float kStop = 210.0f, kUnknown = 180.0f, kPoison = 1000.0f;
-constexpr int kMaxSteps = 1 << 24;   // k stays exact in float32 below
-constexpr long long kMaxRays = 1ll << 30;   // ray indices and claims in 32 bits
-constexpr long long kMaxPixels = (1ll << 31) - 1;   // pixel indices in 32 bits
-constexpr float kMagic = 12582912.0f;     // 1.5 * 2^23
-constexpr unsigned kMagicBits = 0x4B400000u;   // its bits
-constexpr int kMaxSide = 1 << 22;
+// x + 1.5 * 2^23 rounds x half to even, and for |x| < 2^22 its bits are
+// kMagicBits + rint(x)
+constexpr float kMagic = 12582912.0f;
+constexpr unsigned kMagicBits = 0x4B400000u;
+constexpr long long kMaxSide = 1ll << 22;
+constexpr long long kMaxIndex = (1ll << 31) - 1;   // rays and pixels
+constexpr int kMaxSteps = 1 << 24;          // k stays exact in float32
 
 __device__ __forceinline__ bool outside(int xi, int yi, int w, int h) {
   return yi < 1 || xi < 1 || xi >= w - 1 || yi >= h - 1;
@@ -87,57 +88,45 @@ struct Ray {
   float sx, sy, c, s;
 };
 
-// ray r's start and direction (zeros past the last ray); two 4-byte reads
-// of the start: the starts may sit at any 4-byte offset of the wrapper's
-// one uploaded buffer
-__device__ __forceinline__ Ray load_ray(unsigned r, unsigned n_rays, unsigned n_angles,
-                                        const float* __restrict__ starts,
-                                        const float* __restrict__ cosv,
-                                        const float* __restrict__ sinv) {
-  Ray q = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (r < n_rays) {
-    const unsigned si = r / n_angles, a = r - si * n_angles;
-    q = {starts[2 * si], starts[2 * si + 1], cosv[a], sinv[a]};
-  }
-  return q;
-}
-
 __device__ __forceinline__ int2 pixel(const Ray& q, float kf) {
   return make_int2((int)rintf(__fadd_rn(q.sx, __fmul_rn(q.c, kf))),
                    (int)rintf(__fadd_rn(q.sy, __fmul_rn(q.s, kf))));
 }
 
-
-__global__ void __launch_bounds__(128, 12)
+__global__ void __launch_bounds__(kThreads)
 sweep_kernel(const float* __restrict__ img, int h, int w, const float* __restrict__ cosv,
              const float* __restrict__ sinv, unsigned n_angles,
              const float* __restrict__ starts, unsigned n_rays, int max_steps,
              float* __restrict__ length, float* __restrict__ end_x,
              float* __restrict__ end_y) {
-  const unsigned r = blockIdx.x * 128u + threadIdx.x;
+  const unsigned r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n_rays) return;
-  const Ray q = load_ray(r, n_rays, n_angles, starts, cosv, sinv);
+  const unsigned a = r % n_angles, si = r / n_angles;
+  // two 4-byte reads: the starts may sit at any 4-byte offset of the
+  // wrapper's one uploaded buffer
+  const Ray q = {starts[2 * si], starts[2 * si + 1], cosv[a], sinv[a]};
+  // the image less kMagicBits pixels: indexed by row * w + the bits of x + kMagic
+  const float* const shifted = (const float*)((uintptr_t)img - 4ull * kMagicBits);
+
   for (int k = 0;; k += kAhead) {
     const float kf = (float)k;
     float v[kAhead];
-    unsigned ev = 0;
+    unsigned ev = 0;                         // bit i: an event at step k + i
     int2 p = pixel(q, kf);
-    const int2 end = pixel(q, __fadd_rn(kf, (float)kAhead));
-    if (!outside(p.x, p.y, w, h) && !outside(end.x, end.y, w, h)) {
-      // a ray's pixels are monotone in k: every step of the chunk lies
-      // inside the border, so no step needs its test
-      // inside, |x| < 2^22: x + 1.5 * 2^23 rounds x half to even, and its
-      // bits are 0x4B400000 + rint(x), an offset folded into the base
-      const float* base = (const float*)((uintptr_t)img - 4ull * kMagicBits);
+    const int2 after = pixel(q, __fadd_rn(kf, (float)kAhead));
+    if (!outside(p.x, p.y, w, h) && !outside(after.x, after.y, w, h)) {
+      // every step of the chunk lies inside the border
       v[0] = __ldg(img + (p.y * w + p.x));
 #pragma unroll
       for (int i = 1; i < kAhead; ++i) {
         const float kn = __fadd_rn(kf, (float)i);
-        const unsigned xb = __float_as_uint(__fadd_rn(__fadd_rn(q.sx, __fmul_rn(q.c, kn)), kMagic));
+        const unsigned xb =
+            __float_as_uint(__fadd_rn(__fadd_rn(q.sx, __fmul_rn(q.c, kn)), kMagic));
         const int yi = (int)rintf(__fadd_rn(q.sy, __fmul_rn(q.s, kn)));
-        v[i] = __ldg(base + ((unsigned)yi * (unsigned)w + xb));
+        v[i] = __ldg(shifted + ((unsigned)yi * (unsigned)w + xb));
       }
     } else {
+      // step k's pixel is inside the border unless k = 0 (the start): clamp
       v[0] = __ldg(img + (min(max(p.y, 0), h - 1) * w + min(max(p.x, 0), w - 1)));
 #pragma unroll
       for (int i = 0; i < kAhead; ++i) {
@@ -147,15 +136,24 @@ sweep_kernel(const float* __restrict__ img, int h, int w, const float* __restric
         if (i + 1 < kAhead) v[i + 1] = off ? 0.0f : __ldg(img + (p.y * w + p.x));
       }
     }
+    // a value stop anywhere in the chunk: its least value (fminf passes
+    // over NaN, which never stops) below 210
+    float least = v[0];
 #pragma unroll
-    for (int i = 0; i < kAhead; ++i) ev |= (unsigned)(v[i] < kStop) << i;
-    const int last = max_steps - 1 - k;
+    for (int i = 1; i < kAhead; ++i) least = fminf(least, v[i]);
+    if (least < kStop) {
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) ev |= (unsigned)(v[i] < kStop) << i;
+    }
+    const int last = max_steps - 1 - k;      // the last step is an event
     if (last < kAhead) ev |= 1u << last;
     if (ev == 0) continue;
+
     const int e = __ffs(ev) - 1;
     float val = v[0];
 #pragma unroll
     for (int i = 1; i < kAhead; ++i) val = i == e ? v[i] : val;
+    // a border stop at the same step as a value stop still stopped on its value
     const bool poison = val < kStop && val > kUnknown;
     const float dist = __fadd_rn((float)(k + e + 1), poison ? kPoison : 0.0f);
     const float ex = __fadd_rn(q.sx, __fmul_rn(q.c, dist));
@@ -177,10 +175,11 @@ extern "C" int yag_sweep(const void* img, int h, int w, const void* cosv, const 
                          void* length, void* end_x, void* end_y, void* stream) {
   const long long n_rays = (long long)n_starts * n_angles;
   if (n_rays == 0) return 0;
-  if (n_rays > kMaxRays || max_steps > kMaxSteps || (long long)h * w > kMaxPixels ||
-      h >= kMaxSide || w >= kMaxSide)
+  if (n_rays > kMaxIndex || (long long)h * w > kMaxIndex || h >= kMaxSide ||
+      w >= kMaxSide || max_steps > kMaxSteps)
     return (int)cudaErrorInvalidValue;
-  sweep_kernel<<<(unsigned)((n_rays + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+  const unsigned blocks = (unsigned)((n_rays + kThreads - 1) / kThreads);
+  sweep_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)img, h, w, (const float*)cosv, (const float*)sinv, (unsigned)n_angles,
       (const float*)starts, (unsigned)n_rays, max_steps, (float*)length, (float*)end_x,
       (float*)end_y);
