@@ -368,6 +368,9 @@ SWEEP_EDGE_VALUES = (180.0, 210.0, float(np.nextafter(np.float32(210), np.float3
                      float(np.nextafter(np.float32(180), np.float32(255))), np.nan, np.inf,
                      -np.inf, -7.5, 0.0)
 SWEEP_EDGE_STEPS = (1, 2, None)
+# phase 11 times the first cases of sweep_cases (every centroid, one
+# start, the long-ray map); the edge inputs are held only
+SWEEP_TIMED_CASES = 3
 # phase 12: the SPA crossover (profile_spa_torch.crossover at
 # profile_spa.py's sizes); the cg columns run to the LM cap from 500 nodes
 # (15-75 s a cell): timed at these sizes only, to keep the script within
@@ -2466,9 +2469,9 @@ def sweep_cases(im, starts, dev):
     cases = [(f"{len(starts)} centroids", RT._upload(im, SPLICE_ANGLES, starts, dev)),
              ("one start", RT._upload(im, SPLICE_ANGLES, starts[:1], dev)),
              ("long-ray map", RT._upload(long_im, SPLICE_ANGLES, long_starts, dev))]
-    for m in SWEEP_EDGE_STEPS:
-        *args, own = RT._upload(edge_im, edge_angles, edge_starts, dev)
-        cases.append((f"edge inputs, max_steps {m or own}", (*args, m or own)))
+    *edge, own = RT._upload(edge_im, edge_angles, edge_starts, dev)
+    cases += [(f"edge inputs, max_steps {m or own}", (*edge, m or own))
+              for m in SWEEP_EDGE_STEPS]
     return cases
 
 
@@ -2526,7 +2529,7 @@ def splice_sweep(im, labels, res, origin, dev, gpu):
     cents = splice.determine_centroids(labels)
     starts = np.array([cents[k] for k in range(len(cents))])
     angles = SPLICE_ANGLES
-    rows = [sweep_case(name, args, timed=i < 3)
+    rows = [sweep_case(name, args, timed=i < SWEEP_TIMED_CASES)
             for i, (name, args) in enumerate(sweep_cases(im, starts, dev))]
     S, A, H, W, max_steps = rows[0]["shape"]
     waits = render_waits(lambda: RT.trace_sweeps(im, angles, starts, device=dev))

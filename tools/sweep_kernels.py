@@ -2,7 +2,7 @@
 """The splice's sweep kernel, this tree's and other sources', timed in turns on the CUDA card.
 
     python3 tools/sweep_kernels.py [--parent PATH] [--design NAME=PATH ...] [--turns 2]
-                                   [--out chiprun_out/sweep.json]
+                                   [--out FILE]
 
 Each source (this tree's ``csrc/sweep.cu``; ``--parent``: the parent
 tree's copy; ``--design``: any other) is compiled with this tree's nvcc
@@ -13,7 +13,7 @@ scratch where it takes one).  The cases are phase 11's of chip_smoke.py
 building tour, as phase 4 makes it: every centroid of the card's
 segmentation, one start, the long-ray map and the edge inputs.  Every
 source's lengths and ends are first held bit-equal to the plain version's
-on every case; then each of the first three cases is timed bare
+on every case; then each of the timed cases is timed bare
 (``device_ms``) in turns: the sources in order, then in reverse, ``--turns``
 times.  Prints the card, then a line a case and source: the median of its
 turns' ms, each turn's ms, and the bound.  Needs a CUDA card and nvcc.
@@ -38,7 +38,6 @@ if ROOT not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-TIMED_CASES = 3
 # ctypes type of each parameter of yag_sweep, by name
 _INTS = {"h", "w", "n_angles", "n_starts", "max_steps"}
 
@@ -161,7 +160,7 @@ def main(argv=None):
                 raise AssertionError(f"{k}: differs from the plain version on {case}")
         row = chip_smoke.sweep_case(case, inputs, timed=False)
         row["ms"] = {k: [] for k in libs}
-        if i < TIMED_CASES:
+        if i < chip_smoke.SWEEP_TIMED_CASES:
             kernels = {k: Kernel(lib, names[k], inputs, ends=False) for k, lib in libs.items()}
             for turn in range(args.turns):
                 order = list(kernels) if turn % 2 == 0 else list(kernels)[::-1]
